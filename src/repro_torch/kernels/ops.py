@@ -1,0 +1,69 @@
+"""Tree-attention wrapper around ``flash_decode``: full tree-attention
+semantics = (cache sweep via the kernel) ⊕ (tiny tree block) merged
+exactly through the partial-softmax statistics.
+
+Counterpart of ``repro.kernels.ops.tree_attention``, dense fp subset.  The
+fold, the tree block and the merge are the plain PyTorch ops the
+reference runs in ``jnp`` outside its kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.tree_attention import flash_decode
+from repro_torch.models.layers import NEG_INF
+
+
+def tree_attention(q, k, v, tree_mask, lengths, scale, *, k_tree=None,
+                   v_tree=None):
+    """Tree-decode attention over a committed cache plus T in-flight rows.
+
+    q [B, T, Hq, D] f32/bf16; k/v [B, S, Hkv, D] fp with the tree rows
+    already written at [lengths, lengths+T); tree_mask [T, T] bool;
+    lengths [B] int32.  Pass ``k_tree``/``v_tree`` [B, T, Hkv, D] (the
+    in-flight tree rows) to skip gathering them from the cache.  Returns
+    [B, T, Hq, D] in q.dtype.
+    """
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    lengths = lengths.to(torch.int32)
+
+    # fold q: [B,T,Hq,D] -> [B,Hkv,R,D], row r = g*T_pad + t (T padded so
+    # R is a multiple of 8, as in the reference)
+    T_pad = T
+    while (G * T_pad) % 8:
+        T_pad += 1
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, T_pad - T))
+    qf = qp.reshape(B, T_pad, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    qf = qf.reshape(B, Hkv, G * T_pad, D) * torch.tensor(scale, dtype=q.dtype)
+
+    acc1, m1, l1 = flash_decode(qf, k, v, lengths)         # [B,Hkv,R,D] f32
+
+    # --- tree block (tiny) --------------------------------------------------
+    if k_tree is None:
+        idx = lengths[:, None].long() + torch.arange(T, device=q.device)
+        rows = torch.arange(B, device=q.device)[:, None]
+        k_tree, v_tree = k[rows, idx], v[rows, idx]         # [B,T,Hkv,D]
+    scores2 = torch.einsum("bhrd,bthd->bhrt", qf,
+                           k_tree.to(qf.dtype)).float()
+    # row r sees tree col t' iff tree_mask[r % T_pad, t'] (pad rows: none)
+    row_mask = torch.zeros((T_pad, T), dtype=torch.bool, device=q.device)
+    row_mask[:T] = tree_mask
+    row_mask = row_mask.repeat(G, 1)                        # [R, T]
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
+    scores2 = torch.where(row_mask, scores2, neg)
+    m2 = torch.clamp(torch.amax(scores2, dim=-1, keepdim=True), min=NEG_INF)
+    p2 = torch.where(row_mask, torch.exp(scores2 - m2),
+                     torch.zeros((), device=q.device))
+    l2 = torch.sum(p2, dim=-1, keepdim=True)
+    acc2 = torch.einsum("bhrt,bthd->bhrd", p2.to(qf.dtype),
+                        v_tree.to(qf.dtype)).float()
+
+    # --- exact merge --------------------------------------------------------
+    m = torch.maximum(m1, m2)
+    a1, a2 = torch.exp(m1 - m), torch.exp(m2 - m)
+    out = (acc1 * a1 + acc2 * a2) / torch.clamp(l1 * a1 + l2 * a2, min=1e-30)
+
+    out = out.reshape(B, Hkv, G, T_pad, D).permute(0, 3, 1, 2, 4)
+    return out[:, :T].reshape(B, T, Hq, D).to(q.dtype)

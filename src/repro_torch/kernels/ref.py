@@ -1,0 +1,47 @@
+"""Plain PyTorch oracle for the tree-attention decode step (counterpart of
+``repro.kernels.ref``, dense fp subset).
+
+Semantics: query node t attends to (a) every committed cache slot
+s < lengths[b] and (b) tree slots [lengths[b], lengths[b]+T) visible under
+``tree_mask`` — exactly ``layers.decode_mask``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import NEG_INF
+
+
+def decode_mask_ref(tree_mask, lengths, S_max: int):
+    """tree_mask [T, T] bool, lengths [B] int -> visibility [B, T, S_max]
+    bool: committed past (s < length) plus the tree block under its mask."""
+    T = tree_mask.shape[0]
+    B = lengths.shape[0]
+    s_idx = torch.arange(S_max, device=tree_mask.device)
+    past = (s_idx[None, :] < lengths[:, None])[:, None, :].expand(B, T, S_max)
+    tree_full = torch.zeros((B, T, S_max), dtype=torch.bool,
+                            device=tree_mask.device)
+    for b, length in enumerate(lengths.tolist()):
+        # the reference's dynamic_update_slice clamps the start so the
+        # [T, T] block stays inside the row
+        start = min(max(length, 0), S_max - T)
+        tree_full[b, :, start:start + T] = tree_mask
+    return past | tree_full
+
+
+def tree_attention_ref(q, k, v, tree_mask, lengths, scale):
+    """q [B, T, Hq, D] f32/bf16; k/v [B, S, Hkv, D] fp with tree rows already
+    written at [lengths, lengths+T); lengths [B] int.
+    Returns [B, T, Hq, D] in q.dtype."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    mask = decode_mask_ref(tree_mask, lengths, S)          # [B, T, S]
+    qg = q.reshape(B, T, Hkv, G, D)
+    scores = torch.einsum("bthgd,bshd->bhgts", qg,
+                          k.to(q.dtype)).float() * scale
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.tensor(NEG_INF, device=scores.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgts,bshd->bthgd", probs, v.to(q.dtype))
+    return out.reshape(B, T, Hq, D)

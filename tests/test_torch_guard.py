@@ -1,0 +1,100 @@
+"""Guards on the PyTorch port's boundaries.
+
+* No module of ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+  ``jax``, ``jaxlib`` or the reference package ``repro`` (the machine with
+  the card has no JAX; the port keeps its own copies).
+* The entry points raise when there is no GPU and the caller did not ask
+  for ``device="cpu"``: nothing falls back to the CPU on its own.
+* On CPU tensors the kernel wrapper takes its plain version and launches
+  nothing; on any other non-CUDA device it raises.
+"""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr",
+                          getattr(node.func, "id", "")) in
+              ("import_module", "__import__")):
+            yield node.args[0].value
+
+
+def test_port_imports_nothing_of_jax_or_the_reference():
+    files = _port_files()
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        for mod in _imported(ast.parse(path.read_text(), str(path))):
+            if mod.split(".")[0] in FORBIDDEN:
+                bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert bad == []
+
+
+def test_guard_sees_a_forbidden_import():
+    tree = ast.parse("import jax.numpy as jnp\nfrom repro.core import tree\n"
+                     "from repro_torch.core import tree\n"
+                     "importlib.import_module('jaxlib')\n")
+    hits = [m for m in _imported(tree) if m.split(".")[0] in FORBIDDEN]
+    assert hits == ["jax.numpy", "repro.core", "jaxlib"]
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    from repro_torch import bridge
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import SpecEngine, build_engine
+    from repro_torch.launch import serve
+    from repro_torch.models import api, transformer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("openpangu-7b", reduced=True)
+    for call in (lambda: serve.main(["--reduced", "--requests", "1"]),
+                 lambda: build_engine(cfg),
+                 lambda: SpecEngine(cfg),
+                 lambda: bridge.to_torch({}),
+                 lambda: api.init_cache(cfg, 1, 16),
+                 lambda: transformer.init_cache(cfg, 1, 16)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asking for the CPU works
+    assert build_engine(cfg, device="cpu").device.type == "cpu"
+    assert api.init_cache(cfg, 1, 16, device="cpu")["pos0"]["k"].is_cpu
+
+
+def test_kernel_wrapper_launches_nothing_on_the_cpu():
+    from repro_torch.kernels.ops import tree_attention
+    from repro_torch.kernels.tree_attention import flash_decode
+    before = flash_decode.launches
+    q = torch.randn(1, 2, 8, 64)
+    k = torch.randn(1, 32, 2, 64)
+    lengths = torch.tensor([5], dtype=torch.int32)
+    flash_decode(q, k, k, lengths)
+    tree_attention(torch.randn(1, 3, 2, 64), k, k,
+                   torch.ones(3, 3, dtype=torch.bool), lengths, 0.125)
+    assert flash_decode.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_decode(q.to("meta"), k.to("meta"), k.to("meta"),
+                     lengths.to("meta"))
+    with pytest.raises(NotImplementedError, match="int8"):
+        flash_decode(q, k, k, lengths, k_scale=k[..., :1], v_scale=k[..., :1])
+    with pytest.raises(NotImplementedError, match="paged"):
+        flash_decode(q, k, k, lengths,
+                     block_tables=torch.zeros(1, 1, dtype=torch.int32))
