@@ -10,10 +10,12 @@ exit test.
 
 ``ar_generate`` is the greedy autoregressive baseline on the same cache
 machinery (T=1 decode): the losslessness oracle (greedy spec == greedy AR,
-token for token).
+token for token).  Given a config with ``verify_fusion`` and
+``use_kernel``, its decode steps take the fused write side too.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -22,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import verify as V
 from repro_torch.core.proposers import MedusaProposer, Proposer
 from repro_torch.core.tree import TreeBuffers
+from repro_torch.kernels import ops as KO
 from repro_torch.models import api as model_api
 from repro_torch.models.api import get_model
 from repro_torch.runtime import resolve_device
@@ -46,16 +49,27 @@ class SpecEngine:
     ``tb`` (or nothing) builds a ``MedusaProposer`` on that tree.
     ``use_kernel`` routes decode attention through
     ``kernels.ops.tree_attention`` (the ``flash_decode`` kernel on the
-    card).  ``device`` defaults to the card and raises if there is none.
+    card).  ``verify_fusion`` (default: ``cfg.verify_fusion``) verifies
+    from the ``unembed_verify_stats`` kernel's statistics instead of the
+    [B, T, V] logits, and with ``use_kernel`` also runs each layer's write
+    side as one ``fused_qkv_rope_commit`` launch.  ``device`` defaults to
+    the card and raises if there is none.
     """
 
     def __init__(self, cfg: ModelConfig, tb: Optional[TreeBuffers] = None,
                  use_kernel: bool = False,
-                 proposer: Optional[Proposer] = None, device="cuda"):
+                 proposer: Optional[Proposer] = None, device="cuda",
+                 verify_fusion: Optional[bool] = None):
         if proposer is not None and tb is not None:
             raise ValueError("pass either tb (Medusa tree) or proposer, "
                              "not both")
         self.device = resolve_device(device)
+        # resolve the fusion knob into the config itself: the model's decode
+        # path gates the fused write side on ``cfg.verify_fusion``, so an
+        # engine-level override must be visible there (and to
+        # ``ar_generate(engine.cfg, ...)``)
+        if verify_fusion is not None and verify_fusion != cfg.verify_fusion:
+            cfg = dataclasses.replace(cfg, verify_fusion=verify_fusion)
         self.cfg = cfg
         self.model = get_model(cfg)
         self.proposer = proposer if proposer is not None \
@@ -98,8 +112,11 @@ class SpecEngine:
         hidden, spec_cache = self.model.decode(
             params, self.cfg, cache, cand, lengths, dt.mask, dt.depths,
             use_kernel=self.use_kernel)
-        logits = self.model.unembed(params, self.cfg, hidden)    # [B, T, V]
-        verdict = V.greedy_verify(cand, logits, dt)
+        if self.cfg.verify_fusion:
+            verdict = self._verify_fused(params, cand, hidden)
+        else:
+            logits = self.model.unembed(params, self.cfg, hidden)  # [B,T,V]
+            verdict = V.greedy_verify(cand, logits, dt)
         cache, lengths = self.model.commit(self.cfg, spec_cache, lengths,
                                            verdict.path_slots, verdict.acc)
         rows = torch.arange(hidden.shape[0], device=hidden.device)
@@ -107,6 +124,17 @@ class SpecEngine:
         state = self.proposer.observe(proposer_params, state, verdict,
                                       h_last, lengths)
         return cache, lengths, verdict, state
+
+    def _verify_fused(self, params, cand, hidden):
+        """Fused-epilogue greedy acceptance: the ``unembed_verify_stats``
+        kernel streams the lm-head product over vocabulary tiles and hands
+        back Verdict-sized statistics; the [B, T, V] logits are never
+        made.  The Verdict is bit-identical to ``greedy_verify``'s."""
+        tmax = torch.ones((cand.shape[0],), dtype=torch.float32,
+                          device=hidden.device)       # greedy: raw logits
+        stats = V.VerifyStats(*KO.verify_stats(hidden, params["lm_head"],
+                                               cand, tmax))
+        return V.greedy_verify_stats(cand, stats, self.dtree)
 
     def generate(self, params, proposer_params, tokens, prompt_lengths, cache,
                  max_new: int, state=None):
@@ -160,16 +188,18 @@ class SpecEngine:
 
 
 def build_engine(cfg: ModelConfig, proposer: str = "medusa", *,
-                 use_kernel: bool = False, device="cuda") -> SpecEngine:
+                 use_kernel: bool = False, device="cuda",
+                 verify_fusion: Optional[bool] = None) -> SpecEngine:
     """Engine construction shared by the launcher and the tests.  The
-    port's first slice carries the Medusa proposer only."""
+    port carries the Medusa proposer only."""
     if proposer != "medusa":
         raise NotImplementedError(f"proposer {proposer!r}: draft-model and "
                                   "n-gram proposers are ROADMAP queue 1 "
                                   "item 12")
     dev = resolve_device(device)
     return SpecEngine(cfg, use_kernel=use_kernel,
-                      proposer=MedusaProposer(cfg, dev), device=dev)
+                      proposer=MedusaProposer(cfg, dev), device=dev,
+                      verify_fusion=verify_fusion)
 
 
 def ar_step(cfg: ModelConfig, params, cache, tok, lengths,

@@ -1,5 +1,7 @@
 """Static tree verification + zero-copy retrieval (paper §3.2) in PyTorch;
-counterpart of ``repro.core.verify``, greedy acceptance only.
+counterpart of ``repro.core.verify``, greedy acceptance only, fed either
+by the [B, T, V] logits (``greedy_verify``) or by the fused kernel's
+statistics (``greedy_verify_stats``).
 
 Everything here is fixed-shape tensor algebra on the device: the
 acceptance outcome changes only values (indices fed to gathers), never
@@ -102,6 +104,11 @@ def greedy_verify(candidates, logits, dtree: DeviceTree) -> Verdict:
     candidates [B, T] int32, logits [B, T, V] f32/bf16 -> Verdict.  Ties in
     the argmax go to the first index, as in the reference."""
     argm = torch.argmax(logits, dim=-1).to(torch.int32)        # [B, T]
+    return _greedy_from_argm(candidates, argm, dtree)
+
+
+def _greedy_from_argm(candidates, argm, dtree: DeviceTree) -> Verdict:
+    """The greedy rule after the argmax: argm [B, T] int32 -> Verdict."""
     cand_paths = candidates[:, dtree.retrieve]                 # [B, P, K+1]
     pred_paths = argm[:, dtree.retrieve]
     match = ((cand_paths[:, :, 1:] == pred_paths[:, :, :-1])
@@ -109,3 +116,30 @@ def greedy_verify(candidates, logits, dtree: DeviceTree) -> Verdict:
     acc_per_path = 1 + torch.sum(torch.cumprod(match.to(torch.int32), dim=-1),
                                  dim=-1)
     return _select(acc_per_path, cand_paths, pred_paths, dtree)
+
+
+# ---------------------------------------------------------------------------
+# fused-stats acceptance: the same rule, fed by the kernel epilogue's
+# Verdict-sized statistics instead of the [B, T, V] logits tensor
+# ---------------------------------------------------------------------------
+
+class VerifyStats(NamedTuple):
+    """Output of ``kernels.ops.verify_stats``: everything acceptance needs.
+
+    ``exp(cand_w[b, t, j] - m[b, t]) / l[b, t]`` is the warped target
+    probability of candidate token j under node t's row; ``argm`` is the
+    per-row first-wins argmax.  The greedy rule reads ``argm`` only; the
+    rest serves the sampling walks (ROADMAP queue 1 item 8)."""
+    argm: torch.Tensor            # [B, T] int32
+    m: torch.Tensor               # [B, T] f32
+    l: torch.Tensor               # [B, T] f32
+    cand_w: torch.Tensor          # [B, T, T] f32
+
+
+def greedy_verify_stats(candidates, stats: VerifyStats,
+                        dtree: DeviceTree) -> Verdict:
+    """``greedy_verify`` from fused statistics: the same ops after the
+    argmax, so the Verdict is bit-identical to the unfused path whenever
+    ``stats.argm`` equals ``argmax(logits)`` (the kernel's merge keeps the
+    first index on ties, as ``torch.argmax`` does)."""
+    return _greedy_from_argm(candidates, stats.argm, dtree)

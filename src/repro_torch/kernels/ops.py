@@ -1,17 +1,31 @@
-"""Tree-attention wrapper around ``flash_decode``: full tree-attention
-semantics = (cache sweep via the kernel) ⊕ (tiny tree block) merged
-exactly through the partial-softmax statistics.
+"""Wrappers around the port's kernels (counterpart of
+``repro.kernels.ops``, dense fp subset).
 
-Counterpart of ``repro.kernels.ops.tree_attention``, dense fp subset.  The
-fold, the tree block and the merge are the plain PyTorch ops the
-reference runs in ``jnp`` outside its kernel.
+``tree_attention``: full tree-attention semantics = (cache sweep via the
+``flash_decode`` kernel) ⊕ (tiny tree block) merged exactly through the
+partial-softmax statistics.  The fold, the tree block and the merge are
+the plain PyTorch ops the reference runs in ``jnp`` outside its kernel.
+
+``verify_stats``: the fused unembed + verification statistics of the
+``unembed_verify_stats`` kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.tree_attention import flash_decode
+from repro_torch.kernels.tree_attention import (flash_decode,
+                                                unembed_verify_stats)
 from repro_torch.models.layers import NEG_INF
+
+
+def verify_stats(hidden, w, candidates, tmax):
+    """Fused unembed + verify-statistics epilogue.
+
+    hidden [B, T, d]; w [d, V] lm-head weight (cast to hidden's dtype like
+    ``models.transformer.unembed``); candidates [B, T] int32; tmax [B] f32
+    warp temperatures.  Returns (argm, m, l, cand_w): see
+    ``kernels.tree_attention.unembed_verify_stats``."""
+    return unembed_verify_stats(hidden, w, candidates, tmax)
 
 
 def tree_attention(q, k, v, tree_mask, lengths, scale, *, k_tree=None,

@@ -45,3 +45,22 @@ def tree_attention_ref(q, k, v, tree_mask, lengths, scale):
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v.to(q.dtype))
     return out.reshape(B, T, Hq, D)
+
+
+def verify_stats_ref(hidden, w, candidates, tmax):
+    """Oracle for the fused verify epilogue (counterpart of
+    ``repro.kernels.ref.verify_stats_ref``).
+
+    Materialises the warped logits [B, T, V] (exactly what the kernel
+    avoids) and reduces them to the kernel's statistics: argm [B, T] int32
+    first-wins argmax, m/l [B, T] f32 softmax statistics of the warped row,
+    cand_w [B, T, T] f32 warped logits at the candidate tokens."""
+    logits = torch.matmul(hidden, w.to(hidden.dtype)).float()
+    wv = logits / tmax[:, None, None]
+    argm = torch.argmax(wv, dim=-1).to(torch.int32)
+    m = torch.amax(wv, dim=-1)
+    l = torch.sum(torch.exp(wv - m[..., None]), dim=-1)
+    T = candidates.shape[1]
+    idx = candidates.long()[:, None, :].expand(-1, T, -1)
+    cand_w = torch.gather(wv, 2, idx)
+    return argm, m, l, cand_w

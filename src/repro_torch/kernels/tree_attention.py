@@ -1,5 +1,7 @@
-"""Flash-decoding attention over a KV cache with per-row lengths — the hot
-spot of the static tree-verification step (and of the AR baseline).
+"""The two kernels of the decode step that read the model's largest
+tensors: ``flash_decode`` (attention over the KV cache) and
+``unembed_verify_stats`` (the lm head fused with the acceptance
+statistics).
 
 ``flash_decode`` replaces ``repro/kernels/tree_attention.py::flash_decode``
 (the Pallas TPU kernel, dense fp/bf16 body ``_kernel``) with the
@@ -9,7 +11,13 @@ bound by the bytes of K and V it sweeps; its design (one block per
 (b, kv head, 32 query rows), cache tiles streamed through shared memory up
 to ``lengths[b]``, f32 online softmax) is described in the source.
 
-``flash_decode_plain`` is the same function in plain PyTorch: the CPU
+``unembed_verify_stats`` replaces ``unembed_verify_stats`` of the same
+reference file (body ``_verify_stats_kernel``) with ``csrc/verify_stats.cu``:
+the vocabulary is tiled across blocks, each block emits per-row partial
+statistics of its tile, and a second launch merges them in vocabulary
+order (the design is in the source).
+
+Each ``*_plain`` function is the same function in plain PyTorch: the CPU
 path, and what the card's kernel is held against.
 """
 from __future__ import annotations
@@ -20,8 +28,7 @@ import torch
 
 from repro_torch.models.layers import NEG_INF
 
-_KERNEL_DTYPES = {torch.float32: "flash_decode_f32",
-                  torch.bfloat16: "flash_decode_bf16"}
+_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (64, 128, 256)
 
 
@@ -75,7 +82,7 @@ def _check_cuda_args(q, k, v, lengths):
 
 def _kernel_fn(dtype):
     from repro_torch.kernels.build import library
-    fn = getattr(library("flash_decode"), _KERNEL_DTYPES[dtype])
+    fn = getattr(library("flash_decode"), "flash_decode_" + _KERNEL_DTYPES[dtype])
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = [vp] * 7 + [i32] * 5 + [i64] * 6 + [vp]
@@ -127,3 +134,130 @@ def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
 
 
 flash_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused verify epilogue: unembed + acceptance statistics
+# ---------------------------------------------------------------------------
+
+def unembed_verify_stats_plain(hidden, w, candidates, tmax, *,
+                               block_v: int = 16384):
+    """The kernel's statistics in plain PyTorch, streamed over vocabulary
+    blocks of ``block_v`` columns as the TPU kernel streams them: per
+    block, logits rounded through hidden's dtype and divided by ``tmax``,
+    then a first-wins argmax (a later block wins only if strictly
+    greater), the running max ``m``, the online sum-exp ``l`` and the
+    candidate logits ``cand_w``.  Arguments and results as
+    ``unembed_verify_stats``.  With one block, ``l`` is the plain
+    ``sum(exp(wv - m))``; with several it carries the online rescale's
+    rounding, as the TPU kernel's does."""
+    B, T, _ = hidden.shape
+    V = w.shape[1]
+    dev = hidden.device
+    w = w.to(hidden.dtype)
+    cand = candidates.long()
+    m = torch.full((B, T), float("-inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((B, T), dtype=torch.float32, device=dev)
+    argm = torch.zeros((B, T), dtype=torch.int64, device=dev)
+    cand_w = torch.zeros((B, T, T), dtype=torch.float32, device=dev)
+    for v0 in range(0, V, block_v):
+        wv = torch.matmul(hidden, w[:, v0:v0 + block_v]).float()
+        wv = wv / tmax[:, None, None]
+        n = wv.shape[-1]
+        bm = torch.amax(wv, dim=-1)
+        argm = torch.where(bm > m, torch.argmax(wv, dim=-1) + v0, argm)
+        m_new = torch.maximum(m, bm)
+        l = l * torch.exp(m - m_new) + torch.sum(
+            torch.exp(wv - m_new[..., None]), dim=-1)
+        m = m_new
+        rel = cand - v0
+        inside = (rel >= 0) & (rel < n)
+        idx = torch.clamp(rel, 0, n - 1)[:, None, :].expand(B, T, T)
+        cand_w = torch.where(inside[:, None, :], torch.gather(wv, 2, idx),
+                             cand_w)
+    return argm.to(torch.int32), m, l, cand_w
+
+
+def _stats_fn(dtype):
+    from repro_torch.kernels.build import library
+    lib = library("verify_stats")
+    fn = getattr(lib, "verify_stats_" + _KERNEL_DTYPES[dtype])
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.verify_stats_n_tiles.argtypes = [ctypes.c_int]
+        lib.verify_stats_n_tiles.restype = ctypes.c_int
+    return fn, lib.verify_stats_n_tiles
+
+
+def _check_stats_args(hidden, w, candidates, tmax):
+    if hidden.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"unembed_verify_stats: hidden dtype {hidden.dtype} "
+                        f"(float32 or bfloat16)")
+    B, T, d = hidden.shape
+    if w.dim() != 2 or w.shape[0] != d:
+        raise ValueError(f"unembed_verify_stats: w {tuple(w.shape)} is not "
+                         f"[d={d}, V]")
+    if candidates.shape != (B, T) or candidates.dtype != torch.int32:
+        raise ValueError("unembed_verify_stats: candidates must be [B, T] "
+                         "int32")
+    if tmax.shape != (B,) or tmax.dtype != torch.float32:
+        raise ValueError("unembed_verify_stats: tmax must be [B] float32")
+    for t in (w, candidates, tmax):
+        if t.device != hidden.device:
+            raise ValueError(f"unembed_verify_stats: tensors on "
+                             f"{hidden.device} and {t.device}")
+
+
+def unembed_verify_stats(hidden, w, candidates, tmax):
+    """Fused unembed + verification statistics.
+
+    hidden [B, T, d] f32/bf16; w [d, V] lm head (cast to hidden's dtype,
+    as ``unembed`` casts it); candidates [B, T] int32 in [0, V); tmax [B]
+    f32 warp temperatures (ones for greedy).  Returns (argm [B, T] int32,
+    m [B, T] f32, l [B, T] f32, cand_w [B, T, T] f32): with wv the logits
+    rounded through hidden's dtype and divided by ``tmax[b]``, the
+    first-wins argmax of wv, its max, sum(exp(wv - m)), and
+    ``cand_w[b, t, j]`` = wv[b, t, candidates[b, j]].  No [B, T, V] tensor
+    is made on the card.
+
+    CPU tensors take ``unembed_verify_stats_plain``.  CUDA tensors launch
+    the kernel (a tile pass and a merge pass, counted as one launch of
+    the op in ``unembed_verify_stats.launches``), or raise: there is no
+    fallback.
+    """
+    if hidden.device.type == "cpu":
+        return unembed_verify_stats_plain(hidden, w, candidates, tmax)
+    if hidden.device.type != "cuda":
+        raise ValueError(f"unembed_verify_stats: unsupported device "
+                         f"{hidden.device}")
+    _check_stats_args(hidden, w, candidates, tmax)
+    hidden = hidden.contiguous()
+    w = w.to(hidden.dtype).contiguous()
+    candidates, tmax = candidates.contiguous(), tmax.contiguous()
+    B, T, d = hidden.shape
+    V = w.shape[1]
+    fn, n_tiles = _stats_fn(hidden.dtype)
+    n_vt = n_tiles(V)
+    dev = hidden.device
+    f32 = torch.float32
+    argm = torch.empty((B, T), dtype=torch.int32, device=dev)
+    m = torch.empty((B, T), dtype=f32, device=dev)
+    l = torch.empty((B, T), dtype=f32, device=dev)
+    cand_w = torch.empty((B, T, T), dtype=f32, device=dev)
+    pm = torch.empty((B * T, n_vt), dtype=f32, device=dev)
+    pi = torch.empty((B * T, n_vt), dtype=torch.int32, device=dev)
+    pl = torch.empty((B * T, n_vt), dtype=f32, device=dev)
+    err = fn(hidden.data_ptr(), w.data_ptr(), candidates.data_ptr(),
+             tmax.data_ptr(), argm.data_ptr(), m.data_ptr(), l.data_ptr(),
+             cand_w.data_ptr(), pm.data_ptr(), pi.data_ptr(), pl.data_ptr(),
+             B * T, T, d, V, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"unembed_verify_stats: CUDA launch failed with "
+                           f"error {err}")
+    unembed_verify_stats.launches += 1
+    return argm, m, l, cand_w
+
+
+unembed_verify_stats.launches = 0

@@ -12,7 +12,10 @@ by default (random weights from ``--seed``, in the config's bf16);
 ``--reduced`` takes the reference's reduced CPU-test config and
 ``--device cpu`` the plain PyTorch versions of the kernels.  Decode
 attention always goes through ``kernels.ops.tree_attention``: there is no
-switch that turns the kernel off.
+switch that turns the kernel off.  ``--verify-fusion`` (the reference
+launcher's flag, off by default) verifies from the
+``unembed_verify_stats`` kernel's statistics and runs each layer's write
+side through the ``fused_qkv_rope_commit`` kernel.
 """
 from __future__ import annotations
 
@@ -106,7 +109,12 @@ def serve_static(engine: SpecEngine, params, mp, prompts, slots: int,
     return results, seconds, tokens
 
 
-def main(argv=None) -> Served:
+def main(argv=None, weights=None) -> Served:
+    """Run the launcher on ``argv``.  ``weights``, if given, is a
+    (params, medusa_params) pair for the configuration ``argv`` names,
+    served in place of the random weights drawn from ``--seed`` (so one
+    set of weights can be served under two settings without building the
+    model twice)."""
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
         description="static-batch greedy Medusa serving on the PyTorch port")
@@ -126,12 +134,19 @@ def main(argv=None) -> Served:
     ap.add_argument("--reduced", action="store_true",
                     help="the reference's reduced CPU-test config")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--verify-fusion", action="store_true",
+                    help="fused unembed + acceptance statistics and fused "
+                         "qkv + RoPE + cache write kernels")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
-    engine = build_engine(cfg, "medusa", use_kernel=True, device=dev)
-    params, mp = build_model(cfg, args.seed, engine.dtree.K, dev)
+    engine = build_engine(cfg, "medusa", use_kernel=True, device=dev,
+                          verify_fusion=args.verify_fusion)
+    if weights is None:
+        params, mp = build_model(cfg, args.seed, engine.dtree.K, dev)
+    else:
+        params, mp = weights
     prompts = make_prompts(cfg.vocab_size, args.requests, args.seed,
                            args.min_prompt, args.max_prompt)
     results, seconds, tokens = serve_static(engine, params, mp, prompts,
@@ -142,9 +157,11 @@ def main(argv=None) -> Served:
         tps = len(r["output"]) / max(r["steps"], 1)
         print(f"  req {r['rid']}: {r['status']} prompt={r['prompt_len']} "
               f"steps={r['steps']} tokens/step={tps:.2f}")
-    print(f"{cfg.name}: {len(results)} requests, {tokens} tokens in "
+    fused = " with verify fusion" if engine.cfg.verify_fusion else ""
+    print(f"{cfg.name}{fused}: {len(results)} requests, {tokens} tokens in "
           f"{seconds:.3f}s ({tokens / seconds:.1f} tok/s on {where})")
-    return Served(cfg, engine, params, mp, prompts, results, seconds, tokens)
+    return Served(engine.cfg, engine, params, mp, prompts, results, seconds,
+                  tokens)
 
 
 if __name__ == "__main__":

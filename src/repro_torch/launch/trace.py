@@ -6,8 +6,11 @@ few speculative steps and a few AR steps of the served model.
 Builds the launcher's model (bf16 openPangu-7B at full width and depth,
 random weights from seed 0), prefills 4 prompts of 64–256 tokens from the
 same seed and warms up, then traces ``--steps`` spec steps
-(``SpecEngine.spec_step``) and ``--steps`` AR decode steps
-(``engine.ar_step``).  For each it
+(``SpecEngine.spec_step``), ``--steps`` AR decode steps
+(``engine.ar_step``) and ``--steps`` spec steps of the verify-fusion
+engine on the same weights (``build_engine(..., verify_fusion=True)``:
+the ``unembed_verify_stats`` and ``fused_qkv_rope_commit`` kernels in
+place of the [B, T, V] logits and the unfused write side).  For each it
 prints the wall time per step (host clock around synchronised work, once
 without the profiler and once under it: the difference is the profiler's
 own cost on the host), the device time per step (sum of the CUDA
@@ -59,6 +62,8 @@ def main(argv=None):
     dev = resolve_device("cuda")
     cfg = get_config("openpangu-7b")
     eng = build_engine(cfg, "medusa", use_kernel=True, device=dev)
+    fused = build_engine(cfg, "medusa", use_kernel=True, device=dev,
+                         verify_fusion=True)
     params, mp = build_model(cfg, 0, eng.dtree.K, dev)
     prompts = make_prompts(cfg.vocab_size, 4, 0, 64, 257)
     S = max(len(p) for p in prompts)
@@ -71,9 +76,9 @@ def main(argv=None):
     cache = eng.init_cache(4, 2048)
     cache, lengths, base, state = eng.prefill(params, mp, tok, plen, cache)
 
-    def spec():
+    def spec(engine=eng):
         nonlocal cache, lengths, base, state
-        cache, lengths, verdict, state = eng.spec_step(
+        cache, lengths, verdict, state = engine.spec_step(
             params, mp, cache, lengths, base, state)
         base = verdict.next_token
 
@@ -91,7 +96,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    for name, step in (("spec", spec), ("ar", ar)):
+    for name, step in (("spec", spec), ("ar", ar),
+                       ("spec-fused", lambda: spec(fused))):
         for _ in range(2):                                  # warm up
             step()
         wall = timed(step)

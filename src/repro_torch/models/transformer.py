@@ -21,6 +21,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.cache_update import fused_qkv_rope_commit
 from repro_torch.kernels.ops import tree_attention
 from repro_torch.models import layers as L
 from repro_torch.runtime import resolve_device, torch_dtype
@@ -51,8 +52,6 @@ def check_supported(cfg: ModelConfig):
         later.append("the int8 KV cache (ROADMAP queue 1 item 9)")
     if cfg.paged:
         later.append("the paged KV cache (ROADMAP queue 1 item 10)")
-    if cfg.verify_fusion:
-        later.append("verify fusion (ROADMAP queue 1 item 11)")
     if cfg.tp_axis:
         later.append("tensor parallelism (ROADMAP queue 1 item 16)")
     if cfg.frontend or cfg.num_experts or cfg.tie_embeddings:
@@ -247,19 +246,28 @@ def attention_decode_batched(p, x, cfg, entry, lengths, masks, tree_mask,
     are written into it in place.  With ``use_kernel`` the attention runs
     through ``kernels.ops.tree_attention`` (the ``flash_decode`` kernel on
     the card); otherwise through the masked plain attention with
-    ``masks`` [B, T, S].  Returns (y [B, T, d], {"k_new", "v_new":
-    [B, T, Hkv, D]}), the in-flight tree rows.
+    ``masks`` [B, T, S].  With ``use_kernel`` and ``cfg.verify_fusion``
+    the write side (q/k/v projection, RoPE and the tree-row write) is one
+    ``fused_qkv_rope_commit`` launch, as in the reference.  Returns
+    (y [B, T, d], {"k_new", "v_new": [B, T, Hkv, D]}), the in-flight tree
+    rows.
     """
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
-    q, k, v = L._project_qkv(p, x, cfg)
+    cos = sin = None
     if cfg.use_rope:
         positions = lengths[:, None] + depths[None, :]
         cos, sin = L.rope_cos_sin(positions, hd, cfg.rope_theta)
-        q = L.apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
-        k = L.apply_rope(k, cos[:, :, None, :], sin[:, :, None, :])
-    _update_rows(entry["k"], k, lengths)
-    _update_rows(entry["v"], v, lengths)
+    if use_kernel and cfg.verify_fusion:
+        q, k, v = fused_qkv_rope_commit(x, p, lengths, entry["k"], entry["v"],
+                                        cos=cos, sin=sin)
+    else:
+        q, k, v = L._project_qkv(p, x, cfg)
+        if cfg.use_rope:
+            q = L.apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
+            k = L.apply_rope(k, cos[:, :, None, :], sin[:, :, None, :])
+        _update_rows(entry["k"], k, lengths)
+        _update_rows(entry["v"], v, lengths)
     if use_kernel:
         out = tree_attention(q, entry["k"], entry["v"], tree_mask, lengths,
                              scale, k_tree=k, v_tree=v)

@@ -5,8 +5,8 @@
   the card has no JAX; the port keeps its own copies).
 * The entry points raise when there is no GPU and the caller did not ask
   for ``device="cpu"``: nothing falls back to the CPU on its own.
-* On CPU tensors the kernel wrapper takes its plain version and launches
-  nothing; on any other non-CUDA device it raises.
+* On CPU tensors every kernel wrapper takes its plain version and
+  launches nothing; on any other non-CUDA device it raises.
 """
 import ast
 import pathlib
@@ -80,16 +80,36 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 def test_kernel_wrapper_launches_nothing_on_the_cpu():
-    from repro_torch.kernels.ops import tree_attention
-    from repro_torch.kernels.tree_attention import flash_decode
-    before = flash_decode.launches
+    from repro_torch.kernels.cache_update import fused_qkv_rope_commit
+    from repro_torch.kernels.ops import tree_attention, verify_stats
+    from repro_torch.kernels.tree_attention import (flash_decode,
+                                                    unembed_verify_stats)
+    wrappers = (flash_decode, unembed_verify_stats, fused_qkv_rope_commit)
+    before = [f.launches for f in wrappers]
     q = torch.randn(1, 2, 8, 64)
     k = torch.randn(1, 32, 2, 64)
     lengths = torch.tensor([5], dtype=torch.int32)
     flash_decode(q, k, k, lengths)
     tree_attention(torch.randn(1, 3, 2, 64), k, k,
                    torch.ones(3, 3, dtype=torch.bool), lengths, 0.125)
-    assert flash_decode.launches == before
+    h, w = torch.randn(1, 3, 16), torch.randn(16, 40)
+    cand = torch.zeros(1, 3, dtype=torch.int32)
+    verify_stats(h, w, cand, torch.ones(1))
+    p = {"wq": torch.randn(16, 4, 64), "wk": torch.randn(16, 2, 64),
+         "wv": torch.randn(16, 2, 64)}
+    fused_qkv_rope_commit(h, p, lengths, k, k.clone())
+    assert [f.launches for f in wrappers] == before
+    for call in (lambda: unembed_verify_stats(h.to("meta"), w.to("meta"),
+                                              cand.to("meta"),
+                                              torch.ones(1, device="meta")),
+                 lambda: fused_qkv_rope_commit(
+                     h.to("meta"), p, lengths.to("meta"), k.to("meta"),
+                     k.to("meta"))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    with pytest.raises(NotImplementedError, match="paged.*item 10"):
+        fused_qkv_rope_commit(h, p, lengths, k, k,
+                              table=torch.zeros(1, 1, dtype=torch.int32))
     with pytest.raises(ValueError, match="unsupported device"):
         flash_decode(q.to("meta"), k.to("meta"), k.to("meta"),
                      lengths.to("meta"))

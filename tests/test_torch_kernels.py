@@ -142,6 +142,7 @@ def test_length_zero_row_gives_empty_stats(rng):
     assert (m[0] == -1e30).all() and (l[1] > 0).all()
 
 
+@pytest.mark.cuda
 def test_cuda_kernel_matches_plain(rng):
     """The CUDA kernel against its plain version on the card, at the main
     path's shape (needs a GPU and nvcc; skipped without them)."""
