@@ -13,7 +13,11 @@ non-zero exit:
 2. hold the ``flash_decode`` kernel (K1) against ``flash_decode_plain`` on
    the card (the reference's kernel-test shape sweep plus the main path's
    shapes, f32 and bf16), and ``ops.tree_attention`` against the
-   ``tree_attention_ref`` oracle;
+   ``tree_attention_ref`` oracle; then K1's int8, paged and int8 + paged
+   variants the same way, on pools of page size 16, 64 and 128 read
+   through a shuffled block table, with an idle slot (zero table, length
+   0); every paged run must also be bitwise the dense kernel's run on the
+   same logical rows;
 3. hold the verify-fusion kernels against their plain versions on the
    card, f32 and bf16: ``unembed_verify_stats`` (K2) at the spec step's
    shape (B 4, T 64, d 4096, V 153376, which is not a multiple of the
@@ -21,27 +25,45 @@ non-zero exit:
    and with tied lm-head columns in different tiles (first index wins),
    plus a vocabulary whose rows are not 16-byte aligned;
    ``fused_qkv_rope_commit`` (K3) at the spec (T 64) and AR (T 1) shapes
-   of openPangu-7B's attention, with biases, and with rows past the
-   cache's end (dropped; the rest of the cache unchanged bit for bit);
+   of openPangu-7B's attention, with biases, with rows past the cache's
+   end (dropped; the rest of the cache unchanged bit for bit), and its
+   paged variant with rows past the table (sent to trash block 0, which
+   is not compared); then the commit kernels, K4 (``commit_rows_stacked``
+   and the wrappers through it) and K5 (``commit_rows_paged_stacked``
+   and its wrappers), for int8, bf16 and f32 rows and f32 scales, rows
+   past the end included: the copies exact, the rest of the cache (block
+   0 of a pool excepted) unchanged bit for bit;
 4. float32 openPangu-7B at full width, 2 layers: speculative ``generate``
-   == ``ar_generate`` token for token, both through K1, which must launch
-   2 x (spec steps + AR steps) times; then, on the same weights with
-   verify fusion, fused spec == fused AR == the unfused spec, with K1 and
-   K3 launched 2 x (spec steps + AR steps) times and K2 once per spec step;
+   == ``ar_generate`` token for token, dense, with verify fusion, paged,
+   paged with verify fusion, int8 and int8 paged; the fp variants all
+   give the dense tokens and int8 paged the int8 ones; every run launches
+   K1-K5 exactly as ``expected_counts`` says;
 5. the launcher (``repro_torch.launch.serve.main``) serves 8 requests on
    bf16 openPangu-7B at full width and depth; every request must finish,
-   and each one matches ``ar_generate`` up to its first divergence, where
-   AR's logit for the token the speculative path emitted must lie within
-   ``MARGIN_BOUND`` of AR's top logit;
-6. the main path of this slice: the launcher with ``--verify-fusion``
-   answers the same 8 requests on the same weights, through K1, K2 and K3
-   (counts exact), each answer held to ``ar_generate`` on the fused
-   config under the same rule; it prints how many answers are
-   token-identical to phase 5's and the tokens/s of both;
-7. time K1, K2 and K3, their plain versions, and one PyTorch call each as
-   a yardstick the port never calls (``scaled_dot_product_attention`` for
-   K1; for K2 and K3 one ``torch.matmul`` of the same product, which does
-   only the product) at the main path's spec-step shape.
+   the kernels launch exactly as expected (K1 per layer and step, K4 per
+   cache leaf and step), and each answer matches ``ar_generate`` up to its
+   first divergence, where AR's logit for the token the speculative path
+   emitted must lie within ``MARGIN_BOUND`` of AR's top logit;
+6. the launcher with ``--verify-fusion`` answers the same 8 requests on
+   the same weights, through K1, K2, K3 and K4 (counts exact), each answer
+   held to ``ar_generate`` on the fused config under the same rule; it
+   prints how many answers are token-identical to phase 5's and the
+   tokens/s of both;
+7. the same weights under the other cache layouts: (a) ``--cache-layout
+   paged --verify-fusion`` (K1-paged, K3-paged, K2, K5) must give all 8
+   answers of phase 6 token for token; (b) ``--cache-dtype int8``
+   (K1-int8, K4) is held to ``ar_generate`` on the int8 config under
+   ``MARGIN_BOUND``; (c) ``--cache-dtype int8 --cache-layout paged
+   --page-size 16`` (K1-int8+paged, K5) must give all 8 answers of (b);
+8. time every kernel and variant, its plain version, and one PyTorch call
+   as a yardstick the port never calls where one computes the same
+   function (``scaled_dot_product_attention`` for K1 and, over the
+   gathered dense view, K1-paged; for K2 and K3 one ``torch.matmul`` of
+   the same product, which does only the product; ``index_put_`` of the
+   same rows for K4 and K5; none for the int8 variants of K1) at the main
+   path's shapes: CUDA events around back-to-back launches, and for K4
+   and K5, whose launches are shorter than the host's cost of issuing
+   them, the kernels' device time from ``torch.profiler``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -115,6 +137,28 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` in ms: the CUDA kernels' own time
+    under ``torch.profiler`` over ``iters`` runs.  For work shorter than
+    the host's cost of issuing it, where CUDA events around back-to-back
+    runs time the host instead of the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
 def scaled_err(got, ref) -> float:
     """max |got - ref| / max(1, |ref|): the absolute error for values below
     1 in magnitude, the relative error above (one bf16 step is 1/32 at
@@ -123,25 +167,29 @@ def scaled_err(got, ref) -> float:
     return ((g - r).abs() / r.abs().clamp(min=1.0)).max().item()
 
 
-def reset_counts():
-    from repro_torch.kernels.cache_update import fused_qkv_rope_commit
+def _wrappers():
+    """{kernel: the wrapper whose ``.launches`` counts its main-path
+    launches}: K1 (every variant), K2, K3 (dense and paged), K4 (the
+    dense commit, ``commit_rows_stacked``) and K5 (the paged commit,
+    ``commit_rows_paged_stacked``)."""
+    from repro_torch.kernels import cache_update as CU
     from repro_torch.kernels.tree_attention import (flash_decode,
                                                     unembed_verify_stats)
-    wrappers = (flash_decode, unembed_verify_stats, fused_qkv_rope_commit)
-    for f in wrappers:
+    return {"K1": flash_decode, "K2": unembed_verify_stats,
+            "K3": CU.fused_qkv_rope_commit, "K4": CU.commit_rows_stacked,
+            "K5": CU.commit_rows_paged_stacked}
+
+
+def reset_counts():
+    for f in _wrappers().values():
         f.launches = 0
-    return wrappers
 
 
 def read_counts():
-    """(K1, K2, K3) launches since ``reset_counts``, after the device is
+    """{kernel: launches} since ``reset_counts``, after the device is
     done."""
-    from repro_torch.kernels.cache_update import fused_qkv_rope_commit
-    from repro_torch.kernels.tree_attention import (flash_decode,
-                                                    unembed_verify_stats)
     torch.cuda.synchronize()
-    return (flash_decode.launches, unembed_verify_stats.launches,
-            fused_qkv_rope_commit.launches)
+    return {k: f.launches for k, f in _wrappers().items()}
 
 
 def uncounted(fn, *args, **kwargs):
@@ -242,6 +290,123 @@ def phase_kernels(dev):
     return main_err
 
 
+def shuffled_table(B, mb, dev, seed):
+    """[B, mb] int32 on ``dev``: a random permutation of blocks
+    1 .. B * mb (block 0 is the trash block)."""
+    perm = np.random.default_rng(seed).permutation(B * mb) + 1
+    return torch.from_numpy(perm.reshape(B, mb).astype(np.int32)).to(dev)
+
+
+def to_pool(dense, table, ps, gen):
+    """Pool [1 + B*mb, ps, ...] holding ``dense`` [B, mb*ps, ...] through
+    ``table``; block 0 and the blocks of idle slots hold noise."""
+    B, mb = table.shape
+    pool = torch.randn((1 + B * mb, ps) + tuple(dense.shape[2:]),
+                       generator=gen, device=dense.device).to(dense.dtype)
+    pool[table.long()] = dense.reshape((B, mb, ps) + tuple(dense.shape[2:]))
+    return pool
+
+
+def variant_case(dev, name, B, S, Hkv, R, D, dt, lengths, quantized, ps,
+                 seed):
+    """K1's int8 / paged / int8 + paged variant against its plain version,
+    on a shuffled table; a paged slot of length 0 gets a zero table (an
+    idle slot).  A paged run must also be bitwise the dense kernel's run
+    on the same logical rows.  Returns the max error of the live rows."""
+    from repro_torch.kernels.quant import quantize_rows
+    from repro_torch.kernels.tree_attention import (flash_decode,
+                                                    flash_decode_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((B, Hkv, R, D), generator=gen, device=dev)
+         * D ** -0.5).to(dt)
+    kd = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dt)
+    vd = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dt)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    leaves = {"k": kd, "v": vd}
+    if quantized:
+        (k8, ks), (v8, vs) = quantize_rows(kd), quantize_rows(vd)
+        leaves = {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
+    dense_kw = {n: leaves[n] for n in ("k_scale", "v_scale") if n in leaves}
+    kw = dict(dense_kw)
+    k, v = leaves["k"], leaves["v"]
+    if ps:
+        table = shuffled_table(B, S // ps, dev, seed)
+        table[lens == 0] = 0
+        pools = {n: to_pool(t, table, ps, gen) for n, t in leaves.items()}
+        k, v = pools["k"], pools["v"]
+        kw = {n: pools[n] for n in dense_kw}
+        kw["block_tables"] = table
+    got = uncounted(flash_decode, q, k, v, lens, **kw)
+    ref = flash_decode_plain(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    live = lens > 0
+    err, out_err = stats_errors([x[live] for x in got],
+                                [x[live] for x in ref])
+    idle_ok = ((got[0][~live] == 0).all() and (got[2][~live] == 0).all()
+               and (got[1][~live] == -1e30).all())
+    same = True
+    if ps:
+        dense = uncounted(flash_decode, q, leaves["k"], leaves["v"], lens,
+                          **dense_kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, dense))
+    tol = TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
+    what = ("int8" if quantized else "fp") + (f" paged ps={ps}" if ps else "")
+    log(f"  flash_decode {what} {name}: B={B} S={S} Hkv={Hkv} R={R} D={D} "
+        f"{dt} lengths={lengths}: max err {err:.3e} (tol {tol})"
+        + ("; bitwise equal to the dense kernel" if ps else ""))
+    if not err < tol:
+        fail(f"flash_decode {what} {name} disagrees with its plain version: "
+             f"{err} >= {tol}")
+    if not idle_ok:
+        fail(f"flash_decode {what} {name}: an idle slot's statistics are "
+             f"not empty")
+    if not same:
+        fail(f"flash_decode {what} {name}: the paged run differs from the "
+             f"dense run on the same rows")
+    return out_err
+
+
+def phase_kernel_variants(dev):
+    """K1-int8, K1-paged and K1-int8+paged at the reference sweep and the
+    main path's shapes, page sizes 16, 64 and 128.  Returns the max error
+    of the normalised output of each variant at the bf16 main shape
+    (R 256, page size 64)."""
+    from repro_torch.core.tree import chain_tree, medusa_63
+    from repro_torch.runtime import torch_dtype
+
+    rng = np.random.default_rng(5)
+    sizes = (16, 64, 128)
+    for i, (B, S, Hq, Hkv, D, tree, dname) in enumerate(REF_CASES):
+        T, G = (medusa_63() if tree == "medusa" else chain_tree(4)).T, \
+            Hq // Hkv
+        T_pad = T
+        while (G * T_pad) % 8:
+            T_pad += 1
+        dt = torch_dtype(dname)
+        lengths = rng.integers(1, S + 1, size=(B,)).tolist()
+        if B > 1:
+            lengths[0] = 0                       # an idle slot
+        args = (dev, "ref sweep", B, S, Hkv, G * T_pad, D, dt, lengths)
+        variant_case(*args, True, 0, i)
+        variant_case(*args, False, sizes[i % 3], i)
+        variant_case(*args, True, sizes[(i + 1) % 3], i)
+    main = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for R in (256, 8):
+            args = (dev, f"main R={R}", 4, 2048, 8, R, 128, dt)
+            err = variant_case(*args, [1, 517, 1300, 2048], True, 0, R)
+            if dt == torch.bfloat16 and R == 256:
+                main["int8"] = err
+            for ps in sizes:
+                for quantized in (False, True):
+                    err = variant_case(*args, [0, 517, 1300, 2048],
+                                       quantized, ps, R + ps)
+                    if dt == torch.bfloat16 and R == 256 and ps == 64:
+                        main["int8+paged" if quantized else "paged"] = err
+    return main
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the verify-fusion kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -308,9 +473,12 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False):
     return abs_err
 
 
-def qkv_case(dev, cfg, name, T, dt, lengths, S=2048, bias=False):
-    """K3 against its plain version at ``cfg``'s attention widths; returns
-    the max abs error."""
+def qkv_case(dev, cfg, name, T, dt, lengths, S=2048, bias=False, ps=0):
+    """K3 against its plain version at ``cfg``'s attention widths; with
+    ``ps`` the caches are pools of that page size read through a shuffled
+    table (rows past it go to trash block 0, which is not compared).
+    Returns the max abs error."""
+    from repro_torch.kernels import paging as P
     from repro_torch.kernels.cache_update import (
         fused_qkv_rope_commit, fused_qkv_rope_commit_plain)
     from repro_torch.models.layers import rope_cos_sin
@@ -329,41 +497,155 @@ def qkv_case(dev, cfg, name, T, dt, lengths, S=2048, bias=False):
     if bias:
         p |= {"bq": rnd(Hq, hd, scale=0.1), "bk": rnd(Hkv, hd, scale=0.1),
               "bv": rnd(Hkv, hd, scale=0.1)}
-    kc, vc = rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    table = None
+    if ps:
+        table = shuffled_table(B, S // ps, dev, T)
+        kc, vc = rnd(1 + B * S // ps, ps, Hkv, hd), rnd(1 + B * S // ps, ps,
+                                                         Hkv, hd)
+    else:
+        kc, vc = rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd)
     cos, sin = rope_cos_sin(lens[:, None] + torch.arange(T, device=dev), hd,
                             cfg.rope_theta)
     k0, v0 = kc.clone(), vc.clone()
     k1, v1 = kc.clone(), vc.clone()
     got = uncounted(fused_qkv_rope_commit, x, p, lens, kc, vc, cos=cos,
-                    sin=sin)
-    ref = fused_qkv_rope_commit_plain(x, p, lens, k1, v1, cos=cos, sin=sin)
+                    sin=sin, table=table)
+    ref = fused_qkv_rope_commit_plain(x, p, lens, k1, v1, cos=cos, sin=sin,
+                                      table=table)
     torch.cuda.synchronize()
+    if ps:
+        # compare the pools without trash block 0
+        kc, vc, k0, v0, k1, v1 = (t[1:] for t in (kc, vc, k0, v0, k1, v1))
     pairs = list(zip((*got, kc, vc), (*ref, k1, v1)))
     err = max(scaled_err(g, r) for g, r in pairs)
     abs_err = max((g.float() - r.float()).abs().max().item() for g, r in pairs)
-    pos = torch.arange(S, device=dev)[None, :]
-    written = (pos >= lens[:, None]) & (pos < lens[:, None] + T)
-    kept = ~written
+    if ps:
+        rows = P.phys_rows(table, lens, T, ps).reshape(-1)
+        written = torch.zeros(kc.shape[0] * ps + ps, dtype=torch.bool,
+                              device=dev)
+        written[rows] = True
+        kept = ~written[ps:].reshape(kc.shape[0], ps)
+    else:
+        pos = torch.arange(S, device=dev)[None, :]
+        kept = ~((pos >= lens[:, None]) & (pos < lens[:, None] + T))
     if not (torch.equal(kc[kept], k0[kept]) and torch.equal(vc[kept],
                                                            v0[kept])):
         fail(f"fused_qkv_rope_commit {name}: cache rows outside "
              f"[lengths, lengths + T) changed")
     tol = TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
-    log(f"  fused_qkv_rope_commit {name}: B={B} T={T} d={d} Hq={Hq} "
+    where = f" paged ps={ps}" if ps else ""
+    log(f"  fused_qkv_rope_commit{where} {name}: B={B} T={T} d={d} Hq={Hq} "
         f"Hkv={Hkv} hd={hd} S={S} {dt} lengths={lengths}: max err "
         f"{err:.3e} (tol {tol}; abs {abs_err:.3e}); rest of the cache "
         f"unchanged")
     if not err < tol:
-        fail(f"fused_qkv_rope_commit {name} disagrees with its plain "
+        fail(f"fused_qkv_rope_commit{where} {name} disagrees with its plain "
              f"version: {err} >= {tol}")
     return abs_err
 
 
+def commit_case(dev, name, dtype, width, paged, nu=3, S=2048, ps=64):
+    """K4 (``commit_rows_stacked``) or K5 (``commit_rows_paged_stacked``),
+    and the wrappers that go through them, against their plain versions:
+    5 rows per slot of 4 slots in every one of ``nu`` units, rows of
+    [8, width] ``dtype`` elements, starts in range, straddling and past the
+    end.  Copies must be exact and the rest of the cache (block 0 of a
+    pool excepted) unchanged bit for bit."""
+    from repro_torch.kernels import cache_update as CU
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    B, K1, H = 4, 5, 8
+    lens = torch.tensor([0, 517, S - 2, S], dtype=torch.int32, device=dev)
+    rows = rnd(nu, B, K1, H, width)
+    if paged:
+        table = shuffled_table(B, S // ps, dev, 7)
+        cache = rnd(nu, 1 + B * S // ps, ps, H, width)
+        fns = ((CU.commit_rows_paged_stacked, CU.commit_rows_paged_stacked_plain,
+                (table,)),
+               (CU.commit_rows_paged, CU.commit_rows_paged_plain, (table,)))
+    else:
+        cache = rnd(nu, B, S, H, width)
+        fns = ((CU.commit_rows_stacked, CU.commit_rows_stacked_plain, ()),
+               (CU.commit_rows, CU.commit_rows_plain, ()))
+    def body(t):                          # a pool without trash block 0
+        return t[..., 1:, :, :, :] if paged else t
+
+    refs = []
+    for fn, plain, extra in fns:
+        if fn in (CU.commit_rows, CU.commit_rows_paged):
+            c, r = cache[0], rows[0]          # one unit, through the 4-d API
+        else:
+            c, r = cache, rows
+        got, ref = c.clone(), c.clone()
+        uncounted(fn, got, *extra, r, lens)
+        plain(ref, *extra, r, lens)
+        torch.cuda.synchronize()
+        if not torch.equal(body(got), body(ref)):
+            fail(f"{fn.__name__} {name}: the kernel's write differs from "
+                 f"its plain version")
+        refs.append(ref)
+    # the plain version writes exactly the rows (and only them): check the
+    # stacked one against a row-by-row copy
+    want = cache.clone()
+    for b, n in enumerate(lens.tolist()):
+        for j in range(K1):
+            pos = n + j
+            if paged:
+                blk = table[b, pos // ps].item() if pos // ps < S // ps else 0
+                if blk:
+                    want[:, blk, pos % ps] = rows[:, b, j]
+            elif pos < S:
+                want[:, b, pos] = rows[:, b, j]
+    if not torch.equal(body(refs[0]), body(want)):
+        fail(f"commit {name}: rows misplaced or the rest of the cache "
+             f"changed")
+    log(f"  {'commit_rows_paged' if paged else 'commit_rows'}{'_stacked'} "
+        f"{name}: nu={nu} B={B} K1={K1} rows [{H}, {width}] {dtype}, "
+        f"lengths {lens.tolist()}"
+        + (f", page size {ps}" if paged else f", S={S}")
+        + ": exact, the rest unchanged")
+
+
+def commit_quantized_case(dev, paged, S=2048, ps=64):
+    """``commit_rows_quantized`` / ``commit_rows_paged_quantized`` (two
+    K4 / K5 launches each) against their plain versions."""
+    from repro_torch.kernels import cache_update as CU
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    B, K1, H, D = 4, 5, 8, 128
+    lens = torch.tensor([0, 517, S - 2, S], dtype=torch.int32, device=dev)
+    rows = torch.randn((B, K1, H, D), generator=gen, device=dev)
+    lead = (1 + B * S // ps, ps) if paged else (B, S)
+    c8 = torch.randint(-127, 128, lead + (H, D), generator=gen, device=dev,
+                       dtype=torch.int8)
+    sc = torch.rand(lead + (H, 1), generator=gen, device=dev)
+    extra = (shuffled_table(B, S // ps, dev, 9),) if paged else ()
+    fn, plain = ((CU.commit_rows_paged_quantized,
+                  CU.commit_rows_paged_quantized_plain) if paged else
+                 (CU.commit_rows_quantized, CU.commit_rows_quantized_plain))
+    got = uncounted(fn, c8.clone(), sc.clone(), *extra, rows, lens)
+    ref = plain(c8.clone(), sc.clone(), *extra, rows, lens)
+    torch.cuda.synchronize()
+    cut = slice(1, None) if paged else slice(None)
+    if not all(torch.equal(g[cut], r[cut]) for g, r in zip(got, ref)):
+        fail(f"{fn.__name__}: the kernel's write differs from its plain "
+             f"version")
+    log(f"  {fn.__name__}: B={B} K1={K1} H={H} D={D}: values and scales "
+        f"exact")
+
+
 def phase_fusion_kernels(dev):
-    """K2 and K3 at openPangu-7B's widths (B 4, T 64: the spec step; T 1:
-    the AR step).  Returns their max abs errors at the main bf16 spec-step
-    shape."""
+    """K2 and K3 (dense and paged) at openPangu-7B's widths (B 4, T 64: the
+    spec step; T 1: the AR step).  Returns their max abs errors at the main
+    bf16 spec-step shape."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config("openpangu-7b")
@@ -378,70 +660,113 @@ def phase_fusion_kernels(dev):
         qkv_case(dev, cfg, "AR", 1, dt, ragged)
         qkv_case(dev, cfg, "spec with biases", 64, dt, ragged, bias=True)
         qkv_case(dev, cfg, "rows past S", 64, dt, [2040, 0, 2047, 100])
-    return errs["K2", torch.bfloat16], errs["K3", torch.bfloat16]
+        errs["K3-paged", dt] = qkv_case(dev, cfg, "spec", 64, dt, ragged,
+                                        ps=64)
+        qkv_case(dev, cfg, "AR", 1, dt, ragged, ps=16)
+        qkv_case(dev, cfg, "rows past the table", 64, dt,
+                 [2040, 0, 2047, 100], ps=128)
+        qkv_case(dev, cfg, "AR past the table", 1, dt, [2048, 5, 2047, 63],
+                 ps=64)
+    return (errs["K2", torch.bfloat16], errs["K3", torch.bfloat16],
+            errs["K3-paged", torch.bfloat16])
+
+
+def phase_commit_kernels(dev):
+    """K4 and K5 for int8 values, bf16 and f32 rows and the int8 layout's
+    f32 scales, with rows past the end; and the quantized wrappers."""
+    for paged in (False, True):
+        for dtype, width in ((torch.int8, 128), (torch.bfloat16, 128),
+                             (torch.float32, 128), (torch.float32, 1)):
+            commit_case(dev, f"{dtype} x {width}", dtype, width, paged)
+        if paged:
+            commit_case(dev, "page size 16, bf16", torch.bfloat16, 128, paged,
+                        ps=16)
+        commit_quantized_case(dev, paged)
 
 
 # ---------------------------------------------------------------------------
 # phase 4: float32, full width, 2 layers: spec == AR exactly, fused too
 # ---------------------------------------------------------------------------
 
+def expected_counts(cfg, steps: int, ar_steps: int = 0):
+    """Launches of each kernel for ``steps`` spec steps and ``ar_steps`` AR
+    steps on ``cfg``: K1 once per layer and step; with verify fusion K2
+    once per spec step and, on an fp cache, K3 once per layer and step;
+    the commit once per cache leaf (k and v, and their scales under int8)
+    and spec step, through K4 on the dense cache and K5 on the paged
+    pool."""
+    per_layer = cfg.num_layers * (steps + ar_steps)
+    quantized = cfg.resolved_cache_dtype == "int8"
+    commits = (4 if quantized else 2) * steps
+    fused = cfg.verify_fusion
+    return {"K1": per_layer, "K2": steps if fused else 0,
+            "K3": per_layer if fused and not quantized else 0,
+            "K4": 0 if cfg.paged else commits,
+            "K5": commits if cfg.paged else 0}
+
+
 def phase_f32(dev):
+    """Float32 openPangu-7B at full width, 2 layers: spec == AR token for
+    token on every cache layout, with exact launch counts."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import ar_generate, build_engine
     from repro_torch.launch.serve import build_model, make_prompts
-    from repro_torch.models.api import init_cache
 
-    cfg = dataclasses.replace(get_config("openpangu-7b"), num_layers=2,
-                              dtype="float32", param_dtype="float32",
-                              name="openpangu-7b-2layer-f32")
-    eng = build_engine(cfg, "medusa", use_kernel=True, device=dev)
-    params, mp = build_model(cfg, 1, eng.dtree.K, dev)
-    prompts = make_prompts(cfg.vocab_size, 4, 1, 16, 129)
+    base = dataclasses.replace(get_config("openpangu-7b"), num_layers=2,
+                               dtype="float32", param_dtype="float32",
+                               name="openpangu-7b-2layer-f32")
+    params, mp = build_model(base, 1, 4, dev)
+    prompts = make_prompts(base.vocab_size, 4, 1, 16, 129)
     tok, plen = padded_batch(prompts, range(4))
     tok = torch.from_numpy(tok).to(dev)
     plen = torch.from_numpy(plen).to(dev)
     max_new, max_len = 32, 512
-    reset_counts()
-    sp, n_out, st = eng.generate(params, mp, tok, plen,
-                                 eng.init_cache(4, max_len), max_new)
-    ar, _ = ar_generate(cfg, params, tok, plen,
-                        init_cache(cfg, 4, max_len, device=dev), max_new,
-                        use_kernel=True)
-    launches = read_counts()[0]
-    sp, ar = sp.cpu(), ar.cpu()
-    if not torch.equal(sp, ar):
-        fail(f"float32 spec != AR:\nspec {sp.tolist()}\nAR   {ar.tolist()}")
-    want = cfg.num_layers * (st.steps + max_new)
-    mean_acc = st.accepted_sum.item() / (st.steps * 4)
-    log(f"  f32 full width, 2 layers: spec == AR for 4 x {max_new} tokens; "
-        f"{st.steps} spec steps (mean accepted {mean_acc:.3f}), "
-        f"{max_new} AR steps, flash_decode launches {launches}")
-    if launches != want:
-        fail(f"flash_decode launched {launches} times, expected {want}")
 
-    # the same weights with verify fusion: K2 verifies, K3 writes
-    feng = build_engine(cfg, "medusa", use_kernel=True, device=dev,
-                        verify_fusion=True)
-    reset_counts()
-    fsp, _, fst = feng.generate(params, mp, tok, plen,
-                                feng.init_cache(4, max_len), max_new)
-    far, _ = ar_generate(feng.cfg, params, tok, plen,
-                         init_cache(cfg, 4, max_len, device=dev), max_new,
-                         use_kernel=True)
-    counts = read_counts()
-    fsp, far = fsp.cpu(), far.cpu()
-    if not (torch.equal(fsp, sp) and torch.equal(far, sp)):
-        fail(f"float32 fused spec / fused AR != unfused spec:\nfused spec "
-             f"{fsp.tolist()}\nfused AR   {far.tolist()}\nspec       "
-             f"{sp.tolist()}")
-    steps = cfg.num_layers * (fst.steps + max_new)
-    want = (steps, fst.steps, steps)
-    log(f"  f32 full width, 2 layers, verify fusion: fused spec == fused AR "
-        f"== unfused spec; {fst.steps} spec steps, {max_new} AR steps; "
-        f"launches K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]} "
-        f"(expected {want})")
-    if counts != want:
-        fail(f"fused f32 launches {counts}, expected {want}")
+    def run(label, verify_fusion=False, **layout):
+        cfg = dataclasses.replace(base, **layout)
+        eng = build_engine(cfg, "medusa", use_kernel=True, device=dev,
+                           verify_fusion=verify_fusion)
+        reset_counts()
+        sp, _, st = eng.generate(params, mp, tok, plen,
+                                 eng.init_cache(4, max_len), max_new)
+        ar, _ = ar_generate(eng.cfg, params, tok, plen,
+                            eng.init_cache(4, max_len), max_new,
+                            use_kernel=True)
+        counts = read_counts()
+        sp, ar = sp.cpu(), ar.cpu()
+        if not torch.equal(sp, ar):
+            fail(f"float32 {label}: spec != AR:\nspec {sp.tolist()}\n"
+                 f"AR   {ar.tolist()}")
+        want = expected_counts(eng.cfg, st.steps, max_new)
+        mean_acc = st.accepted_sum.item() / (st.steps * 4)
+        log(f"  f32 full width, 2 layers, {label}: spec == AR for 4 x "
+            f"{max_new} tokens; {st.steps} spec steps (mean accepted "
+            f"{mean_acc:.3f}), {max_new} AR steps; launches {counts}")
+        if counts != want:
+            fail(f"f32 {label}: launches {counts}, expected {want}")
+        return sp
+
+    sp = run("dense")
+    others = {"verify fusion": run("verify fusion", verify_fusion=True),
+              "paged (page size 64)": run("paged (page size 64)",
+                                          cache_layout="paged",
+                                          page_size=64),
+              "paged, verify fusion (page size 16)": run(
+                  "paged, verify fusion (page size 16)", verify_fusion=True,
+                  cache_layout="paged", page_size=16)}
+    for label, out in others.items():
+        if not torch.equal(out, sp):
+            fail(f"float32 {label} spec != dense spec:\n{out.tolist()}\n"
+                 f"{sp.tolist()}")
+    int8 = run("int8", cache_dtype="int8")
+    int8_paged = run("int8 paged (page size 64)", cache_dtype="int8",
+                     cache_layout="paged", page_size=64)
+    if not torch.equal(int8_paged, int8):
+        fail(f"float32 int8 paged spec != int8 dense spec:\n"
+             f"{int8_paged.tolist()}\n{int8.tolist()}")
+    log(f"  f32: fused, paged and fused paged spec == dense spec; int8 "
+        f"paged spec == int8 spec ({int(torch.sum(int8 == sp))} of "
+        f"{sp.numel()} int8 tokens equal to the fp ones)")
 
 
 # ---------------------------------------------------------------------------
@@ -455,9 +780,9 @@ SERVE_ARGV = ["--requests", str(REQUESTS), "--slots", str(SLOTS),
               "--min-prompt", "64", "--max-prompt", "257", "--seed", "0"]
 
 
-def check_served(srv, counts, fused: bool):
-    """Every request finished; the kernels of the path launched once per
-    layer and step (K1, and with fusion K3) and once per step (K2)."""
+def check_served(srv, counts):
+    """Every request finished, and each kernel of the served config's path
+    launched exactly as ``expected_counts`` says."""
     res = srv.results
     if any(r["status"] != "done" or len(r["output"]) != MAX_NEW
            for r in res):
@@ -466,13 +791,12 @@ def check_served(srv, counts, fused: bool):
     steps = sum(res[g]["steps"] for g in range(0, REQUESTS, SLOTS))
     mean_acc = (sum(r["accepted"] for r in res)
                 / sum(r["steps"] for r in res))
-    per_layer = srv.cfg.num_layers * steps
-    want = (per_layer, steps, per_layer) if fused else (per_layer, 0, 0)
+    want = expected_counts(srv.cfg, steps)
     log(f"  served {REQUESTS} requests: {srv.tokens} tokens in "
         f"{srv.seconds:.3f}s = {srv.tokens / srv.seconds:.1f} tok/s; "
         f"{steps} decode steps; mean accepted length {mean_acc:.3f} "
-        f"tokens per step (1 = no draft token accepted); launches K1 "
-        f"{counts[0]}, K2 {counts[1]}, K3 {counts[2]} (expected {want})")
+        f"tokens per step (1 = no draft token accepted); launches {counts} "
+        f"(expected {want})")
     if counts != want:
         fail(f"kernel launches on the path {counts}, expected {want}")
 
@@ -535,33 +859,77 @@ def check_against_ar(srv, dev):
         f"(largest AR gap to the spec token at a divergence {worst:.5f})")
 
 
-def phase_serve(dev):
+def serve_counted(argv, weights=None):
+    """One launcher run with the counts set to 0 just before it and read
+    just after; returns (Served, counts)."""
     from repro_torch.launch import serve
 
     reset_counts()
-    srv = serve.main(SERVE_ARGV)
-    check_served(srv, read_counts(), fused=False)
+    srv = serve.main(argv, weights=weights)
+    counts = read_counts()
+    check_served(srv, counts)
+    return srv, counts
+
+
+def same_answers(a, b) -> int:
+    return sum(np.array_equal(x["output"], y["output"])
+               for x, y in zip(a.results, b.results))
+
+
+def phase_serve(dev):
+    srv, counts = serve_counted(SERVE_ARGV)
     check_against_ar(srv, dev)
-    return srv
+    return srv, counts
 
 
 def phase_serve_fused(dev, srv):
-    """The launcher with ``--verify-fusion`` on ``srv``'s weights.  Returns
-    the (K1, K2, K3) launches of its run."""
-    from repro_torch.launch import serve
-
-    reset_counts()
-    fsrv = serve.main(SERVE_ARGV + ["--verify-fusion"],
-                      weights=(srv.params, srv.medusa_params))
-    counts = read_counts()
-    check_served(fsrv, counts, fused=True)
-    same = sum(np.array_equal(a["output"], b["output"])
-               for a, b in zip(fsrv.results, srv.results))
-    log(f"  {same} of {REQUESTS} answers token-identical to the unfused "
-        f"launcher's; tokens/s {fsrv.tokens / fsrv.seconds:.1f} fused, "
-        f"{srv.tokens / srv.seconds:.1f} unfused")
+    """The launcher with ``--verify-fusion`` on ``srv``'s weights."""
+    fsrv, counts = serve_counted(SERVE_ARGV + ["--verify-fusion"],
+                                 weights=(srv.params, srv.medusa_params))
+    log(f"  {same_answers(fsrv, srv)} of {REQUESTS} answers token-identical "
+        f"to the unfused launcher's; tokens/s {fsrv.tokens / fsrv.seconds:.1f}"
+        f" fused, {srv.tokens / srv.seconds:.1f} unfused")
     check_against_ar(fsrv, dev)
-    return counts
+    return fsrv, counts
+
+
+def phase_serve_layouts(dev, srv, fsrv):
+    """The launcher on the same weights under the reference's other cache
+    layouts: (a) ``--cache-layout paged --verify-fusion``, token-identical
+    to the fused dense answers (phase 6); (b) ``--cache-dtype int8``, held
+    to ``ar_generate`` on the int8 config under the ``MARGIN_BOUND`` rule;
+    (c) ``--cache-dtype int8 --cache-layout paged --page-size 16``,
+    token-identical to (b).  Returns {label: (Served, counts)}."""
+    weights = (srv.params, srv.medusa_params)
+    runs = {}
+    log("  (a) --cache-layout paged --verify-fusion")
+    runs["paged fused"] = serve_counted(
+        SERVE_ARGV + ["--cache-layout", "paged", "--verify-fusion"], weights)
+    same = same_answers(runs["paged fused"][0], fsrv)
+    log(f"  {same} of {REQUESTS} answers token-identical to the fused dense "
+        f"launcher's (phase 6)")
+    if same != REQUESTS:
+        fail(f"paged fused answers differ from dense fused: {same} of "
+             f"{REQUESTS} identical")
+    log("  (b) --cache-dtype int8")
+    runs["int8"] = serve_counted(SERVE_ARGV + ["--cache-dtype", "int8"],
+                                 weights)
+    log(f"  {same_answers(runs['int8'][0], srv)} of {REQUESTS} int8 answers "
+        f"token-identical to the bf16 cache's (phase 5)")
+    check_against_ar(runs["int8"][0], dev)
+    log("  (c) --cache-dtype int8 --cache-layout paged --page-size 16")
+    runs["int8 paged"] = serve_counted(
+        SERVE_ARGV + ["--cache-dtype", "int8", "--cache-layout", "paged",
+                      "--page-size", "16"], weights)
+    same = same_answers(runs["int8 paged"][0], runs["int8"][0])
+    log(f"  {same} of {REQUESTS} answers token-identical to the int8 dense "
+        f"launcher's (b)")
+    if same != REQUESTS:
+        fail(f"int8 paged answers differ from int8 dense: {same} of "
+             f"{REQUESTS} identical")
+    for label, (run, _) in runs.items():
+        log(f"  tokens/s {label}: {run.tokens / run.seconds:.1f}")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -612,10 +980,12 @@ def time_verify_stats(dev, cfg, launches, max_err):
             "library_ms": lib_ms}
 
 
-def time_fused_qkv(dev, cfg, lens, launches, max_err):
-    """K3 at the spec step (T 64) and the AR step (T 1).  Each timed launch
-    takes the next of 4 weight sets (201 MB, four times the L2), so it
-    reads its weights from HBM as a layer of the live step does."""
+def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0):
+    """K3 at the spec step (T 64) and the AR step (T 1); with ``ps`` its
+    paged variant on pools of that page size through a shuffled table.
+    Each timed launch takes the next of 4 weight sets (201 MB, four times
+    the L2), so it reads its weights from HBM as a layer of the live step
+    does."""
     from repro_torch.kernels.cache_update import (
         fused_qkv_rope_commit, fused_qkv_rope_commit_plain)
     from repro_torch.models.layers import rope_cos_sin
@@ -632,7 +1002,13 @@ def time_fused_qkv(dev, cfg, lens, launches, max_err):
         sets.append(p)
         cats.append(torch.cat([p[n].reshape(d, -1) for n in
                                ("wq", "wk", "wv")], dim=1))
-    kc = torch.zeros((B, S, Hkv, hd), dtype=bf, device=dev)
+    table = None
+    if ps:
+        table = shuffled_table(B, S // ps, dev, 4)
+        kc = torch.zeros((1 + B * S // ps, ps, Hkv, hd), dtype=bf,
+                         device=dev)
+    else:
+        kc = torch.zeros((B, S, Hkv, hd), dtype=bf, device=dev)
     vc = torch.zeros_like(kc)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     out = {}
@@ -646,40 +1022,63 @@ def time_fused_qkv(dev, cfg, lens, launches, max_err):
         it = iter(range(10 ** 9))
         ms = cuda_ms(lambda: uncounted(
             fused_qkv_rope_commit, x, sets[next(it) % 4], lengths, kc, vc,
-            cos=cos, sin=sin), 40)
+            cos=cos, sin=sin, table=table), 40)
         plain_ms = cuda_ms(lambda: fused_qkv_rope_commit_plain(
-            x, sets[next(it) % 4], lengths, kc, vc, cos=cos, sin=sin), 8)
+            x, sets[next(it) % 4], lengths, kc, vc, cos=cos, sin=sin,
+            table=table), 8)
         lib_ms = cuda_ms(lambda: torch.matmul(x2, cats[next(it) % 4]), 40)
         cols = (Hq + 2 * Hkv) * hd
         nbytes = (d * cols * 2 + N * d * 2 + N * cols * 2
-                  + 2 * N * Hkv * hd * 2 + 2 * N * hd // 2 * 4 + B * 4)
+                  + 2 * N * Hkv * hd * 2 + 2 * N * hd // 2 * 4 + B * 4
+                  + (table.numel() * 4 if ps else 0))
         flops = 2 * N * d * cols
         b_ms, b_by = bound(nbytes, flops)
         out[T] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                       bound_ms=b_ms, bound_by=b_by)
-        log(f"  fused_qkv_rope_commit T={T} (B={B} d={d} Hq={Hq} Hkv={Hkv} "
-            f"hd={hd} bf16, lengths {lens}): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.matmul of the product only "
+        where = f" paged ps={ps}" if ps else ""
+        log(f"  fused_qkv_rope_commit{where} T={T} (B={B} d={d} Hq={Hq} "
+            f"Hkv={Hkv} hd={hd} bf16, lengths {lens}): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch.matmul of the product only "
             f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes, "
             f"{flops} flops)")
-    main = out[64]
-    return {"name": "fused_qkv_rope_commit", "route": "cuda",
+    return {"name": "fused_qkv_rope_commit" + ("[paged]" if ps else ""),
+            "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_qkv_rope_commit.cu",
-            "replaces": "src/repro/kernels/cache_update.py:209",
-            "launches": launches, "max_abs_err": max_err, **main}
+            "replaces": ("src/repro/kernels/cache_update.py:203" if ps else
+                         "src/repro/kernels/cache_update.py:209"),
+            "launches": launches, "max_abs_err": max_err, **out[64]}
 
 
-def time_flash_decode(dev, prompt_lens, max_new, launches, max_err):
+K1_REPLACES = {"": "src/repro/kernels/tree_attention.py:126",
+               "int8": "src/repro/kernels/tree_attention.py:73",
+               "paged": "src/repro/kernels/tree_attention.py:105",
+               "int8+paged": "src/repro/kernels/tree_attention.py:105"}
+
+
+def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
+                      variant="", ps=64):
+    """K1 at the spec (R 256) and AR (R 8) shapes, B 4, Hkv 8, D 128, a
+    2048-row bf16 cache (int8 + f32 scales for the int8 variants; pools of
+    page size ``ps`` through a shuffled table for the paged ones).  The
+    yardstick is ``scaled_dot_product_attention`` over the rows K1 sweeps
+    (for the paged variant over the gathered dense view, the gather not
+    timed); no PyTorch call takes an int8 cache with scales, so the int8
+    variants have none."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import paging as P
+    from repro_torch.kernels.quant import quantize_rows
     from repro_torch.kernels.tree_attention import (flash_decode,
                                                     flash_decode_plain)
 
     B, S, Hkv, D = 4, 2048, 8, 128
+    quantized, paged = "int8" in variant, "paged" in variant
     gen = torch.Generator(device=dev).manual_seed(0)
     # lengths mid-way through the first group's generation
     lens = [n + max_new // 2 for n in prompt_lens]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    S_run = max(lens)
+    n_cols = sum(lens)
     rows = {}
     for R in (256, 8):
         q = torch.randn((B, Hkv, R, D), generator=gen, device=dev,
@@ -691,39 +1090,120 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err):
         mask = (torch.arange(S, device=dev)[None, :]
                 < lengths[:, None])[:, None, None, :]
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-        # the library call over the rows the kernel sweeps (the cache cut
-        # to the longest row) and, for comparison, over the whole cache
-        S_run = max(lens)
-        kr, vr, mr = kt[:, :, :S_run], vt[:, :, :S_run], mask[..., :S_run]
-        ms = cuda_ms(lambda: uncounted(flash_decode, q, k, v, lengths), 100)
-        plain_ms = cuda_ms(lambda: flash_decode_plain(q, k, v, lengths), 20)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, kr, vr, attn_mask=mr, scale=1.0), 20)
-        lib_full_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, kt, vt, attn_mask=mask, scale=1.0), 20)
-        n_cols = sum(lens)
-        nbytes = (q.numel() * 2 + 2 * n_cols * Hkv * D * 2 + B * 4
-                  + B * Hkv * R * (D + 2) * 4)
+        kw = {}
+        if quantized:
+            (k, kw["k_scale"]), (v, kw["v_scale"]) = (quantize_rows(k),
+                                                      quantize_rows(v))
+        if paged:
+            table = shuffled_table(B, S // ps, dev, 10)
+            k, v = to_pool(k, table, ps, gen), to_pool(v, table, ps, gen)
+            kw = {n: to_pool(t, table, ps, gen) for n, t in kw.items()}
+            kw["block_tables"] = table
+            # the dense view the pool holds, as the library call needs it
+            kt = P.gather_cache(k, table).transpose(1, 2)
+            vt = P.gather_cache(v, table).transpose(1, 2)
+        ms = cuda_ms(lambda: uncounted(flash_decode, q, k, v, lengths, **kw),
+                     100)
+        plain_ms = cuda_ms(lambda: flash_decode_plain(q, k, v, lengths,
+                                                      **kw), 20)
+        lib_ms = lib_full_ms = None
+        if not quantized:
+            kr, vr, mr = kt[:, :, :S_run], vt[:, :, :S_run], mask[..., :S_run]
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kr, vr, attn_mask=mr, scale=1.0), 20)
+            lib_full_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kt, vt, attn_mask=mask, scale=1.0), 20)
+        # bytes: q, the swept rows of k and v (+ their f32 scales), the
+        # lengths, the table entries of the swept rows, the f32 outputs
+        row_bytes = Hkv * (D + 4) if quantized else Hkv * D * 2
+        nbytes = (q.numel() * 2 + 2 * n_cols * row_bytes + B * 4
+                  + B * Hkv * R * (D + 2) * 4
+                  + (sum(-(-n // ps) for n in lens) * 4 if paged else 0))
         flops = 4 * R * D * Hkv * n_cols
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_BF16_FLOPS * 1e3
+        b_ms, b_by = bound(nbytes, flops)
         rows[R] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"  flash_decode R={R} (B={B} Hkv={Hkv} D={D} S={S} bf16, "
-            f"lengths {lens}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa over {S_run} rows {lib_ms:.4f} ms (over all {S} rows "
-            f"{lib_full_ms:.4f} ms), bound {rows[R]['bound_ms']:.5f} ms "
-            f"({rows[R]['bound_by']}: {nbytes} bytes, {flops} flops; "
-            f"f32 CUDA-core floor {flops / H100_F32_FLOPS * 1e3:.5f} ms)")
-    main = rows[256]
-    return {"name": "flash_decode", "route": "cuda",
+                       bound_ms=b_ms, bound_by=b_by)
+        lib = ("none (no PyTorch call takes an int8 cache with scales)"
+               if quantized else
+               f"sdpa over {S_run} rows {lib_ms:.4f} ms (over all {S} rows "
+               f"{lib_full_ms:.4f} ms)")
+        what = variant + (f" ps={ps}" if paged else "")
+        log(f"  flash_decode {what or 'dense'} R={R} (B={B} Hkv={Hkv} D={D} "
+            f"S={S} bf16, lengths {lens}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, {lib}, bound {b_ms:.5f} ms ({b_by}: "
+            f"{nbytes} bytes, {flops} flops; f32 CUDA-core floor "
+            f"{flops / H100_F32_FLOPS * 1e3:.5f} ms)")
+    return {"name": "flash_decode" + (f"[{variant}]" if variant else ""),
+            "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-            "replaces": "src/repro/kernels/tree_attention.py:126",
-            "launches": launches, "max_abs_err": max_err,
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"]}
+            "replaces": K1_REPLACES[variant], "launches": launches,
+            "max_abs_err": max_err, **rows[256]}
+
+
+def time_commit(dev, launches, paged, ps=64):
+    """K4 (or K5 with ``paged``) at the main path's commit: 5 bf16 rows of
+    [8, 128] per slot of 4 slots into all 34 units of a 2048-row cache (a
+    pool through a shuffled table), one launch.  The yardstick is one
+    ``index_put_`` of the same rows at the same (precomputed) positions.
+    Times are device times from the profiler (``device_ms``)."""
+    from repro_torch.kernels import cache_update as CU
+    from repro_torch.kernels import paging as P
+
+    nu, B, S, K1, H, D = 34, 4, 2048, 5, 8, 128
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = torch.randn((nu, B, K1, H, D), generator=gen, device=dev).to(bf)
+    lengths = torch.tensor([300, 517, 1300, 2000], dtype=torch.int32,
+                           device=dev)
+    if paged:
+        table = shuffled_table(B, S // ps, dev, 12)
+        cache = torch.zeros((nu, 1 + B * S // ps, ps, H, D), dtype=bf,
+                            device=dev)
+        fn, plain = CU.commit_rows_paged_stacked, \
+            CU.commit_rows_paged_stacked_plain
+        extra = (table,)
+        flat = cache.view(nu, -1, H, D)
+        phys = P.phys_rows(table, lengths, K1, ps).reshape(-1)
+        rows2 = rows.reshape(nu, B * K1, H, D)
+
+        def lib():
+            flat.index_put_((torch.arange(nu, device=dev)[:, None],
+                             phys[None, :]), rows2)
+    else:
+        cache = torch.zeros((nu, B, S, H, D), dtype=bf, device=dev)
+        fn, plain = CU.commit_rows_stacked, CU.commit_rows_stacked_plain
+        extra = ()
+        pos = (lengths.long()[:, None]
+               + torch.arange(K1, device=dev)).reshape(-1)
+        slot = torch.arange(B, device=dev).repeat_interleave(K1)
+        rows2 = rows.reshape(nu, B * K1, H, D)
+
+        def lib():
+            cache.index_put_((torch.arange(nu, device=dev)[:, None],
+                              slot[None, :], pos[None, :]), rows2)
+    # each call is shorter than the host's cost of issuing it: device
+    # times from the profiler, and the host's rate beside them
+    host_ms = cuda_ms(lambda: uncounted(fn, cache, *extra, rows, lengths),
+                      200)
+    ms = device_ms(lambda: uncounted(fn, cache, *extra, rows, lengths), 50)
+    plain_ms = device_ms(lambda: plain(cache, *extra, rows, lengths), 50)
+    lib_ms = device_ms(lib, 50)
+    nbytes = 2 * rows.numel() * 2 + B * 4 + (B * 2 * 4 if paged else 0)
+    b_ms, b_by = bound(nbytes, 0)
+    name = "commit_rows_paged" if paged else "commit_rows"
+    log(f"  {name} (via {fn.__name__}: nu={nu} B={B} K1={K1} rows [{H}, {D}] "
+        f"bf16{f', page size {ps}' if paged else ''}), device time per call: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_put_ of the same "
+        f"rows {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} "
+        f"bytes); back to back on CUDA events the kernel's wrapper issues "
+        f"one call per {host_ms:.4f} ms")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/commit_rows.cu",
+            "replaces": ("src/repro/kernels/cache_update.py:86" if paged else
+                         "src/repro/kernels/cache_update.py:32"),
+            "launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 def main() -> int:
@@ -753,35 +1233,57 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
 
-    log("phase 2: flash_decode kernel vs plain version on the card")
+    log("phase 2: flash_decode kernel (dense, int8, paged, int8 + paged) vs "
+        "plain version on the card")
     k1_err = phase_kernels(dev)
+    k1_errs = phase_kernel_variants(dev)
 
-    log("phase 3: unembed_verify_stats and fused_qkv_rope_commit kernels vs "
-        "plain versions on the card")
-    k2_err, k3_err = phase_fusion_kernels(dev)
+    log("phase 3: unembed_verify_stats, fused_qkv_rope_commit (dense and "
+        "paged) and commit_rows (dense and paged) kernels vs plain versions "
+        "on the card")
+    k2_err, k3_err, k3p_err = phase_fusion_kernels(dev)
+    phase_commit_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("phase 4: float32, full width, 2 layers: speculative == AR, fused "
-        "too")
+    log("phase 4: float32, full width, 2 layers: speculative == AR on every "
+        "cache layout, fused too")
     phase_f32(dev)
     torch.cuda.empty_cache()
 
     log("phase 5: the launcher on bf16 openPangu-7B, full width and depth")
-    srv = phase_serve(dev)
+    srv, _ = phase_serve(dev)
 
     log("phase 6: the launcher with --verify-fusion on the same weights")
-    launches = phase_serve_fused(dev, srv)
+    fsrv, fused = phase_serve_fused(dev, srv)
+
+    log("phase 7: the launcher on the same weights under the paged and int8 "
+        "cache layouts")
+    runs = phase_serve_layouts(dev, srv, fsrv)
+    layout_counts = {label: counts for label, (_, counts) in runs.items()}
     prompt_lens = [len(p) for p in srv.prompts[:4]]
-    del srv
+    del srv, fsrv, runs
     torch.cuda.empty_cache()
 
-    log("phase 7: timing at the main path's spec-step shape")
+    log("phase 8: timing at the main path's shapes")
     cfg = get_config("openpangu-7b")
-    rows = [time_flash_decode(dev, prompt_lens, MAX_NEW, launches[0],
+    mid = [n + MAX_NEW // 2 for n in prompt_lens]
+    paged_fused = layout_counts["paged fused"]
+    rows = [time_flash_decode(dev, prompt_lens, MAX_NEW, fused["K1"],
                               k1_err),
-            time_verify_stats(dev, cfg, launches[1], k2_err),
-            time_fused_qkv(dev, cfg, [n + MAX_NEW // 2 for n in prompt_lens],
-                           launches[2], k3_err)]
+            time_flash_decode(dev, prompt_lens, MAX_NEW,
+                              layout_counts["int8"]["K1"], k1_errs["int8"],
+                              variant="int8"),
+            time_flash_decode(dev, prompt_lens, MAX_NEW, paged_fused["K1"],
+                              k1_errs["paged"], variant="paged"),
+            time_flash_decode(dev, prompt_lens, MAX_NEW,
+                              layout_counts["int8 paged"]["K1"],
+                              k1_errs["int8+paged"], variant="int8+paged",
+                              ps=16),
+            time_verify_stats(dev, cfg, fused["K2"], k2_err),
+            time_fused_qkv(dev, cfg, mid, fused["K3"], k3_err),
+            time_fused_qkv(dev, cfg, mid, paged_fused["K3"], k3p_err, ps=64),
+            time_commit(dev, fused["K4"], paged=False),
+            time_commit(dev, paged_fused["K5"], paged=True)]
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(smi_line(), flush=True)

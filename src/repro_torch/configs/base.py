@@ -3,8 +3,8 @@
 ``ModelConfig`` keeps every field of the reference dataclass, with the same
 names and defaults, so one architecture reads the same in both packages
 and a test can compare the two field by field.  ``reduce`` derives the
-CPU-test variant exactly as the reference does.  The port's first slice
-runs the dense family only; ``models/api.get_model`` rejects the rest.
+CPU-test variant exactly as the reference does.  The port runs the dense
+family only; ``models/api.get_model`` rejects the rest.
 """
 from __future__ import annotations
 
@@ -136,6 +136,15 @@ class ModelConfig:
         if self.cache_layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache_layout {self.cache_layout!r}")
         return self.cache_layout == "paged"
+
+    def kv_cache_bytes_per_token(self) -> int:
+        """Bytes of attention KV cache per committed token across all
+        layers: k+v values plus, for int8, the per-head-per-row f32
+        scales."""
+        from repro_torch.kernels.quant import cache_bytes_per_token
+        return self.num_attn_layers * cache_bytes_per_token(
+            self.num_kv_heads, self.resolved_head_dim,
+            self.resolved_cache_dtype)
 
 
 def reduce(cfg: ModelConfig, **overrides) -> ModelConfig:

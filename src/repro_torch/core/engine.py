@@ -27,6 +27,7 @@ from repro_torch.core.tree import TreeBuffers
 from repro_torch.kernels import ops as KO
 from repro_torch.models import api as model_api
 from repro_torch.models.api import get_model
+from repro_torch.models.transformer import PAGES_KEY
 from repro_torch.runtime import resolve_device
 
 
@@ -81,10 +82,12 @@ class SpecEngine:
         self.dtree = self.proposer.dtree
         self.use_kernel = use_kernel
 
-    def init_cache(self, batch: int, max_len: int):
-        """Dense decode cache for ``batch`` slots on the engine's device."""
+    def init_cache(self, batch: int, max_len: int, n_blocks=None):
+        """Decode cache for ``batch`` slots on the engine's device in the
+        config's cache dtype and layout (``n_blocks`` sizes the paged pool;
+        None means the allocator-free identity table)."""
         return model_api.init_cache(self.cfg, batch, max_len,
-                                    device=self.device)
+                                    n_blocks=n_blocks, device=self.device)
 
     def init_proposer_state(self, batch: int, capacity: int):
         return self.proposer.init_state(batch, capacity)
@@ -247,6 +250,8 @@ def ar_generate(cfg: ModelConfig, params, tokens, prompt_lengths, cache,
 
 def _squeeze_spec(spec_cache):
     """Drop the in-flight ``*_new`` rows of a T=1 spec cache, keeping the
-    persistent k/v."""
-    return {pos: {n: x for n, x in entry.items() if not n.endswith("_new")}
+    persistent leaves (k/v and, under int8, k_scale/v_scale) and the paged
+    layout's ``_pages`` block table."""
+    return {pos: entry if pos == PAGES_KEY else
+            {n: x for n, x in entry.items() if not n.endswith("_new")}
             for pos, entry in spec_cache.items()}

@@ -1,23 +1,34 @@
-"""The decode step's write side in one kernel: q/k/v projection, RoPE and
-the tree-row cache write of one layer.
+"""The cache's write kernels: the decode step's fused write side, and the
+in-place commit of the accepted rows.
 
 ``fused_qkv_rope_commit`` replaces
 ``repro/kernels/cache_update.py::fused_qkv_rope_commit`` (the Pallas TPU
-kernel, dense bodies ``_fused_qkv_body``/``_fused_qkv_dense`` and
-``_rope_half``) with the hand-written CUDA kernel
-``csrc/fused_qkv_rope_commit.cu`` for Hopper (sm_90a), built by
-``kernels/build.py`` and called through ``ctypes``.  One block owns 64
-rows and one head, so RoPE's pairs and the head's cache rows stay in the
-block (the design is in the source).  The paged variant
-(``_fused_qkv_paged``) is a later slice.
+kernel, bodies ``_fused_qkv_body``/``_fused_qkv_dense``/``_fused_qkv_paged``
+and ``_rope_half``) with the hand-written CUDA kernel
+``csrc/fused_qkv_rope_commit.cu`` for Hopper (sm_90a): q/k/v projection,
+RoPE and the tree-row write of one layer.  One block owns 64 rows and one
+head, so RoPE's pairs and the head's cache rows stay in the block (the
+design is in the source).
 
-Rows that would land at or past the cache's end are dropped, the rule of
-the port's and the unfused reference's ``_update_rows``.  (The Pallas
-kernel's dense write clamps its start instead when run in interpret mode;
-the port does not copy that.)
+``commit_rows_stacked`` and ``commit_rows_paged_stacked`` replace
+``commit_rows`` (body ``_kernel``) and ``commit_rows_paged`` (body
+``_kernel_paged``) of the same reference file with ``csrc/commit_rows.cu``:
+one launch writes K1 rows per slot of every unit in place, at
+[lengths[b], lengths[b] + K1), with one block per row.  ``commit_rows``,
+``commit_rows_paged`` and the ``*_quantized`` wrappers (the reference's
+wrappers of the same names) go through them.
 
-``fused_qkv_rope_commit_plain`` is the same function in plain PyTorch: the
-CPU path, and what the card's kernel is held against.
+Write rules.  Dense: rows that would land at or past the cache's end are
+dropped, the rule of the port's and the unfused reference's
+``_update_rows`` (the Pallas kernels' dense writes clamp their start
+instead when run in interpret mode; the port does not copy that).  Paged:
+rows past the table's reach go to trash block 0, as in the reference.
+
+Each ``*_plain`` function is the same function in plain PyTorch: the CPU
+path, and what the card's kernel is held against.  Every wrapper counts in
+its ``.launches`` the kernel launches made inside its call, including
+those made through another wrapper (``commit_rows_quantized`` adds 2 to
+its own count and 2 to ``commit_rows``' and ``commit_rows_stacked``'s).
 """
 from __future__ import annotations
 
@@ -25,6 +36,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import paging as P
+from repro_torch.kernels import quant as Q
 from repro_torch.models import layers as L
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -32,14 +45,13 @@ _HEAD_DIMS = (64, 128)
 
 
 def fused_qkv_rope_commit_plain(x, p, lengths, k_cache, v_cache, *, cos=None,
-                                sin=None):
+                                sin=None, table=None):
     """The fused write side in plain PyTorch; arguments and results as
     ``fused_qkv_rope_commit``.  The projections are products in x's dtype
     (f32 accumulation, rounded to x's dtype), the biases are added in x's
     dtype, RoPE is ``layers.apply_rope``, and the k/v rows go into the
-    caches through ``transformer._update_rows``."""
-    # imported here: models.transformer imports this module
-    from repro_torch.models.transformer import _update_rows
+    caches through ``commit_rows_plain`` (dense) or ``paging.scatter_rows``
+    (paged)."""
     B, T, d = x.shape
 
     def proj(name):
@@ -55,12 +67,16 @@ def fused_qkv_rope_commit_plain(x, p, lengths, k_cache, v_cache, *, cos=None,
     if cos is not None:
         c, s = cos[:, :, None, :], sin[:, :, None, :]
         q, k = L.apply_rope(q, c, s), L.apply_rope(k, c, s)
-    _update_rows(k_cache, k, lengths)
-    _update_rows(v_cache, v, lengths)
+    if table is None:
+        commit_rows_plain(k_cache, k, lengths)
+        commit_rows_plain(v_cache, v, lengths)
+    else:
+        P.scatter_rows(k_cache, table, k, lengths, k_cache.shape[1])
+        P.scatter_rows(v_cache, table, v, lengths, v_cache.shape[1])
     return q, k, v
 
 
-def _check_cuda_args(x, p, lengths, k_cache, v_cache, cos, sin):
+def _check_cuda_args(x, p, lengths, k_cache, v_cache, cos, sin, table):
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"fused_qkv_rope_commit: x dtype {x.dtype} (float32 "
                         f"or bfloat16)")
@@ -80,11 +96,21 @@ def _check_cuda_args(x, p, lengths, k_cache, v_cache, cos, sin):
         raise ValueError(f"fused_qkv_rope_commit: head_dim {hd} (kernel "
                          f"takes {_HEAD_DIMS})")
     for c in (k_cache, v_cache):
-        if c.dim() != 4 or c.shape[0] != B or c.shape[2:] != (Hkv, hd) \
-                or c.stride(-1) != 1:
+        if c.dim() != 4 or c.shape[2:] != (Hkv, hd) or c.stride(-1) != 1:
             raise ValueError(f"fused_qkv_rope_commit: cache {tuple(c.shape)} "
-                             f"is not [B, S, Hkv, hd] with unit stride over "
-                             f"hd")
+                             f"is not [B, S, Hkv, hd] (or a pool "
+                             f"[n_blocks, page_size, Hkv, hd]) with unit "
+                             f"stride over hd")
+        if table is None and c.shape[0] != B:
+            raise ValueError(f"fused_qkv_rope_commit: cache {tuple(c.shape)} "
+                             f"for {B} slots")
+        if table is not None and c.stride(0) != c.shape[1] * c.stride(1):
+            raise ValueError("fused_qkv_rope_commit: pool block stride is "
+                             "not page_size times its row stride")
+    if table is not None and (table.dim() != 2 or table.shape[0] != B
+                              or table.dtype != torch.int32):
+        raise ValueError(f"fused_qkv_rope_commit: table must be [B={B}, "
+                         f"max_blocks] int32")
     if k_cache.shape != v_cache.shape:
         raise ValueError("fused_qkv_rope_commit: k and v caches differ")
     if lengths.shape != (B,) or lengths.dtype != torch.int32:
@@ -102,7 +128,7 @@ def _check_cuda_args(x, p, lengths, k_cache, v_cache, cos, sin):
         raise ValueError("fused_qkv_rope_commit: give all of bq/bk/bv or "
                          "none")
     tensors = [p["wq"], p["wk"], p["wv"], lengths, k_cache, v_cache]
-    tensors += [t for t in (cos, sin) if t is not None]
+    tensors += [t for t in (cos, sin, table) if t is not None]
     tensors += [p["b" + n] for n in "qkv" if "b" + n in p]
     for t in tensors:
         if t.device != x.device:
@@ -116,7 +142,8 @@ def _kernel_fn(dtype):
                  "fused_qkv_rope_commit_" + _KERNEL_DTYPES[dtype])
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + \
-            [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+            [ctypes.c_int64] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + \
+            [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -131,23 +158,22 @@ def fused_qkv_rope_commit(x, p, lengths, k_cache, v_cache, *, cos=None,
     dtype; cos/sin [B, T, hd/2] f32 from ``layers.rope_cos_sin``, or None
     for no RoPE.  Writes the T new k/v rows into the caches in place at
     [lengths[b], lengths[b] + T), dropping rows at or past S, and returns
-    (q [B, T, Hq, hd], k, v [B, T, Hkv, hd]) in x's dtype.
+    (q [B, T, Hq, hd], k, v [B, T, Hkv, hd]) in x's dtype.  With ``table``
+    [B, max_blocks] int32 the caches are pools
+    [n_blocks, page_size, Hkv, hd] and the rows go through the table, rows
+    past it to trash block 0.
 
     CPU tensors take ``fused_qkv_rope_commit_plain``.  CUDA tensors launch
     the kernel, or raise: there is no fallback.
-    ``fused_qkv_rope_commit.launches`` counts kernel launches.  The paged
-    pool (``table``) is a later slice and raises.
+    ``fused_qkv_rope_commit.launches`` counts kernel launches.
     """
-    if table is not None:
-        raise NotImplementedError("fused_qkv_rope_commit: the paged variant "
-                                  "is ROADMAP queue 1 item 10")
     if x.device.type == "cpu":
         return fused_qkv_rope_commit_plain(x, p, lengths, k_cache, v_cache,
-                                           cos=cos, sin=sin)
+                                           cos=cos, sin=sin, table=table)
     if x.device.type != "cuda":
         raise ValueError(f"fused_qkv_rope_commit: unsupported device "
                          f"{x.device}")
-    _check_cuda_args(x, p, lengths, k_cache, v_cache, cos, sin)
+    _check_cuda_args(x, p, lengths, k_cache, v_cache, cos, sin, table)
     B, T, d = x.shape
     Hq, hd = p["wq"].shape[1], p["wq"].shape[2]
     Hkv = p["wk"].shape[1]
@@ -160,6 +186,12 @@ def fused_qkv_rope_commit(x, p, lengths, k_cache, v_cache, *, cos=None,
     k = torch.empty((B, T, Hkv, hd), dtype=x.dtype, device=x.device)
     v = torch.empty((B, T, Hkv, hd), dtype=x.dtype, device=x.device)
 
+    if table is not None:
+        table = table.contiguous()
+        ps, mb = k_cache.shape[1], table.shape[1]
+    else:
+        ps = mb = 0
+
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -169,7 +201,7 @@ def fused_qkv_rope_commit(x, p, lengths, k_cache, v_cache, *, cos=None,
         k.data_ptr(), v.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         B * T, T, d, Hq, Hkv, hd, k_cache.shape[1], k_cache.stride(0),
         k_cache.stride(1), k_cache.stride(2), v_cache.stride(0),
-        v_cache.stride(1), v_cache.stride(2),
+        v_cache.stride(1), v_cache.stride(2), ptr(table), ps, mb,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_qkv_rope_commit: CUDA launch failed with "
@@ -179,3 +211,240 @@ def fused_qkv_rope_commit(x, p, lengths, k_cache, v_cache, *, cos=None,
 
 
 fused_qkv_rope_commit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# in-place commit of the accepted rows (K4 dense, K5 paged)
+# ---------------------------------------------------------------------------
+
+def commit_rows_plain(cache, rows, lengths):
+    """Per-row write, in place: cache [..., B, S, H, D] gets rows
+    [..., B, K1, H, D] (cast to the cache's dtype) at
+    [lengths[b], lengths[b] + K1).  Returns the cache.
+
+    Rows that land at or past S are dropped, never wrapped or raised on
+    (the reference's ``_update_rows`` rule).  Dropping them needs no host
+    sync: each such row is sent to slot ``pos % S``, which lies before
+    ``lengths[b]`` (or, when every row of the slot is dropped, is written
+    by no kept row), and it writes back that slot's own current value.
+    That needs S >= K1, which is checked.
+    """
+    B, S = cache.shape[-4], cache.shape[-3]
+    T = rows.shape[-3]
+    if S < T:
+        raise ValueError(f"cache of {S} rows cannot take {T} rows per step")
+    dev = cache.device
+    pos = lengths.long()[:, None] + torch.arange(T, device=dev)   # [B, T]
+    keep = pos < S
+    idx = pos % S
+    bidx = torch.arange(B, device=dev)[:, None].expand(B, T)
+    old = cache[..., bidx, idx, :, :]
+    vals = torch.where(keep[:, :, None, None], rows.to(cache.dtype), old)
+    cache[..., bidx, idx, :, :] = vals
+    return cache
+
+
+def commit_rows_stacked_plain(cache, rows, lengths):
+    """``commit_rows_stacked`` in plain PyTorch (``commit_rows_plain``
+    takes the leading units axis as it is)."""
+    return commit_rows_plain(cache, rows, lengths)
+
+
+def commit_rows_quantized_plain(cache, scale_cache, rows, lengths):
+    """``commit_rows_quantized`` in plain PyTorch."""
+    qrows, srows = Q.quantize_rows(rows)
+    return (commit_rows_plain(cache, qrows, lengths),
+            commit_rows_plain(scale_cache, srows, lengths))
+
+
+def commit_rows_paged_plain(pool, block_tables, rows, lengths):
+    """``commit_rows_paged`` in plain PyTorch (``paging.scatter_rows``)."""
+    return P.scatter_rows(pool, block_tables, rows, lengths, pool.shape[1])
+
+
+def commit_rows_paged_stacked_plain(pool, block_tables, rows, lengths):
+    """``commit_rows_paged_stacked`` in plain PyTorch
+    (``paging.scatter_rows_stacked``)."""
+    return P.scatter_rows_stacked(pool, block_tables, rows, lengths,
+                                  pool.shape[2])
+
+
+def commit_rows_paged_quantized_plain(pool, scale_pool, block_tables, rows,
+                                      lengths):
+    """``commit_rows_paged_quantized`` in plain PyTorch."""
+    qrows, srows = Q.quantize_rows(rows)
+    return (commit_rows_paged_plain(pool, block_tables, qrows, lengths),
+            commit_rows_paged_plain(scale_pool, block_tables, srows, lengths))
+
+
+def _check_commit_args(name, cache, rows, lengths, table, n_lead):
+    """Shapes, devices and layout for the commit kernel: cache
+    [nu, B, S, H, D] or pool [nu, n_blocks, ps, H, D] (``n_lead`` = 2
+    leading axes before the row), rows [nu, B, K1, H, D]."""
+    if cache.dim() != n_lead + 3 or rows.dim() != n_lead + 3:
+        raise ValueError(f"{name}: cache {tuple(cache.shape)} and rows "
+                         f"{tuple(rows.shape)} have the wrong rank")
+    nu, B = rows.shape[0], rows.shape[1]
+    if cache.shape[0] != nu or cache.shape[-2:] != rows.shape[-2:]:
+        raise ValueError(f"{name}: rows {tuple(rows.shape)} do not fit the "
+                         f"cache {tuple(cache.shape)}")
+    if table is None and cache.shape[1] != B:
+        raise ValueError(f"{name}: cache {tuple(cache.shape)} for {B} slots")
+    H, D = cache.shape[-2:]
+    if cache.stride(-1) != 1 or cache.stride(-2) != D:
+        raise ValueError(f"{name}: cache rows [H, D] must be contiguous")
+    if table is not None:
+        if cache.stride(1) != cache.shape[2] * cache.stride(2):
+            raise ValueError(f"{name}: pool block stride is not page_size "
+                             f"times its row stride")
+        if table.dim() != 2 or table.shape[0] != B \
+                or table.dtype != torch.int32:
+            raise ValueError(f"{name}: block_tables must be [B={B}, "
+                             f"max_blocks] int32")
+    if lengths.shape != (B,) or lengths.dtype != torch.int32:
+        raise ValueError(f"{name}: lengths must be [B] int32")
+    for t in (rows, lengths, table):
+        if t is not None and t.device != cache.device:
+            raise ValueError(f"{name}: tensors on {cache.device} and "
+                             f"{t.device}")
+
+
+def _commit_fn():
+    from repro_torch.kernels.build import library
+    fn = library("commit_rows").commit_rows
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+            [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_commit(name, cache, rows, lengths, table):
+    """One launch of ``csrc/commit_rows.cu``: cache [nu, B, S, H, D] or,
+    with ``table``, pool [nu, n_blocks, ps, H, D]; rows [nu, B, K1, H, D]
+    (cast to the cache's dtype)."""
+    _check_commit_args(name, cache, rows, lengths, table, 2)
+    rows = rows.to(cache.dtype).contiguous()
+    nu, B, K1 = rows.shape[:3]
+    es = cache.element_size()
+    row_bytes = rows.shape[-2] * rows.shape[-1] * es
+    if table is not None:
+        table = table.contiguous()
+        S, ps, mb = 0, cache.shape[2], table.shape[1]
+        s_b = 0
+    else:
+        S, ps, mb = cache.shape[2], 0, 0
+        s_b = cache.stride(1) * es
+    err = _commit_fn()(
+        rows.data_ptr(), cache.data_ptr(), lengths.data_ptr(),
+        None if table is None else table.data_ptr(), nu, B, K1, row_bytes, S,
+        ps, mb, cache.stride(0) * es, s_b, cache.stride(2) * es,
+        torch.cuda.current_stream(cache.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _device_of(name, cache):
+    """'cpu' or 'cuda'; any other device raises."""
+    if cache.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {cache.device}")
+    return cache.device.type
+
+
+def commit_rows_stacked(cache, rows, lengths):
+    """In-place commit of K1 rows per slot into every unit of a dense cache.
+
+    cache [nu, B, S, H, D] any dtype (bf16, f32, int8 values, f32 scales),
+    rows [nu, B, K1, H, D] (cast to the cache's dtype), lengths [B] int32.
+    Row j of rows[u, b] lands at cache[u, b, lengths[b] + j]; rows at or
+    past S are dropped.  Returns the cache.  One launch for every unit.
+
+    CPU tensors take ``commit_rows_stacked_plain``; CUDA tensors launch
+    ``csrc/commit_rows.cu`` or raise (the cache's [H, D] rows must be
+    contiguous)."""
+    if _device_of("commit_rows_stacked", cache) == "cpu":
+        return commit_rows_stacked_plain(cache, rows, lengths)
+    _launch_commit("commit_rows_stacked", cache, rows, lengths, None)
+    commit_rows_stacked.launches += 1
+    return cache
+
+
+def commit_rows(cache, rows, lengths):
+    """In-place commit into one dense cache: cache [B, S, H, D] any dtype,
+    rows [B, K1, H, D], lengths [B] int32; rows at or past S are dropped.
+    Returns the cache.  CPU tensors take ``commit_rows_plain``."""
+    if _device_of("commit_rows", cache) == "cpu":
+        return commit_rows_plain(cache, rows, lengths)
+    commit_rows_stacked(cache[None], rows[None], lengths)
+    commit_rows.launches += 1
+    return cache
+
+
+def commit_rows_quantized(cache, scale_cache, rows, lengths):
+    """Quantize and commit into the int8 layout: cache [B, S, H, D] int8,
+    scale_cache [B, S, H, 1] f32, rows [B, K1, H, D] fp.  The rows are
+    quantized with ``quant.quantize_rows`` and the values and the scales
+    written by one ``commit_rows`` each.  Returns (cache, scale_cache)."""
+    if _device_of("commit_rows_quantized", cache) == "cpu":
+        return commit_rows_quantized_plain(cache, scale_cache, rows, lengths)
+    qrows, srows = Q.quantize_rows(rows)
+    out = (commit_rows(cache, qrows, lengths),
+           commit_rows(scale_cache, srows, lengths))
+    commit_rows_quantized.launches += 2
+    return out
+
+
+def commit_rows_paged_stacked(pool, block_tables, rows, lengths):
+    """In-place commit through the block table into every unit's pool.
+
+    pool [nu, n_blocks, page_size, H, D] any dtype, block_tables
+    [B, max_blocks] int32 (one table for every unit), rows
+    [nu, B, K1, H, D], lengths [B] int32.  Row j of rows[u, b] lands at
+    row pos % page_size of block ``block_tables[b, pos // page_size]`` of
+    unit u, pos = lengths[b] + j; rows past the table go to trash block 0.
+    Returns the pool.  One launch for every unit.
+
+    CPU tensors take ``commit_rows_paged_stacked_plain``; CUDA tensors
+    launch ``csrc/commit_rows.cu`` or raise."""
+    if _device_of("commit_rows_paged_stacked", pool) == "cpu":
+        return commit_rows_paged_stacked_plain(pool, block_tables, rows,
+                                               lengths)
+    _launch_commit("commit_rows_paged_stacked", pool, rows, lengths,
+                   block_tables)
+    commit_rows_paged_stacked.launches += 1
+    return pool
+
+
+def commit_rows_paged(pool, block_tables, rows, lengths):
+    """In-place commit through the block table into one pool
+    [n_blocks, page_size, H, D] any dtype; rows [B, K1, H, D], lengths
+    [B] int32; rows past the table go to trash block 0.  Returns the pool.
+    CPU tensors take ``commit_rows_paged_plain``."""
+    if _device_of("commit_rows_paged", pool) == "cpu":
+        return commit_rows_paged_plain(pool, block_tables, rows, lengths)
+    commit_rows_paged_stacked(pool[None], block_tables, rows[None], lengths)
+    commit_rows_paged.launches += 1
+    return pool
+
+
+def commit_rows_paged_quantized(pool, scale_pool, block_tables, rows,
+                                lengths):
+    """Quantize and commit through the block table: int8 value pool
+    [n_blocks, page_size, H, D], f32 scale pool [n_blocks, page_size, H, 1],
+    rows [B, K1, H, D] fp.  Returns (pool, scale_pool)."""
+    if _device_of("commit_rows_paged_quantized", pool) == "cpu":
+        return commit_rows_paged_quantized_plain(pool, scale_pool,
+                                                 block_tables, rows, lengths)
+    qrows, srows = Q.quantize_rows(rows)
+    out = (commit_rows_paged(pool, block_tables, qrows, lengths),
+           commit_rows_paged(scale_pool, block_tables, srows, lengths))
+    commit_rows_paged_quantized.launches += 2
+    return out
+
+
+commit_rows.launches = 0
+commit_rows_stacked.launches = 0
+commit_rows_quantized.launches = 0
+commit_rows_paged.launches = 0
+commit_rows_paged_stacked.launches = 0
+commit_rows_paged_quantized.launches = 0

@@ -1,8 +1,9 @@
 // Fused q/k/v projection + RoPE + tree-row cache write of one decode layer,
-// for Hopper (sm_90a).  Dense cache only.
+// for Hopper (sm_90a).  Dense cache or paged pool.
 //
 // Replaces repro/kernels/cache_update.py::fused_qkv_rope_commit (Pallas
-// bodies `_fused_qkv_body` / `_fused_qkv_dense`, helper `_rope_half`).
+// bodies `_fused_qkv_body`, `_fused_qkv_dense` and `_fused_qkv_paged`,
+// helper `_rope_half`).
 // For x [M = B*T, d] and weights wq [d, Hq*hd], wk / wv [d, Hkv*hd]:
 //   z = x @ w            f32 accumulation, rounded to x's dtype
 //   z = z + bias         in x's dtype (when biases are given)
@@ -11,7 +12,10 @@
 //   q [B,T,Hq,hd], k / v [B,T,Hkv,hd] written out, and k / v also written
 //   into the cache [B, S, Hkv, hd] (any strides, unit stride over hd) at
 //   rows lengths[b] + t; rows at or past S are dropped, as the port's and
-//   the unfused reference's `_update_rows` drop them.
+//   the unfused reference's `_update_rows` drop them.  Paged (a table is
+//   given): the cache is a pool [n_blocks, ps, Hkv, hd] and logical row pos
+//   lands at row pos % ps of block table[b, pos / ps]; rows past the table
+//   (pos / ps >= mb) go to trash block 0, as `_fused_qkv_body` sends them.
 // The RoPE products and sums use __fmul_rn / __fsub_rn / __fadd_rn so nvcc
 // cannot contract them into FMAs: each op rounds on its own, as the eager
 // PyTorch and XLA element-wise ops do.  cos / sin come in from
@@ -44,7 +48,8 @@ __global__ void __launch_bounds__(NT) fused_qkv_kernel(
     const float* __restrict__ sin_t, const int* __restrict__ lengths, T* __restrict__ q_out,
     T* __restrict__ k_out, T* __restrict__ v_out, T* kc, T* vc, int M, int T_nodes, int d,
     int Hq, int Hkv, int S, int64_t kc_sb, int64_t kc_ss, int64_t kc_sh, int64_t vc_sb,
-    int64_t vc_ss, int64_t vc_sh, int a_vec, int b_vec) {
+    int64_t vc_ss, int64_t vc_sh, const int* __restrict__ table, int ps, int mb, int a_vec,
+    int b_vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* C = reinterpret_cast<float*>(smem);
   constexpr int LDC = Tile<BM, HD>::LDC;
@@ -89,8 +94,15 @@ __global__ void __launch_bounds__(NT) fused_qkv_kernel(
     if (part != 0) {
       const int b = row / T_nodes, t = row % T_nodes;
       const int pos = lengths[b] + t;
-      if (pos >= 0 && pos < S) {
-        T* dst = cache + (int64_t)b * sb + (int64_t)pos * ss + (int64_t)head * sh;
+      T* dst = nullptr;
+      if (table != nullptr) {
+        const int lb = pos / ps;
+        const int blk = lb < mb ? table[(int64_t)b * mb + lb] : 0;
+        dst = cache + ((int64_t)blk * ps + pos % ps) * ss + (int64_t)head * sh;
+      } else if (pos >= 0 && pos < S) {
+        dst = cache + (int64_t)b * sb + (int64_t)pos * ss + (int64_t)head * sh;
+      }
+      if (dst != nullptr) {
         store_as(dst + i, z1);
         store_as(dst + i + HALF, z2);
       }
@@ -103,7 +115,8 @@ int launch(const void* x, const void* wq, const void* wk, const void* wv, const 
            const void* bk, const void* bv, const void* cos_t, const void* sin_t,
            const void* lengths, void* q, void* k, void* v, void* kc, void* vc, int M,
            int T_nodes, int d, int Hq, int Hkv, int S, int64_t kc_sb, int64_t kc_ss,
-           int64_t kc_sh, int64_t vc_sb, int64_t vc_ss, int64_t vc_sh, void* stream) {
+           int64_t kc_sh, int64_t vc_sb, int64_t vc_ss, int64_t vc_sh, const void* table,
+           int ps, int mb, void* stream) {
   const int smem = Tile<BM, HD>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       fused_qkv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -117,7 +130,7 @@ int launch(const void* x, const void* wq, const void* wk, const void* wv, const 
       (const T*)x, (const T*)wq, (const T*)wk, (const T*)wv, (const T*)bq, (const T*)bk,
       (const T*)bv, (const float*)cos_t, (const float*)sin_t, (const int*)lengths, (T*)q,
       (T*)k, (T*)v, (T*)kc, (T*)vc, M, T_nodes, d, Hq, Hkv, S, kc_sb, kc_ss, kc_sh, vc_sb,
-      vc_ss, vc_sh, a_vec, b_vec);
+      vc_ss, vc_sh, (const int*)table, ps, mb, a_vec, b_vec);
   return (int)cudaGetLastError();
 }
 
@@ -127,16 +140,16 @@ int dispatch(const void* x, const void* wq, const void* wk, const void* wv, cons
              const void* lengths, void* q, void* k, void* v, void* kc, void* vc, int M,
              int T_nodes, int d, int Hq, int Hkv, int hd, int S, int64_t kc_sb,
              int64_t kc_ss, int64_t kc_sh, int64_t vc_sb, int64_t vc_ss, int64_t vc_sh,
-             void* stream) {
+             const void* table, int ps, int mb, void* stream) {
   switch (hd) {
     case 64:
       return launch<T, 64>(x, wq, wk, wv, bq, bk, bv, cos_t, sin_t, lengths, q, k, v, kc, vc,
                            M, T_nodes, d, Hq, Hkv, S, kc_sb, kc_ss, kc_sh, vc_sb, vc_ss,
-                           vc_sh, stream);
+                           vc_sh, table, ps, mb, stream);
     case 128:
       return launch<T, 128>(x, wq, wk, wv, bq, bk, bv, cos_t, sin_t, lengths, q, k, v, kc,
                             vc, M, T_nodes, d, Hq, Hkv, S, kc_sb, kc_ss, kc_sh, vc_sb,
-                            vc_ss, vc_sh, stream);
+                            vc_ss, vc_sh, table, ps, mb, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -148,17 +161,20 @@ int dispatch(const void* x, const void* wq, const void* wk, const void* wv, cons
 // [d, Hkv*hd] contiguous, all in x's dtype; bq [Hq, hd], bk / bv [Hkv, hd]
 // or all null; cos / sin [M, hd/2] f32 or both null (no RoPE); lengths [B]
 // int32; q [M, Hq, hd], k / v [M, Hkv, hd] outputs; kc / vc the caches
-// [B, S, Hkv, hd] with element strides (b, s, h) and unit stride over hd.
+// [B, S, Hkv, hd] with element strides (b, s, h) and unit stride over hd,
+// or (table [B, mb] int32 given) pools [n_blocks, ps, Hkv, hd] whose block
+// stride is ps times the row stride s (b is then unused).
 // One launch on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int fused_qkv_rope_commit_f32(
     const void* x, const void* wq, const void* wk, const void* wv, const void* bq,
     const void* bk, const void* bv, const void* cos_t, const void* sin_t,
     const void* lengths, void* q, void* k, void* v, void* kc, void* vc, int M, int T_nodes,
     int d, int Hq, int Hkv, int hd, int S, int64_t kc_sb, int64_t kc_ss, int64_t kc_sh,
-    int64_t vc_sb, int64_t vc_ss, int64_t vc_sh, void* stream) {
+    int64_t vc_sb, int64_t vc_ss, int64_t vc_sh, const void* table, int ps, int mb,
+    void* stream) {
   return dispatch<float>(x, wq, wk, wv, bq, bk, bv, cos_t, sin_t, lengths, q, k, v, kc, vc,
                          M, T_nodes, d, Hq, Hkv, hd, S, kc_sb, kc_ss, kc_sh, vc_sb, vc_ss,
-                         vc_sh, stream);
+                         vc_sh, table, ps, mb, stream);
 }
 
 extern "C" int fused_qkv_rope_commit_bf16(
@@ -166,8 +182,9 @@ extern "C" int fused_qkv_rope_commit_bf16(
     const void* bk, const void* bv, const void* cos_t, const void* sin_t,
     const void* lengths, void* q, void* k, void* v, void* kc, void* vc, int M, int T_nodes,
     int d, int Hq, int Hkv, int hd, int S, int64_t kc_sb, int64_t kc_ss, int64_t kc_sh,
-    int64_t vc_sb, int64_t vc_ss, int64_t vc_sh, void* stream) {
+    int64_t vc_sb, int64_t vc_ss, int64_t vc_sh, const void* table, int ps, int mb,
+    void* stream) {
   return dispatch<__nv_bfloat16>(x, wq, wk, wv, bq, bk, bv, cos_t, sin_t, lengths, q, k, v,
                                  kc, vc, M, T_nodes, d, Hq, Hkv, hd, S, kc_sb, kc_ss, kc_sh,
-                                 vc_sb, vc_ss, vc_sh, stream);
+                                 vc_sb, vc_ss, vc_sh, table, ps, mb, stream);
 }

@@ -1,14 +1,19 @@
 """Plain PyTorch oracle for the tree-attention decode step (counterpart of
-``repro.kernels.ref``, dense fp subset).
+``repro.kernels.ref``).
 
 Semantics: query node t attends to (a) every committed cache slot
 s < lengths[b] and (b) tree slots [lengths[b], lengths[b]+T) visible under
-``tree_mask`` — exactly ``layers.decode_mask``.
+``tree_mask`` — exactly ``layers.decode_mask``.  The int8 and paged
+oracles dequantize and gather the whole cache up front and reuse the fp
+oracle; the kernels, which dequantize per tile and follow the table
+inside the sweep, must agree with them.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import paging as P
+from repro_torch.kernels import quant as Q
 from repro_torch.models.layers import NEG_INF
 
 
@@ -45,6 +50,29 @@ def tree_attention_ref(q, k, v, tree_mask, lengths, scale):
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v.to(q.dtype))
     return out.reshape(B, T, Hq, D)
+
+
+def tree_attention_ref_int8(q, k, v, k_scale, v_scale, tree_mask, lengths,
+                            scale):
+    """Int8-cache oracle: k/v [B, S, Hkv, D] int8 with k_scale/v_scale
+    [B, S, Hkv, 1] f32; other arguments as ``tree_attention_ref``."""
+    return tree_attention_ref(q, Q.dequantize(k, k_scale, q.dtype),
+                              Q.dequantize(v, v_scale, q.dtype),
+                              tree_mask, lengths, scale)
+
+
+def tree_attention_ref_paged(q, k, v, block_tables, tree_mask, lengths,
+                             scale, k_scale=None, v_scale=None):
+    """Paged-cache oracle: pool-form k/v [n_blocks, page_size, Hkv, D]
+    (int8 with k_scale/v_scale pools [n_blocks, page_size, Hkv, 1] f32)
+    and ``block_tables`` [B, max_blocks] int32.  Gathers the dense view
+    and reuses the dense oracles."""
+    kd, vd = P.gather_cache(k, block_tables), P.gather_cache(v, block_tables)
+    if k_scale is not None:
+        return tree_attention_ref_int8(
+            q, kd, vd, P.gather_cache(k_scale, block_tables),
+            P.gather_cache(v_scale, block_tables), tree_mask, lengths, scale)
+    return tree_attention_ref(q, kd, vd, tree_mask, lengths, scale)
 
 
 def verify_stats_ref(hidden, w, candidates, tmax):

@@ -4,12 +4,15 @@ tensors: ``flash_decode`` (attention over the KV cache) and
 statistics).
 
 ``flash_decode`` replaces ``repro/kernels/tree_attention.py::flash_decode``
-(the Pallas TPU kernel, dense fp/bf16 body ``_kernel``) with the
-hand-written CUDA kernel ``csrc/flash_decode.cu`` for Hopper (sm_90a),
-built by ``kernels/build.py`` and called through ``ctypes``.  The kernel is
-bound by the bytes of K and V it sweeps; its design (one block per
-(b, kv head, 32 query rows), cache tiles streamed through shared memory up
-to ``lengths[b]``, f32 online softmax) is described in the source.
+(the Pallas TPU kernel: the dense fp/bf16 body ``_kernel``, its int8
+branch and the paged body ``_kernel_paged``) with the hand-written CUDA
+kernel ``csrc/flash_decode.cu`` for Hopper (sm_90a), built by
+``kernels/build.py`` and called through ``ctypes``.  The kernel is bound
+by the bytes of K and V it sweeps; its design (one block per (b, kv head,
+32 query rows), 64-column cache tiles streamed through shared memory up
+to ``lengths[b]``, int8 rows dequantized in the tile, pool rows found
+through the block table per tile, f32 online softmax) is described in the
+source.
 
 ``unembed_verify_stats`` replaces ``unembed_verify_stats`` of the same
 reference file (body ``_verify_stats_kernel``) with ``csrc/verify_stats.cu``:
@@ -26,25 +29,38 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import paging as P
+from repro_torch.kernels import quant as Q
 from repro_torch.models.layers import NEG_INF
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (64, 128, 256)
 
 
-def flash_decode_plain(q, k, v, lengths):
+def flash_decode_plain(q, k, v, lengths, *, k_scale=None, v_scale=None,
+                       block_tables=None):
     """Partial-softmax decode attention in plain PyTorch.
 
-    q [B, Hkv, R, D] f32/bf16 (pre-scaled by 1/sqrt(D)); k/v [B, S, Hkv, D]
-    (the port's cache layout); lengths [B] int.  Returns (acc [B, Hkv, R, D],
-    m [B, Hkv, R, 1], l [B, Hkv, R, 1]) in f32: the kernel's statistics over
-    columns s < lengths[b], with p rounded to v's dtype before the PV
-    product as the TPU kernel does.  A row of length 0 gives m = -1e30,
-    l = 0, acc = 0.
+    Arguments and results as ``flash_decode``.  The statistics run over
+    columns s < lengths[b] in f32.  fp cache: p is rounded to v's dtype
+    before the PV product, as the TPU kernel does.  int8 cache: k and v are
+    dequantized to f32 (one product with the scale), the scores are the
+    f32 dot of the promoted q with them, and p is not rounded.  A paged
+    pool is first gathered into its dense view.  A row of length 0 gives
+    m = -1e30, l = 0, acc = 0.
     """
+    if block_tables is not None:
+        k, v = P.gather_cache(k, block_tables), P.gather_cache(v, block_tables)
+        if k_scale is not None:
+            k_scale = P.gather_cache(k_scale, block_tables)
+            v_scale = P.gather_cache(v_scale, block_tables)
     S = k.shape[1]
-    kt = k.permute(0, 2, 1, 3).float()                     # [B, Hkv, S, D]
-    vt = v.permute(0, 2, 1, 3)
+    if k_scale is not None:
+        kt, vt = Q.dequantize(k, k_scale), Q.dequantize(v, v_scale)
+    else:
+        kt, vt = k.float(), v
+    kt = kt.permute(0, 2, 1, 3)                             # [B, Hkv, S, D]
+    vt = vt.permute(0, 2, 1, 3)
     scores = torch.matmul(q.float(), kt.transpose(-1, -2))  # [B, Hkv, R, S]
     valid = (torch.arange(S, device=q.device)[None, :]
              < lengths.to(q.device)[:, None])[:, None, None, :]
@@ -53,30 +69,49 @@ def flash_decode_plain(q, k, v, lengths):
     m = torch.amax(scores, dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(scores - m), torch.zeros((), device=q.device))
     l = torch.sum(p, dim=-1, keepdim=True)
-    acc = torch.matmul(p.to(v.dtype).float(), vt.float())
+    acc = torch.matmul(p.to(vt.dtype).float(), vt.float())
     return acc, m, l
 
 
-def _check_cuda_args(q, k, v, lengths):
+def _check_layout(name, t, shape, dtype, paged):
+    if t.dtype != dtype:
+        raise TypeError(f"flash_decode: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"flash_decode: {name} {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"flash_decode: {name} needs unit stride over its "
+                         f"last axis")
+    if paged and t.stride(0) != t.shape[1] * t.stride(1):
+        raise ValueError(f"flash_decode: pool {name} needs its block stride "
+                         f"to be page_size times its row stride")
+
+
+def _check_cuda_args(q, k, v, lengths, k_scale, v_scale, block_tables):
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash_decode: q dtype {q.dtype} (float32 or bfloat16)")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_decode: q/k/v dtypes differ "
-                        f"({q.dtype}, {k.dtype}, {v.dtype})")
     B, Hkv, R, D = q.shape
-    if k.dim() != 4 or k.shape[0] != B or k.shape[2] != Hkv or k.shape[3] != D \
-            or v.shape != k.shape:
-        raise ValueError(f"flash_decode: q {tuple(q.shape)} does not fit "
-                         f"k {tuple(k.shape)} / v {tuple(v.shape)} "
-                         f"([B, S, Hkv, D])")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_decode: head_dim {D} (kernel takes {_HEAD_DIMS})")
-    if k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_decode: k/v need unit stride over head_dim")
+    paged = block_tables is not None
+    if paged:
+        if block_tables.dim() != 2 or block_tables.shape[0] != B \
+                or block_tables.dtype != torch.int32:
+            raise ValueError(f"flash_decode: block_tables must be [B={B}, "
+                             f"max_blocks] int32")
+        lead = k.shape[:2]                                  # [nb, ps]
+    else:
+        lead = (B, k.shape[1])                              # [B, S]
+    cache_dt = torch.int8 if k_scale is not None else q.dtype
+    for name, t in (("k", k), ("v", v)):
+        _check_layout(name, t, (*lead, Hkv, D), cache_dt, paged)
+    if k_scale is not None:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            _check_layout(name, t, (*lead, Hkv, 1), torch.float32, paged)
     if lengths.shape != (B,) or lengths.dtype != torch.int32:
         raise ValueError("flash_decode: lengths must be [B] int32")
-    for t in (k, v, lengths):
-        if t.device != q.device:
+    for t in (k, v, lengths, k_scale, v_scale, block_tables):
+        if t is not None and t.device != q.device:
             raise ValueError(f"flash_decode: tensors on {q.device} and {t.device}")
 
 
@@ -84,8 +119,8 @@ def _kernel_fn(dtype):
     from repro_torch.kernels.build import library
     fn = getattr(library("flash_decode"), "flash_decode_" + _KERNEL_DTYPES[dtype])
     if fn.argtypes is None:
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [vp] * 7 + [i32] * 5 + [i64] * 6 + [vp]
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 10 + [i32] * 8 + [vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -94,39 +129,61 @@ def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
                  block_tables=None):
     """Partial-softmax decode attention over the committed cache region.
 
-    q [B, Hkv, R, D] f32/bf16 (pre-scaled by 1/sqrt(D)); k/v [B, S, Hkv, D]
-    in the port's cache layout (the TPU kernel takes [B, Hkv, S, D]; here
-    the kernel reads the cache through its strides, so no transposed copy
-    is made); lengths [B] int32.  Returns (acc [B, Hkv, R, D],
+    q [B, Hkv, R, D] f32/bf16 (pre-scaled by 1/sqrt(D)); lengths [B] int32.
+    Dense cache: k/v [B, S, Hkv, D] in the port's layout (the TPU kernel
+    takes [B, Hkv, S, D]; here the kernel reads the cache through its
+    strides, so no transposed copy is made), in q's dtype, or int8 with
+    ``k_scale``/``v_scale`` [B, S, Hkv, 1] f32.  Paged cache: pass
+    ``block_tables`` [B, max_blocks] int32 with pool-form k/v
+    [n_blocks, page_size, Hkv, D] (scales [n_blocks, page_size, Hkv, 1]);
+    logical row s of slot b lives at row s % page_size of block
+    ``block_tables[b, s // page_size]``.  Returns (acc [B, Hkv, R, D],
     m [B, Hkv, R, 1], l [B, Hkv, R, 1]) in f32 for the exact tree-block
     merge in ``ops.py``.
 
     CPU tensors take ``flash_decode_plain``.  CUDA tensors launch the
     kernel, or raise: there is no fallback.  ``flash_decode.launches``
-    counts kernel launches.  The int8 cache (``k_scale``/``v_scale``) and
-    the paged pool (``block_tables``) are later slices and raise.
+    counts kernel launches.
     """
-    if k_scale is not None or v_scale is not None or k.dtype == torch.int8:
-        raise NotImplementedError("flash_decode: the int8 cache variant is "
-                                  "ROADMAP queue 1 item 9")
-    if block_tables is not None:
-        raise NotImplementedError("flash_decode: the paged variant is "
-                                  "ROADMAP queue 1 item 10")
+    if (k.dtype == torch.int8) != (k_scale is not None) \
+            or (k_scale is None) != (v_scale is None):
+        raise ValueError("flash_decode: an int8 cache comes with k_scale and "
+                         "v_scale, an fp cache with neither")
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, lengths)
+        return flash_decode_plain(q, k, v, lengths, k_scale=k_scale,
+                                  v_scale=v_scale, block_tables=block_tables)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
-    _check_cuda_args(q, k, v, lengths)
+    _check_cuda_args(q, k, v, lengths, k_scale, v_scale, block_tables)
     q = q.contiguous()
     B, Hkv, R, D = q.shape
+    paged = block_tables is not None
+    if paged:
+        block_tables = block_tables.contiguous()
+        ps, mb = k.shape[1], block_tables.shape[1]
+        S = ps * mb
+    else:
+        ps, mb, S = 0, 0, k.shape[1]
     acc = torch.empty((B, Hkv, R, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, Hkv, R, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((B, Hkv, R, 1), dtype=torch.float32, device=q.device)
+    quantized = k_scale is not None
+    strides = []
+    for t in (k, v, k_scale, v_scale):
+        strides += [t.stride(0), t.stride(1), t.stride(2)] if t is not None \
+            else [0, 0, 0]
+    if paged:                      # the pool row, not the block, is indexed
+        strides[0::3] = [0, 0, 0, 0]
+    c_strides = (ctypes.c_int64 * 12)(*strides)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = _kernel_fn(q.dtype)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, R, D, k.shape[1],
-        k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
-        v.stride(2), torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
+        lengths.data_ptr(), ptr(block_tables), acc.data_ptr(), m.data_ptr(),
+        l.data_ptr(), B, Hkv, R, D, S, int(quantized), ps, mb, c_strides,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode: CUDA launch failed with error {err}")
     flash_decode.launches += 1

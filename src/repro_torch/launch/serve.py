@@ -15,11 +15,17 @@ attention always goes through ``kernels.ops.tree_attention``: there is no
 switch that turns the kernel off.  ``--verify-fusion`` (the reference
 launcher's flag, off by default) verifies from the
 ``unembed_verify_stats`` kernel's statistics and runs each layer's write
-side through the ``fused_qkv_rope_commit`` kernel.
+side through the ``fused_qkv_rope_commit`` kernel.  ``--cache-dtype int8``
+and ``--cache-layout paged`` (with ``--page-size``) select the
+reference's other KV-cache layouts, under the same flags: an int8 cache
+with per-head-per-row f32 scales, and a block pool read through per-slot
+block tables (the identity table here; the serving scheduler's allocator
+is a later slice).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import NamedTuple
 
@@ -137,10 +143,23 @@ def main(argv=None, weights=None) -> Served:
     ap.add_argument("--verify-fusion", action="store_true",
                     help="fused unembed + acceptance statistics and fused "
                          "qkv + RoPE + cache write kernels")
+    ap.add_argument("--cache-dtype", default="", choices=("", "int8"),
+                    help="KV-cache storage dtype; int8 halves cache bytes "
+                         "per slot")
+    ap.add_argument("--cache-layout", default="dense",
+                    choices=("dense", "paged"),
+                    help="KV-cache layout: dense per-slot rows, or a paged "
+                         "global block pool with per-slot block tables")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="paged layout: logical rows per pool block")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.cache_dtype or args.cache_layout != "dense":
+        cfg = dataclasses.replace(cfg, cache_dtype=args.cache_dtype,
+                                  cache_layout=args.cache_layout,
+                                  page_size=args.page_size)
     engine = build_engine(cfg, "medusa", use_kernel=True, device=dev,
                           verify_fusion=args.verify_fusion)
     if weights is None:
@@ -158,8 +177,14 @@ def main(argv=None, weights=None) -> Served:
         print(f"  req {r['rid']}: {r['status']} prompt={r['prompt_len']} "
               f"steps={r['steps']} tokens/step={tps:.2f}")
     fused = " with verify fusion" if engine.cfg.verify_fusion else ""
-    print(f"{cfg.name}{fused}: {len(results)} requests, {tokens} tokens in "
-          f"{seconds:.3f}s ({tokens / seconds:.1f} tok/s on {where})")
+    layout = ""
+    if cfg.resolved_cache_dtype == "int8" or cfg.paged:
+        layout = (f" ({cfg.resolved_cache_dtype} {cfg.cache_layout} cache"
+                  + (f", page size {cfg.page_size}" if cfg.paged else "")
+                  + ")")
+    print(f"{cfg.name}{fused}{layout}: {len(results)} requests, {tokens} "
+          f"tokens in {seconds:.3f}s ({tokens / seconds:.1f} tok/s on "
+          f"{where})")
     return Served(engine.cfg, engine, params, mp, prompts, results, seconds,
                   tokens)
 

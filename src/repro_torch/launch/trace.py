@@ -1,7 +1,8 @@
 """Where a decode step's time goes, on the card: ``torch.profiler`` over a
 few speculative steps and a few AR steps of the served model.
 
-  PYTHONPATH=src python -m repro_torch.launch.trace [--steps 4]
+  PYTHONPATH=src python -m repro_torch.launch.trace [--steps 4] \
+      [--cache-dtype int8] [--cache-layout paged] [--page-size 64]
 
 Builds the launcher's model (bf16 openPangu-7B at full width and depth,
 random weights from seed 0), prefills 4 prompts of 64–256 tokens from the
@@ -16,11 +17,14 @@ without the profiler and once under it: the difference is the profiler's
 own cost on the host), the device time per step (sum of the CUDA
 kernels' own time), the device's idle share (1 - device / wall without
 the profiler), the kernel launches per step, and the kernels that take
-the most device time.
+the most device time.  ``--cache-dtype``, ``--cache-layout`` and
+``--page-size`` (the launcher's flags, names and defaults) trace the same
+steps on the int8 cache and on the paged pool.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -57,10 +61,19 @@ def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="repro_torch.launch.trace")
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--cache-dtype", default="", choices=("", "int8"))
+    ap.add_argument("--cache-layout", default="dense",
+                    choices=("dense", "paged"))
+    ap.add_argument("--page-size", type=int, default=64)
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
-    cfg = get_config("openpangu-7b")
+    cfg = dataclasses.replace(get_config("openpangu-7b"),
+                              cache_dtype=args.cache_dtype,
+                              cache_layout=args.cache_layout,
+                              page_size=args.page_size)
+    print(f"{cfg.name}: {cfg.resolved_cache_dtype} {cfg.cache_layout} cache"
+          + (f", page size {cfg.page_size}" if cfg.paged else ""))
     eng = build_engine(cfg, "medusa", use_kernel=True, device=dev)
     fused = build_engine(cfg, "medusa", use_kernel=True, device=dev,
                          verify_fusion=True)

@@ -1,8 +1,9 @@
 """Uniform model API (counterpart of ``repro.models.api``).
 
 ``init_cache`` here is the one cache factory the engine builds through.
-The port's first slice carries the dense decoder only; every other family
-and cache layout raises ``NotImplementedError`` naming its later slice.
+The port carries the dense decoder, under every cache dtype and layout of
+the reference; every other family raises ``NotImplementedError`` naming
+its later slice.
 """
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
@@ -13,7 +14,12 @@ def get_model(cfg: ModelConfig):
     return transformer
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, n_blocks=None,
+               device="cuda"):
     """Decode cache for ``batch`` slots of ``max_len`` tokens on ``device``
-    (the card unless the caller asks for ``"cpu"``)."""
-    return get_model(cfg).init_cache(cfg, batch, max_len, device=device)
+    (the card unless the caller asks for ``"cpu"``), honouring
+    ``cfg.cache_dtype`` (int8 adds scale leaves) and ``cfg.cache_layout``
+    (``n_blocks`` sizes the paged pool; None means the allocator-free
+    identity table)."""
+    return get_model(cfg).init_cache(cfg, batch, max_len, device=device,
+                                     n_blocks=n_blocks)

@@ -25,10 +25,12 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """Config dtype string ("float32", "bfloat16") -> torch dtype."""
+    """Config dtype string ("float32", "bfloat16", "int8" for the
+    quantized cache) -> torch dtype."""
     try:
-        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "int8": torch.int8}[name]
     except KeyError:
         raise NotImplementedError(
-            f"dtype {name!r}: the port's first slice carries float32 and "
-            f"bfloat16 only (int8 caches are ROADMAP queue 1 item 9)")
+            f"dtype {name!r}: the port carries float32 and bfloat16 (and "
+            f"int8 for the KV cache)")

@@ -80,16 +80,28 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 def test_kernel_wrapper_launches_nothing_on_the_cpu():
+    from repro_torch.kernels import cache_update as CU
     from repro_torch.kernels.cache_update import fused_qkv_rope_commit
     from repro_torch.kernels.ops import tree_attention, verify_stats
+    from repro_torch.kernels.paging import identity_table
     from repro_torch.kernels.tree_attention import (flash_decode,
                                                     unembed_verify_stats)
-    wrappers = (flash_decode, unembed_verify_stats, fused_qkv_rope_commit)
+    commits = (CU.commit_rows, CU.commit_rows_stacked,
+               CU.commit_rows_quantized, CU.commit_rows_paged,
+               CU.commit_rows_paged_stacked, CU.commit_rows_paged_quantized)
+    wrappers = (flash_decode, unembed_verify_stats, fused_qkv_rope_commit,
+                *commits)
     before = [f.launches for f in wrappers]
     q = torch.randn(1, 2, 8, 64)
     k = torch.randn(1, 32, 2, 64)
     lengths = torch.tensor([5], dtype=torch.int32)
+    table = identity_table(1, 2)
+    pool = torch.randn(3, 16, 2, 64)
+    k8 = torch.randint(-127, 128, (1, 32, 2, 64), dtype=torch.int8)
+    ks = torch.rand(1, 32, 2, 1)
     flash_decode(q, k, k, lengths)
+    flash_decode(q, k8, k8, lengths, k_scale=ks, v_scale=ks)
+    flash_decode(q, pool, pool, lengths, block_tables=table)
     tree_attention(torch.randn(1, 3, 2, 64), k, k,
                    torch.ones(3, 3, dtype=torch.bool), lengths, 0.125)
     h, w = torch.randn(1, 3, 16), torch.randn(16, 40)
@@ -98,23 +110,55 @@ def test_kernel_wrapper_launches_nothing_on_the_cpu():
     p = {"wq": torch.randn(16, 4, 64), "wk": torch.randn(16, 2, 64),
          "wv": torch.randn(16, 2, 64)}
     fused_qkv_rope_commit(h, p, lengths, k, k.clone())
+    fused_qkv_rope_commit(h, p, lengths, pool, pool.clone(), table=table)
+    rows = torch.randn(1, 5, 2, 64)
+    CU.commit_rows(k.clone(), rows, lengths)
+    CU.commit_rows_stacked(k[None].clone(), rows[None], lengths)
+    CU.commit_rows_quantized(k8.clone(), ks.clone(), rows, lengths)
+    CU.commit_rows_paged(pool.clone(), table, rows, lengths)
+    CU.commit_rows_paged_stacked(pool[None].clone(), table, rows[None],
+                                 lengths)
+    CU.commit_rows_paged_quantized(pool.to(torch.int8), pool[..., :1].clone(),
+                                   table, rows, lengths)
     assert [f.launches for f in wrappers] == before
+    meta = {n: t.to("meta") for n, t in
+            (("k", k), ("pool", pool), ("rows", rows), ("lengths", lengths),
+             ("table", table), ("k8", k8), ("ks", ks))}
     for call in (lambda: unembed_verify_stats(h.to("meta"), w.to("meta"),
                                               cand.to("meta"),
                                               torch.ones(1, device="meta")),
                  lambda: fused_qkv_rope_commit(
-                     h.to("meta"), p, lengths.to("meta"), k.to("meta"),
-                     k.to("meta"))):
+                     h.to("meta"), p, meta["lengths"], meta["k"], meta["k"]),
+                 lambda: fused_qkv_rope_commit(
+                     h.to("meta"), p, meta["lengths"], meta["pool"],
+                     meta["pool"], table=meta["table"]),
+                 lambda: CU.commit_rows(meta["k"], meta["rows"],
+                                        meta["lengths"]),
+                 lambda: CU.commit_rows_stacked(
+                     meta["k"][None], meta["rows"][None], meta["lengths"]),
+                 lambda: CU.commit_rows_quantized(
+                     meta["k8"], meta["ks"], meta["rows"], meta["lengths"]),
+                 lambda: CU.commit_rows_paged(
+                     meta["pool"], meta["table"], meta["rows"],
+                     meta["lengths"]),
+                 lambda: CU.commit_rows_paged_stacked(
+                     meta["pool"][None], meta["table"], meta["rows"][None],
+                     meta["lengths"]),
+                 lambda: CU.commit_rows_paged_quantized(
+                     meta["k8"], meta["ks"], meta["table"], meta["rows"],
+                     meta["lengths"]),
+                 lambda: flash_decode(q.to("meta"), meta["k"], meta["k"],
+                                      meta["lengths"]),
+                 lambda: flash_decode(q.to("meta"), meta["k8"], meta["k8"],
+                                      meta["lengths"], k_scale=meta["ks"],
+                                      v_scale=meta["ks"]),
+                 lambda: flash_decode(q.to("meta"), meta["pool"],
+                                      meta["pool"], meta["lengths"],
+                                      block_tables=meta["table"])):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
-    with pytest.raises(NotImplementedError, match="paged.*item 10"):
-        fused_qkv_rope_commit(h, p, lengths, k, k,
-                              table=torch.zeros(1, 1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="unsupported device"):
-        flash_decode(q.to("meta"), k.to("meta"), k.to("meta"),
-                     lengths.to("meta"))
-    with pytest.raises(NotImplementedError, match="int8"):
-        flash_decode(q, k, k, lengths, k_scale=k[..., :1], v_scale=k[..., :1])
-    with pytest.raises(NotImplementedError, match="paged"):
-        flash_decode(q, k, k, lengths,
-                     block_tables=torch.zeros(1, 1, dtype=torch.int32))
+    # an int8 cache without its scales (or scales for an fp cache) raises
+    with pytest.raises(ValueError, match="k_scale"):
+        flash_decode(q, k8, k8, lengths)
+    with pytest.raises(ValueError, match="k_scale"):
+        flash_decode(q, k, k, lengths, k_scale=ks, v_scale=ks)
