@@ -28,16 +28,17 @@ non-zero exit:
    of openPangu-7B's attention, with biases, with rows past the cache's
    end (dropped; the rest of the cache unchanged bit for bit), and its
    paged variant with rows past the table (sent to trash block 0, which
-   is not compared); then the commit kernels, K4 (``commit_rows_stacked``
-   and the wrappers through it) and K5 (``commit_rows_paged_stacked``
-   and its wrappers), for int8, bf16 and f32 rows and f32 scales, rows
-   past the end included: the copies exact, the rest of the cache (block
-   0 of a pool excepted) unchanged bit for bit;
+   is not compared); then the commit kernels, K4 (``commit_rows_stacked``)
+   and K5 (``commit_rows_paged_stacked``), over three units and over one,
+   for int8, bf16 and f32 rows and f32 scales, rows past the end
+   included: the copies exact, the rest of the cache (block 0 of a pool
+   excepted) unchanged bit for bit;
 4. float32 openPangu-7B at full width, 2 layers: speculative ``generate``
    == ``ar_generate`` token for token, dense, with verify fusion, paged,
-   paged with verify fusion, int8 and int8 paged; the fp variants all
-   give the dense tokens and int8 paged the int8 ones; every run launches
-   K1-K5 exactly as ``expected_counts`` says;
+   paged with verify fusion, int8, int8 paged and int8 with verify fusion
+   (K2 on the unfused int8 write side, no K3); the fp variants all give
+   the dense tokens and the int8 variants the int8 ones; every run
+   launches K1-K5 exactly as ``expected_counts`` says;
 5. the launcher (``repro_torch.launch.serve.main``) serves 8 requests on
    bf16 openPangu-7B at full width and depth; every request must finish,
    the kernels launch exactly as expected (K1 per layer and step, K4 per
@@ -546,12 +547,12 @@ def qkv_case(dev, cfg, name, T, dt, lengths, S=2048, bias=False, ps=0):
 
 
 def commit_case(dev, name, dtype, width, paged, nu=3, S=2048, ps=64):
-    """K4 (``commit_rows_stacked``) or K5 (``commit_rows_paged_stacked``),
-    and the wrappers that go through them, against their plain versions:
-    5 rows per slot of 4 slots in every one of ``nu`` units, rows of
-    [8, width] ``dtype`` elements, starts in range, straddling and past the
-    end.  Copies must be exact and the rest of the cache (block 0 of a
-    pool excepted) unchanged bit for bit."""
+    """K4 (``commit_rows_stacked``) or K5 (``commit_rows_paged_stacked``)
+    against its plain version: 5 rows per slot of 4 slots in every one of
+    ``nu`` units, and in one cache (``nu`` 1, the reference's one-cache
+    form), rows of [8, width] ``dtype`` elements, starts in range,
+    straddling and past the end.  Copies must be exact and the rest of the
+    cache (block 0 of a pool excepted) unchanged bit for bit."""
     from repro_torch.kernels import cache_update as CU
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -568,32 +569,28 @@ def commit_case(dev, name, dtype, width, paged, nu=3, S=2048, ps=64):
     if paged:
         table = shuffled_table(B, S // ps, dev, 7)
         cache = rnd(nu, 1 + B * S // ps, ps, H, width)
-        fns = ((CU.commit_rows_paged_stacked, CU.commit_rows_paged_stacked_plain,
-                (table,)),
-               (CU.commit_rows_paged, CU.commit_rows_paged_plain, (table,)))
+        fn, plain, extra = (CU.commit_rows_paged_stacked,
+                            CU.commit_rows_paged_stacked_plain, (table,))
     else:
         cache = rnd(nu, B, S, H, width)
-        fns = ((CU.commit_rows_stacked, CU.commit_rows_stacked_plain, ()),
-               (CU.commit_rows, CU.commit_rows_plain, ()))
+        fn, plain, extra = (CU.commit_rows_stacked,
+                            CU.commit_rows_stacked_plain, ())
+
     def body(t):                          # a pool without trash block 0
-        return t[..., 1:, :, :, :] if paged else t
+        return t[:, 1:] if paged else t
 
     refs = []
-    for fn, plain, extra in fns:
-        if fn in (CU.commit_rows, CU.commit_rows_paged):
-            c, r = cache[0], rows[0]          # one unit, through the 4-d API
-        else:
-            c, r = cache, rows
+    for c, r in ((cache, rows), (cache[:1], rows[:1])):
         got, ref = c.clone(), c.clone()
         uncounted(fn, got, *extra, r, lens)
         plain(ref, *extra, r, lens)
         torch.cuda.synchronize()
         if not torch.equal(body(got), body(ref)):
-            fail(f"{fn.__name__} {name}: the kernel's write differs from "
-                 f"its plain version")
+            fail(f"{fn.__name__} {name} ({c.shape[0]} units): the kernel's "
+                 f"write differs from its plain version")
         refs.append(ref)
-    # the plain version writes exactly the rows (and only them): check the
-    # stacked one against a row-by-row copy
+    # the plain version writes exactly the rows (and only them): check it
+    # against a row-by-row copy
     want = cache.clone()
     for b, n in enumerate(lens.tolist()):
         for j in range(K1):
@@ -607,39 +604,10 @@ def commit_case(dev, name, dtype, width, paged, nu=3, S=2048, ps=64):
     if not torch.equal(body(refs[0]), body(want)):
         fail(f"commit {name}: rows misplaced or the rest of the cache "
              f"changed")
-    log(f"  {'commit_rows_paged' if paged else 'commit_rows'}{'_stacked'} "
-        f"{name}: nu={nu} B={B} K1={K1} rows [{H}, {width}] {dtype}, "
-        f"lengths {lens.tolist()}"
+    log(f"  {fn.__name__} {name}: nu={nu} and 1, B={B} K1={K1} rows "
+        f"[{H}, {width}] {dtype}, lengths {lens.tolist()}"
         + (f", page size {ps}" if paged else f", S={S}")
         + ": exact, the rest unchanged")
-
-
-def commit_quantized_case(dev, paged, S=2048, ps=64):
-    """``commit_rows_quantized`` / ``commit_rows_paged_quantized`` (two
-    K4 / K5 launches each) against their plain versions."""
-    from repro_torch.kernels import cache_update as CU
-
-    gen = torch.Generator(device=dev).manual_seed(8)
-    B, K1, H, D = 4, 5, 8, 128
-    lens = torch.tensor([0, 517, S - 2, S], dtype=torch.int32, device=dev)
-    rows = torch.randn((B, K1, H, D), generator=gen, device=dev)
-    lead = (1 + B * S // ps, ps) if paged else (B, S)
-    c8 = torch.randint(-127, 128, lead + (H, D), generator=gen, device=dev,
-                       dtype=torch.int8)
-    sc = torch.rand(lead + (H, 1), generator=gen, device=dev)
-    extra = (shuffled_table(B, S // ps, dev, 9),) if paged else ()
-    fn, plain = ((CU.commit_rows_paged_quantized,
-                  CU.commit_rows_paged_quantized_plain) if paged else
-                 (CU.commit_rows_quantized, CU.commit_rows_quantized_plain))
-    got = uncounted(fn, c8.clone(), sc.clone(), *extra, rows, lens)
-    ref = plain(c8.clone(), sc.clone(), *extra, rows, lens)
-    torch.cuda.synchronize()
-    cut = slice(1, None) if paged else slice(None)
-    if not all(torch.equal(g[cut], r[cut]) for g, r in zip(got, ref)):
-        fail(f"{fn.__name__}: the kernel's write differs from its plain "
-             f"version")
-    log(f"  {fn.__name__}: B={B} K1={K1} H={H} D={D}: values and scales "
-        f"exact")
 
 
 def phase_fusion_kernels(dev):
@@ -673,7 +641,7 @@ def phase_fusion_kernels(dev):
 
 def phase_commit_kernels(dev):
     """K4 and K5 for int8 values, bf16 and f32 rows and the int8 layout's
-    f32 scales, with rows past the end; and the quantized wrappers."""
+    f32 scales, with rows past the end."""
     for paged in (False, True):
         for dtype, width in ((torch.int8, 128), (torch.bfloat16, 128),
                              (torch.float32, 128), (torch.float32, 1)):
@@ -681,7 +649,6 @@ def phase_commit_kernels(dev):
         if paged:
             commit_case(dev, "page size 16, bf16", torch.bfloat16, 128, paged,
                         ps=16)
-        commit_quantized_case(dev, paged)
 
 
 # ---------------------------------------------------------------------------
@@ -759,14 +726,20 @@ def phase_f32(dev):
             fail(f"float32 {label} spec != dense spec:\n{out.tolist()}\n"
                  f"{sp.tolist()}")
     int8 = run("int8", cache_dtype="int8")
-    int8_paged = run("int8 paged (page size 64)", cache_dtype="int8",
-                     cache_layout="paged", page_size=64)
-    if not torch.equal(int8_paged, int8):
-        fail(f"float32 int8 paged spec != int8 dense spec:\n"
-             f"{int8_paged.tolist()}\n{int8.tolist()}")
+    int8_others = {
+        "int8 paged (page size 64)": run("int8 paged (page size 64)",
+                                         cache_dtype="int8",
+                                         cache_layout="paged", page_size=64),
+        "int8, verify fusion": run("int8, verify fusion", verify_fusion=True,
+                                   cache_dtype="int8")}
+    for label, out in int8_others.items():
+        if not torch.equal(out, int8):
+            fail(f"float32 {label} spec != int8 dense spec:\n"
+                 f"{out.tolist()}\n{int8.tolist()}")
     log(f"  f32: fused, paged and fused paged spec == dense spec; int8 "
-        f"paged spec == int8 spec ({int(torch.sum(int8 == sp))} of "
-        f"{sp.numel()} int8 tokens equal to the fp ones)")
+        f"paged and int8 fused spec == int8 spec "
+        f"({int(torch.sum(int8 == sp))} of {sp.numel()} int8 tokens equal "
+        f"to the fp ones)")
 
 
 # ---------------------------------------------------------------------------

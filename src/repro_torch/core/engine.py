@@ -82,12 +82,11 @@ class SpecEngine:
         self.dtree = self.proposer.dtree
         self.use_kernel = use_kernel
 
-    def init_cache(self, batch: int, max_len: int, n_blocks=None):
+    def init_cache(self, batch: int, max_len: int):
         """Decode cache for ``batch`` slots on the engine's device in the
-        config's cache dtype and layout (``n_blocks`` sizes the paged pool;
-        None means the allocator-free identity table)."""
+        config's cache dtype and layout (paged: the identity table)."""
         return model_api.init_cache(self.cfg, batch, max_len,
-                                    n_blocks=n_blocks, device=self.device)
+                                    device=self.device)
 
     def init_proposer_state(self, batch: int, capacity: int):
         return self.proposer.init_state(batch, capacity)

@@ -14,9 +14,10 @@ design is in the source).
 ``commit_rows`` (body ``_kernel``) and ``commit_rows_paged`` (body
 ``_kernel_paged``) of the same reference file with ``csrc/commit_rows.cu``:
 one launch writes K1 rows per slot of every unit in place, at
-[lengths[b], lengths[b] + K1), with one block per row.  ``commit_rows``,
-``commit_rows_paged`` and the ``*_quantized`` wrappers (the reference's
-wrappers of the same names) go through them.
+[lengths[b], lengths[b] + K1), with one block per row.  The reference's
+one-cache form is the unit view ``cache[None]``; its ``*_quantized``
+wrappers are ``quant.quantize_rows`` followed by one launch for the
+values and one for the scales, which the model's commit does itself.
 
 Write rules.  Dense: rows that would land at or past the cache's end are
 dropped, the rule of the port's and the unfused reference's
@@ -25,10 +26,8 @@ instead when run in interpret mode; the port does not copy that).  Paged:
 rows past the table's reach go to trash block 0, as in the reference.
 
 Each ``*_plain`` function is the same function in plain PyTorch: the CPU
-path, and what the card's kernel is held against.  Every wrapper counts in
-its ``.launches`` the kernel launches made inside its call, including
-those made through another wrapper (``commit_rows_quantized`` adds 2 to
-its own count and 2 to ``commit_rows``' and ``commit_rows_stacked``'s).
+path, and what the card's kernel is held against.  Each wrapper counts in
+its ``.launches`` the kernel launches it makes itself.
 """
 from __future__ import annotations
 
@@ -37,7 +36,6 @@ import ctypes
 import torch
 
 from repro_torch.kernels import paging as P
-from repro_torch.kernels import quant as Q
 from repro_torch.models import layers as L
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -250,18 +248,6 @@ def commit_rows_stacked_plain(cache, rows, lengths):
     return commit_rows_plain(cache, rows, lengths)
 
 
-def commit_rows_quantized_plain(cache, scale_cache, rows, lengths):
-    """``commit_rows_quantized`` in plain PyTorch."""
-    qrows, srows = Q.quantize_rows(rows)
-    return (commit_rows_plain(cache, qrows, lengths),
-            commit_rows_plain(scale_cache, srows, lengths))
-
-
-def commit_rows_paged_plain(pool, block_tables, rows, lengths):
-    """``commit_rows_paged`` in plain PyTorch (``paging.scatter_rows``)."""
-    return P.scatter_rows(pool, block_tables, rows, lengths, pool.shape[1])
-
-
 def commit_rows_paged_stacked_plain(pool, block_tables, rows, lengths):
     """``commit_rows_paged_stacked`` in plain PyTorch
     (``paging.scatter_rows_stacked``)."""
@@ -269,19 +255,11 @@ def commit_rows_paged_stacked_plain(pool, block_tables, rows, lengths):
                                   pool.shape[2])
 
 
-def commit_rows_paged_quantized_plain(pool, scale_pool, block_tables, rows,
-                                      lengths):
-    """``commit_rows_paged_quantized`` in plain PyTorch."""
-    qrows, srows = Q.quantize_rows(rows)
-    return (commit_rows_paged_plain(pool, block_tables, qrows, lengths),
-            commit_rows_paged_plain(scale_pool, block_tables, srows, lengths))
-
-
-def _check_commit_args(name, cache, rows, lengths, table, n_lead):
+def _check_commit_args(name, cache, rows, lengths, table):
     """Shapes, devices and layout for the commit kernel: cache
-    [nu, B, S, H, D] or pool [nu, n_blocks, ps, H, D] (``n_lead`` = 2
-    leading axes before the row), rows [nu, B, K1, H, D]."""
-    if cache.dim() != n_lead + 3 or rows.dim() != n_lead + 3:
+    [nu, B, S, H, D] or pool [nu, n_blocks, ps, H, D], rows
+    [nu, B, K1, H, D]."""
+    if cache.dim() != 5 or rows.dim() != 5:
         raise ValueError(f"{name}: cache {tuple(cache.shape)} and rows "
                          f"{tuple(rows.shape)} have the wrong rank")
     nu, B = rows.shape[0], rows.shape[1]
@@ -323,7 +301,7 @@ def _launch_commit(name, cache, rows, lengths, table):
     """One launch of ``csrc/commit_rows.cu``: cache [nu, B, S, H, D] or,
     with ``table``, pool [nu, n_blocks, ps, H, D]; rows [nu, B, K1, H, D]
     (cast to the cache's dtype)."""
-    _check_commit_args(name, cache, rows, lengths, table, 2)
+    _check_commit_args(name, cache, rows, lengths, table)
     rows = rows.to(cache.dtype).contiguous()
     nu, B, K1 = rows.shape[:3]
     es = cache.element_size()
@@ -369,31 +347,6 @@ def commit_rows_stacked(cache, rows, lengths):
     return cache
 
 
-def commit_rows(cache, rows, lengths):
-    """In-place commit into one dense cache: cache [B, S, H, D] any dtype,
-    rows [B, K1, H, D], lengths [B] int32; rows at or past S are dropped.
-    Returns the cache.  CPU tensors take ``commit_rows_plain``."""
-    if _device_of("commit_rows", cache) == "cpu":
-        return commit_rows_plain(cache, rows, lengths)
-    commit_rows_stacked(cache[None], rows[None], lengths)
-    commit_rows.launches += 1
-    return cache
-
-
-def commit_rows_quantized(cache, scale_cache, rows, lengths):
-    """Quantize and commit into the int8 layout: cache [B, S, H, D] int8,
-    scale_cache [B, S, H, 1] f32, rows [B, K1, H, D] fp.  The rows are
-    quantized with ``quant.quantize_rows`` and the values and the scales
-    written by one ``commit_rows`` each.  Returns (cache, scale_cache)."""
-    if _device_of("commit_rows_quantized", cache) == "cpu":
-        return commit_rows_quantized_plain(cache, scale_cache, rows, lengths)
-    qrows, srows = Q.quantize_rows(rows)
-    out = (commit_rows(cache, qrows, lengths),
-           commit_rows(scale_cache, srows, lengths))
-    commit_rows_quantized.launches += 2
-    return out
-
-
 def commit_rows_paged_stacked(pool, block_tables, rows, lengths):
     """In-place commit through the block table into every unit's pool.
 
@@ -415,36 +368,5 @@ def commit_rows_paged_stacked(pool, block_tables, rows, lengths):
     return pool
 
 
-def commit_rows_paged(pool, block_tables, rows, lengths):
-    """In-place commit through the block table into one pool
-    [n_blocks, page_size, H, D] any dtype; rows [B, K1, H, D], lengths
-    [B] int32; rows past the table go to trash block 0.  Returns the pool.
-    CPU tensors take ``commit_rows_paged_plain``."""
-    if _device_of("commit_rows_paged", pool) == "cpu":
-        return commit_rows_paged_plain(pool, block_tables, rows, lengths)
-    commit_rows_paged_stacked(pool[None], block_tables, rows[None], lengths)
-    commit_rows_paged.launches += 1
-    return pool
-
-
-def commit_rows_paged_quantized(pool, scale_pool, block_tables, rows,
-                                lengths):
-    """Quantize and commit through the block table: int8 value pool
-    [n_blocks, page_size, H, D], f32 scale pool [n_blocks, page_size, H, 1],
-    rows [B, K1, H, D] fp.  Returns (pool, scale_pool)."""
-    if _device_of("commit_rows_paged_quantized", pool) == "cpu":
-        return commit_rows_paged_quantized_plain(pool, scale_pool,
-                                                 block_tables, rows, lengths)
-    qrows, srows = Q.quantize_rows(rows)
-    out = (commit_rows_paged(pool, block_tables, qrows, lengths),
-           commit_rows_paged(scale_pool, block_tables, srows, lengths))
-    commit_rows_paged_quantized.launches += 2
-    return out
-
-
-commit_rows.launches = 0
 commit_rows_stacked.launches = 0
-commit_rows_quantized.launches = 0
-commit_rows_paged.launches = 0
 commit_rows_paged_stacked.launches = 0
-commit_rows_paged_quantized.launches = 0

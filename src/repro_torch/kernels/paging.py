@@ -67,10 +67,19 @@ def scatter_rows(pool, table, rows, starts, page_size: int):
     [starts, starts + T) through the table (rows past it in block 0).
     pool [n_blocks, page_size, ...] contiguous, any dtype (rows are cast).
     Returns the pool."""
-    B, T = rows.shape[:2]
-    phys = phys_rows(table, starts, T, page_size).reshape(-1)
-    flat = pool.view((pool.shape[0] * page_size,) + tuple(pool.shape[2:]))
-    flat[phys] = rows.to(pool.dtype).reshape((B * T,) + tuple(rows.shape[2:]))
+    T = rows.shape[1]
+    return scatter_at(pool, phys_rows(table, starts, T, page_size).reshape(-1),
+                      rows)
+
+
+def scatter_at(pool, phys, rows):
+    """``scatter_rows`` with the physical rows given: rows [B, T, ...] land
+    at ``phys`` [B * T] (``phys_rows`` flattened), so a caller that writes
+    many pools through one table and one set of starts computes them
+    once.  In place; returns the pool."""
+    flat = pool.view((pool.shape[0] * pool.shape[1],) + tuple(pool.shape[2:]))
+    flat[phys] = rows.to(pool.dtype).reshape((phys.shape[0],)
+                                             + tuple(rows.shape[2:]))
     return pool
 
 

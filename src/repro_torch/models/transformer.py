@@ -211,12 +211,15 @@ def prefill(params, cfg: ModelConfig, tokens, lengths, cache):
                          f"{cache_max_len(cache)} rows")
     x = embed_tokens(params, cfg, tokens)
     entry = layers["pos0"]
+    phys = None
+    if table is not None:
+        zero = torch.zeros((B,), dtype=torch.int32, device=x.device)
+        phys = P.phys_rows(table, zero, S_p, cfg.page_size).reshape(-1)
     for u in range(n_units(cfg)):
         p = unit_params(params, u)["pos0"]
         hh = L.apply_norm(p["norm1"], x, cfg)
         y, (k, v) = L.attention_full(p["attn"], hh, cfg, return_kv=True)
-        _write_prefix({n: t[u] for n, t in entry.items()}, k, v, table=table,
-                      page_size=cfg.page_size)
+        _write_prefix({n: t[u] for n, t in entry.items()}, k, v, phys=phys)
         x = x + y
         hh = L.apply_norm(p["norm2"], x, cfg)
         x = x + L.mlp(p["ffn"], hh, cfg)
@@ -226,11 +229,11 @@ def prefill(params, cfg: ModelConfig, tokens, lengths, cache):
     return last, cache
 
 
-def _write_prefix(entry, k, v, table=None, page_size: int = 0):
+def _write_prefix(entry, k, v, phys=None):
     """Prefill-time write of rows [0, S_p) into one layer's entry (views of
     one unit), in place.  k/v [B, S_p, Hkv, D] fp; quantized on the way in
-    for the int8 layout (the cache never holds fp rows); scattered through
-    ``table`` under the paged layout."""
+    for the int8 layout (the cache never holds fp rows); scattered to the
+    pools' physical rows ``phys`` [B * S_p] under the paged layout."""
     if "k_scale" in entry:
         kq, ks = Q.quantize_rows(k)
         vq, vs = Q.quantize_rows(v)
@@ -238,10 +241,8 @@ def _write_prefix(entry, k, v, table=None, page_size: int = 0):
     else:
         rows = {"k": k, "v": v}
     for name, r in rows.items():
-        if table is not None:
-            zero = torch.zeros((r.shape[0],), dtype=torch.int32,
-                               device=r.device)
-            P.scatter_rows(entry[name], table, r, zero, page_size)
+        if phys is not None:
+            P.scatter_at(entry[name], phys, r)
         else:
             entry[name][:, :r.shape[1]] = r.to(entry[name].dtype)
 
@@ -279,17 +280,19 @@ def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
     B, T = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     S_max = cache_max_len(cache)
-    masks = None
+    masks = phys = None
     if not use_kernel:
         masks = L.decode_mask(tree_mask, lengths, T, S_max)       # [B, T, S]
     entry = layers["pos0"]
+    if table is not None and not _fused_write(cfg, entry, use_kernel):
+        phys = P.phys_rows(table, lengths, T, cfg.page_size).reshape(-1)
     k_new, v_new = [], []
     for u in range(n_units(cfg)):
         p = unit_params(params, u)["pos0"]
         hh = L.apply_norm(p["norm1"], x, cfg)
         y, rows = attention_decode_batched(
             p["attn"], hh, cfg, {n: t[u] for n, t in entry.items()}, lengths,
-            masks, tree_mask, depths, use_kernel, table=table)
+            masks, tree_mask, depths, use_kernel, table=table, phys=phys)
         k_new.append(rows["k_new"])
         v_new.append(rows["v_new"])
         x = x + y
@@ -303,14 +306,23 @@ def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
     return x, spec_cache
 
 
+def _fused_write(cfg, entry, use_kernel) -> bool:
+    """Whether the decode step's write side is one ``fused_qkv_rope_commit``
+    launch: on the kernel path with verify fusion, on an fp cache (K3 is
+    fp-only; the int8 cache keeps the unfused write side)."""
+    return use_kernel and cfg.verify_fusion and "k_scale" not in entry
+
+
 def attention_decode_batched(p, x, cfg, entry, lengths, masks, tree_mask,
-                             depths, use_kernel=False, table=None):
+                             depths, use_kernel=False, table=None, phys=None):
     """Tree-decode attention of one layer with per-row lengths.
 
     ``entry`` holds that layer's cache k/v [B, S, Hkv, D] (plus
     k_scale/v_scale [B, S, Hkv, 1] under int8), or pools
     [n_blocks, page_size, Hkv, D] with ``table`` [B, max_blocks] under the
-    paged layout; the T tree rows are written into it in place.  With
+    paged layout; the T tree rows are written into it in place (to the
+    pools' physical rows ``phys`` [B * T], which ``decode`` computes once
+    for every layer).  With
     ``use_kernel`` the attention runs through ``kernels.ops.tree_attention``
     (the ``flash_decode`` kernel on the card); otherwise through the masked
     plain attention with ``masks`` [B, T, S].  With ``use_kernel`` and
@@ -324,12 +336,11 @@ def attention_decode_batched(p, x, cfg, entry, lengths, masks, tree_mask,
     """
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
-    quantized = "k_scale" in entry
     cos = sin = None
     if cfg.use_rope:
         positions = lengths[:, None] + depths[None, :]
         cos, sin = L.rope_cos_sin(positions, hd, cfg.rope_theta)
-    if use_kernel and cfg.verify_fusion and not quantized:
+    if _fused_write(cfg, entry, use_kernel):
         q, k, v = fused_qkv_rope_commit(x, p, lengths, entry["k"], entry["v"],
                                         cos=cos, sin=sin, table=table)
     else:
@@ -338,14 +349,14 @@ def attention_decode_batched(p, x, cfg, entry, lengths, masks, tree_mask,
             q = L.apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
             k = L.apply_rope(k, cos[:, :, None, :], sin[:, :, None, :])
         rows = {"k": k, "v": v}
-        if quantized:
+        if "k_scale" in entry:
             kq, ks = Q.quantize_rows(k)
             vq, vs = Q.quantize_rows(v)
             k, v = Q.dequantize(kq, ks, k.dtype), Q.dequantize(vq, vs, v.dtype)
             rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         for name, r in rows.items():
             if table is not None:
-                P.scatter_rows(entry[name], table, r, lengths, cfg.page_size)
+                P.scatter_at(entry[name], phys, r)
             else:
                 _update_rows(entry[name], r, lengths)
     if use_kernel:

@@ -86,9 +86,7 @@ def test_kernel_wrapper_launches_nothing_on_the_cpu():
     from repro_torch.kernels.paging import identity_table
     from repro_torch.kernels.tree_attention import (flash_decode,
                                                     unembed_verify_stats)
-    commits = (CU.commit_rows, CU.commit_rows_stacked,
-               CU.commit_rows_quantized, CU.commit_rows_paged,
-               CU.commit_rows_paged_stacked, CU.commit_rows_paged_quantized)
+    commits = (CU.commit_rows_stacked, CU.commit_rows_paged_stacked)
     wrappers = (flash_decode, unembed_verify_stats, fused_qkv_rope_commit,
                 *commits)
     before = [f.launches for f in wrappers]
@@ -112,14 +110,14 @@ def test_kernel_wrapper_launches_nothing_on_the_cpu():
     fused_qkv_rope_commit(h, p, lengths, k, k.clone())
     fused_qkv_rope_commit(h, p, lengths, pool, pool.clone(), table=table)
     rows = torch.randn(1, 5, 2, 64)
-    CU.commit_rows(k.clone(), rows, lengths)
+    rows8 = torch.randint(-127, 128, (1, 5, 2, 64), dtype=torch.int8)
     CU.commit_rows_stacked(k[None].clone(), rows[None], lengths)
-    CU.commit_rows_quantized(k8.clone(), ks.clone(), rows, lengths)
-    CU.commit_rows_paged(pool.clone(), table, rows, lengths)
+    CU.commit_rows_stacked(k8[None].clone(), rows8[None], lengths)
+    CU.commit_rows_stacked(ks[None].clone(), rows[None, ..., :1], lengths)
     CU.commit_rows_paged_stacked(pool[None].clone(), table, rows[None],
                                  lengths)
-    CU.commit_rows_paged_quantized(pool.to(torch.int8), pool[..., :1].clone(),
-                                   table, rows, lengths)
+    CU.commit_rows_paged_stacked(pool[None].to(torch.int8), table,
+                                 rows8[None], lengths)
     assert [f.launches for f in wrappers] == before
     meta = {n: t.to("meta") for n, t in
             (("k", k), ("pool", pool), ("rows", rows), ("lengths", lengths),
@@ -132,20 +130,12 @@ def test_kernel_wrapper_launches_nothing_on_the_cpu():
                  lambda: fused_qkv_rope_commit(
                      h.to("meta"), p, meta["lengths"], meta["pool"],
                      meta["pool"], table=meta["table"]),
-                 lambda: CU.commit_rows(meta["k"], meta["rows"],
-                                        meta["lengths"]),
                  lambda: CU.commit_rows_stacked(
                      meta["k"][None], meta["rows"][None], meta["lengths"]),
-                 lambda: CU.commit_rows_quantized(
-                     meta["k8"], meta["ks"], meta["rows"], meta["lengths"]),
-                 lambda: CU.commit_rows_paged(
-                     meta["pool"], meta["table"], meta["rows"],
-                     meta["lengths"]),
+                 lambda: CU.commit_rows_stacked(
+                     meta["k8"][None], meta["rows"][None], meta["lengths"]),
                  lambda: CU.commit_rows_paged_stacked(
                      meta["pool"][None], meta["table"], meta["rows"][None],
-                     meta["lengths"]),
-                 lambda: CU.commit_rows_paged_quantized(
-                     meta["k8"], meta["ks"], meta["table"], meta["rows"],
                      meta["lengths"]),
                  lambda: flash_decode(q.to("meta"), meta["k"], meta["k"],
                                       meta["lengths"]),

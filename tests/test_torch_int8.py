@@ -10,12 +10,14 @@ The same numpy inputs go through both packages:
   tests' shape sweep (``tests/test_kernels.py::CASES``), and
   ``ops.tree_attention`` against the reference wrapper and
   ``tree_attention_ref_int8`` on three of those shapes;
-* the dense commit (K4): ``commit_rows``, ``commit_rows_stacked`` and
-  ``commit_rows_quantized`` (plain versions on CPU tensors) against the
-  interpret-mode Pallas ``commit_rows`` for starts in range, and against
-  the reference's ``_update_rows`` for rows past the cache's end, which
-  both ports drop (the interpret-mode Pallas write clamps its start
-  there instead);
+* the dense commit (K4): ``commit_rows_stacked`` and its plain version
+  on CPU tensors, one cache as the unit view ``cache[None]``, against the
+  interpret-mode Pallas ``commit_rows`` and ``commit_rows_stacked`` for
+  starts in range, and against the reference's ``_update_rows`` for rows
+  past the cache's end, which both ports drop (the interpret-mode Pallas
+  write clamps its start there instead); the model's int8 commit
+  (quantize, then one K4 write for the values and one for the scales)
+  against the Pallas ``commit_rows_quantized``;
 * one layer's prefill / decode / commit under int8, and the whole slice:
   torch spec == torch AR == the reference's ``SpecEngine(use_kernel=True)``
   token for token on reduced openPangu-7B with an int8 cache.
@@ -214,8 +216,8 @@ def test_commit_rows_matches_pallas_in_range(rng, dtype):
     jcache = jnp.asarray(cache).astype(dtype)
     ref = JCU.commit_rows(jcache, jnp.asarray(rows), jnp.asarray(lengths),
                           interpret=True)
-    got = CU.commit_rows(torch.from_numpy(cache).to(tdt), _t(rows),
-                         _t(lengths))
+    got = CU.commit_rows_stacked(torch.from_numpy(cache).to(tdt)[None],
+                                 _t(rows)[None], _t(lengths))[0]
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(ref, np.float32))
     # stacked: the units axis folded into the slots
@@ -230,16 +232,26 @@ def test_commit_rows_matches_pallas_in_range(rng, dtype):
 
 
 def test_commit_rows_quantized_matches_pallas(rng):
+    """The model's int8 commit of one unit, with the best path the first
+    K1 in-flight rows, writes what the Pallas ``commit_rows_quantized``
+    writes: the same values and the same scales."""
     cache, rows, lengths = _commit_inputs(rng, np.float32)
     c8 = cache.astype(np.int8)
     sc = np.abs(cache[..., :1]) / 127
     ref_c, ref_s = JCU.commit_rows_quantized(
         jnp.asarray(c8), jnp.asarray(sc), jnp.asarray(rows),
         jnp.asarray(lengths), interpret=True)
-    got_c, got_s = CU.commit_rows_quantized(_t(c8), _t(sc), _t(rows),
-                                            _t(lengths))
-    np.testing.assert_array_equal(got_c.numpy(), np.asarray(ref_c))
-    np.testing.assert_array_equal(got_s.numpy(), np.asarray(ref_s))
+    B, K1 = rows.shape[:2]
+    entry = {"k": _t(c8)[None], "k_scale": _t(sc)[None],
+             "v": _t(c8)[None].clone(), "v_scale": _t(sc)[None].clone(),
+             "k_new": _t(rows)[None], "v_new": _t(rows)[None]}
+    path = torch.arange(K1)[None].expand(B, K1)
+    got = TT._commit_attn_entry(entry, _t(lengths), path)
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(got[name][0].numpy(),
+                                      np.asarray(ref_c))
+        np.testing.assert_array_equal(got[name + "_scale"][0].numpy(),
+                                      np.asarray(ref_s))
 
 
 def test_commit_rows_drops_rows_past_the_end(rng):
@@ -249,7 +261,8 @@ def test_commit_rows_drops_rows_past_the_end(rng):
                                           lengths=(62, 0, 64))
     ref = JT._update_rows(jnp.asarray(cache), jnp.asarray(rows),
                           jnp.asarray(lengths))
-    got = CU.commit_rows(_t(cache), _t(rows), _t(lengths))
+    got = CU.commit_rows_stacked(_t(cache)[None], _t(rows)[None],
+                                 _t(lengths))[0]
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert torch.equal(got[2], _t(cache)[2])        # all five dropped
     cache, rows, lengths = _commit_inputs(rng, np.float32, nu=2,

@@ -15,9 +15,10 @@ The same numpy inputs go through both packages:
   reference wrapper and ``tree_attention_ref_paged`` on three of those
   shapes;
 * ``fused_qkv_rope_commit`` (K3) with ``table=`` and the paged commit
-  (K5: ``commit_rows_paged``, ``commit_rows_paged_stacked``,
-  ``commit_rows_paged_quantized``) against the interpret-mode Pallas
-  kernels, rows past the table included.  Several dead rows may land on
+  (K5: ``commit_rows_paged_stacked``, one pool as the unit view
+  ``pool[None]``, and the model's int8 paged commit) against the
+  interpret-mode Pallas ``commit_rows_paged`` and
+  ``commit_rows_paged_quantized``, rows past the table included.  Several dead rows may land on
   one trash row in one write, in an order neither framework fixes, so
   pools are compared everywhere except block 0;
 * one layer's prefill / decode / commit under paged and int8 + paged, and
@@ -358,8 +359,8 @@ def test_commit_rows_paged_matches_pallas(rng, dtype):
     jargs = (jnp.asarray(table), jnp.asarray(rows), jnp.asarray(lengths))
     ref = JCU.commit_rows_paged(jnp.asarray(pool).astype(dtype), *jargs,
                                 interpret=True)
-    got = CU.commit_rows_paged(_t(pool).to(tdt), _t(table), _t(rows),
-                               _t(lengths))
+    got = CU.commit_rows_paged_stacked(_t(pool).to(tdt)[None], _t(table),
+                                       _t(rows)[None], _t(lengths))[0]
     np.testing.assert_array_equal(_except_trash(got.float().numpy()),
                                   _except_trash(ref))
     # stacked: every unit's pool through the one table, in one write
@@ -375,15 +376,25 @@ def test_commit_rows_paged_matches_pallas(rng, dtype):
 
 
 def test_commit_rows_paged_quantized_matches_pallas(rng):
+    """The model's int8 paged commit of one unit, with the best path the
+    first K1 in-flight rows, writes what the Pallas
+    ``commit_rows_paged_quantized`` writes (block 0 excepted)."""
     pool, rows, table, lengths = _commit_pool_inputs(rng)
     p8, sc = pool.astype(np.int8), np.abs(pool[..., :1]) / 127
     ref_p, ref_s = JCU.commit_rows_paged_quantized(
         jnp.asarray(p8), jnp.asarray(sc), jnp.asarray(table),
         jnp.asarray(rows), jnp.asarray(lengths), interpret=True)
-    got_p, got_s = CU.commit_rows_paged_quantized(_t(p8), _t(sc), _t(table),
-                                                  _t(rows), _t(lengths))
-    np.testing.assert_array_equal(got_p.numpy()[1:], np.asarray(ref_p)[1:])
-    np.testing.assert_array_equal(got_s.numpy()[1:], np.asarray(ref_s)[1:])
+    B, K1 = rows.shape[:2]
+    entry = {"k": _t(p8)[None], "k_scale": _t(sc)[None],
+             "v": _t(p8)[None].clone(), "v_scale": _t(sc)[None].clone(),
+             "k_new": _t(rows)[None], "v_new": _t(rows)[None]}
+    path = torch.arange(K1)[None].expand(B, K1)
+    got = TT._commit_attn_entry(entry, _t(lengths), path, table=_t(table))
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(got[name][0].numpy()[1:],
+                                      np.asarray(ref_p)[1:])
+        np.testing.assert_array_equal(got[name + "_scale"][0].numpy()[1:],
+                                      np.asarray(ref_s)[1:])
 
 
 # ------------------------------------------------------ layer and engine
@@ -565,11 +576,15 @@ def test_cuda_kernels_match_plain(rng):
     rows = torch.randn((Bc, 5, Hkv, D), device=dev)
     starts = torch.tensor([S - 2, 7], dtype=torch.int32, device=dev)
     for fn, plain, cache in (
-            (CU.commit_rows, CU.commit_rows_plain,
-             torch.randn((Bc, S, Hkv, D), device=dev)),
-            (CU.commit_rows_paged, CU.commit_rows_paged_plain, pool)):
-        extra = (table,) if fn is CU.commit_rows_paged else ()
+            (CU.commit_rows_stacked, CU.commit_rows_stacked_plain,
+             torch.randn((1, Bc, S, Hkv, D), device=dev)),
+            (CU.commit_rows_paged_stacked, CU.commit_rows_paged_stacked_plain,
+             pool[None])):
+        extra = (table,) if fn is CU.commit_rows_paged_stacked else ()
         a, b = cache.clone(), cache.clone()
-        fn(a, *extra, rows, starts)
-        plain(b, *extra, rows, starts)
-        assert torch.equal(a[1:], b[1:]) if extra else torch.equal(a, b)
+        before = fn.launches
+        fn(a, *extra, rows[None], starts)
+        assert fn.launches == before + 1
+        plain(b, *extra, rows[None], starts)
+        assert (torch.equal(a[:, 1:], b[:, 1:]) if extra
+                else torch.equal(a, b))
