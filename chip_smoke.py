@@ -23,16 +23,22 @@ non-zero exit:
    shape (B 4, T 64, d 4096, V 153376, which is not a multiple of the
    kernel's 128-column tile), with a candidate in the last partial tile,
    and with tied lm-head columns in different tiles (first index wins),
-   plus a vocabulary whose rows are not 16-byte aligned;
+   plus a vocabulary whose rows are not 16-byte aligned, and at N 512
+   (B 8, T 64) and N 64;
    ``fused_qkv_rope_commit`` (K3) at the spec (T 64) and AR (T 1) shapes
    of openPangu-7B's attention, with biases, with rows past the cache's
-   end (dropped; the rest of the cache unchanged bit for bit), and its
-   paged variant with rows past the table (sent to trash block 0, which
-   is not compared); then the commit kernels, K4 (``commit_rows_stacked``)
-   and K5 (``commit_rows_paged_stacked``), over three units and over one,
-   for int8, bf16 and f32 rows and f32 scales, rows past the end
-   included: the copies exact, the rest of the cache (block 0 of a pool
-   excepted) unchanged bit for bit;
+   end (dropped; the rest of the cache unchanged bit for bit), at row
+   counts that fit no tile (B 3, T 64 and B 4, T 7), at head_dim 64, and
+   its paged variant with rows past the table (sent to trash block 0,
+   which is not compared); K3-dense and K3-paged must give bitwise equal
+   q, k and v on the same inputs, and so must a second run.  Every K2 and
+   K3 case logs the route its launch took, which must be the ``wgmma``
+   route for bf16 with aligned rows and the ``tile`` route for f32 and
+   the unaligned vocabulary; then the commit kernels, K4
+   (``commit_rows_stacked``) and K5 (``commit_rows_paged_stacked``), over
+   three units and over one, for int8, bf16 and f32 rows and f32 scales,
+   rows past the end included: the copies exact, the rest of the cache
+   (block 0 of a pool excepted) unchanged bit for bit;
 4. float32 openPangu-7B at full width, 2 layers: speculative ``generate``
    == ``ar_generate`` token for token, dense, with verify fusion, paged,
    paged with verify fusion, int8, int8 paged and int8 with verify fusion
@@ -49,10 +55,13 @@ non-zero exit:
    the same weights, through K1, K2, K3 and K4 (counts exact), each answer
    held to ``ar_generate`` on the fused config under the same rule; it
    prints how many answers are token-identical to phase 5's and the
-   tokens/s of both;
+   tokens/s of both; every K2 and K3 launch must take the ``wgmma`` route,
+   and the tensor maps encoded for weights over the run must be at most
+   one per weight tensor (3 per layer for K3, 1 for K2);
 7. the same weights under the other cache layouts: (a) ``--cache-layout
    paged --verify-fusion`` (K1-paged, K3-paged, K2, K5) must give all 8
-   answers of phase 6 token for token; (b) ``--cache-dtype int8``
+   answers of phase 6 token for token, every K2 and K3 launch on the
+   ``wgmma`` route; (b) ``--cache-dtype int8``
    (K1-int8, K4) is held to ``ar_generate`` on the int8 config under
    ``MARGIN_BOUND``; (c) ``--cache-dtype int8 --cache-layout paged
    --page-size 16`` (K1-int8+paged, K5) must give all 8 answers of (b);
@@ -62,9 +71,13 @@ non-zero exit:
    gathered dense view, K1-paged; for K2 and K3 one ``torch.matmul`` of
    the same product, which does only the product; ``index_put_`` of the
    same rows for K4 and K5; none for the int8 variants of K1) at the main
-   path's shapes: CUDA events around back-to-back launches, and for K4
-   and K5, whose launches are shorter than the host's cost of issuing
-   them, the kernels' device time from ``torch.profiler``.
+   path's shapes: CUDA events around back-to-back launches; for K2 and
+   K3, whose wrappers' host cost is near or above the kernel's time, with
+   the launches queued behind a spin kernel so the card runs them back to
+   back (the unqueued reading logged beside it); for K4 and K5 the
+   kernels' device time from ``torch.profiler``.  K3's rows carry the AR
+   step's (T 1) numbers beside the spec step's; K2's and K3's rows carry
+   the wrapper's host ms per call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -138,6 +151,45 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` in ms over ``iters`` back-to-back runs,
+    the runs queued behind a spin kernel long enough for the host to issue
+    them all, so that the card runs them back to back however long the
+    host takes per call (CUDA events; for wrappers whose host cost is near
+    or above their kernel's time)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    per_call = (time.perf_counter() - t0) / warmup   # host and device
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int((1.5 * per_call * iters + 2e-3) * 2e9))  # cycles
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean host time of one ``fn()`` call in ms: what the wrapper costs
+    the host to issue its launch (no synchronise inside the window; the
+    device queue stays far from full)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / iters
+
+
 def device_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` in ms: the CUDA kernels' own time
     under ``torch.profiler`` over ``iters`` runs.  For work shorter than
@@ -184,6 +236,25 @@ def _wrappers():
 def reset_counts():
     for f in _wrappers().values():
         f.launches = 0
+        if hasattr(f, "launches_by_route"):
+            f.launches_by_route.update(dict.fromkeys(f.launches_by_route, 0))
+
+
+def read_routes():
+    """{kernel: {route: launches}} since ``reset_counts``, for the kernels
+    with two routes (K2 and K3)."""
+    return {k: dict(f.launches_by_route) for k, f in _wrappers().items()
+            if hasattr(f, "launches_by_route")}
+
+
+def check_routes(label, counts):
+    """Every K2 and K3 launch of a bf16 main-path run took the wgmma route."""
+    routes = read_routes()
+    log(f"  routes {routes}")
+    for k, by in routes.items():
+        if by["tile"] or by["wgmma"] != counts[k]:
+            fail(f"{label}: {k} launches by route {by}, expected all "
+                 f"{counts[k]} on the wgmma route")
 
 
 def read_counts():
@@ -197,9 +268,31 @@ def uncounted(fn, *args, **kwargs):
     """Call a kernel wrapper without counting the launch: comparison and
     timing launches are not main-path launches."""
     saved = fn.launches
+    routes = dict(getattr(fn, "launches_by_route", {}))
     out = fn(*args, **kwargs)
     fn.launches = saved
+    if routes:
+        fn.launches_by_route.update(routes)
     return out
+
+
+def routed(fn, *args, **kwargs):
+    """``uncounted`` call of a wrapper with two routes; returns (its
+    result, the route its launch took)."""
+    before = dict(fn.launches_by_route)
+    out = fn(*args, **kwargs)
+    took = [r for r, n in fn.launches_by_route.items() if n != before[r]]
+    fn.launches -= 1
+    fn.launches_by_route.update(before)
+    return out, took[0]
+
+
+def want_route(name, route, dt, aligned=True):
+    """K2 and K3 take the wgmma route for bf16 with aligned rows, else the
+    tile route."""
+    want = "wgmma" if dt == torch.bfloat16 and aligned else "tile"
+    if route != want:
+        fail(f"{name}: took the {route} route, expected {want}")
 
 
 def padded_batch(prompts, rows):
@@ -419,7 +512,8 @@ def bf16_step(x):
 
 def stats_case(dev, name, B, T, d, V, dt, tied=False):
     """K2 against its plain version; returns the max abs error of m and
-    cand_w."""
+    cand_w.  V not a multiple of 8 leaves rows TMA cannot take (tile
+    route)."""
     from repro_torch.kernels.tree_attention import (
         unembed_verify_stats, unembed_verify_stats_plain)
 
@@ -438,7 +532,8 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False):
         w[0, tied_cols] = 4.0
         cand[:, :3] = torch.tensor(tied_cols, device=dev)
     tmax = torch.ones((B,), device=dev)
-    argm, m, l, cw = uncounted(unembed_verify_stats, h, w, cand, tmax)
+    (argm, m, l, cw), route = routed(unembed_verify_stats, h, w, cand, tmax)
+    want_route(f"unembed_verify_stats {name}", route, dt, V % 8 == 0)
     rargm, rm, rl, rcw = unembed_verify_stats_plain(h, w, cand, tmax)
     torch.cuda.synchronize()
     err = max(scaled_err(m, rm), scaled_err(cw, rcw),
@@ -465,7 +560,8 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False):
         fail(f"unembed_verify_stats {name}: tied columns {tied_cols}, argm "
              f"{argm.unique().tolist()} (plain {rargm.unique().tolist()})")
     tol = TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
-    log(f"  unembed_verify_stats {name}: B={B} T={T} d={d} V={V} {dt}: "
+    log(f"  unembed_verify_stats {name}: B={B} T={T} d={d} V={V} {dt}, "
+        f"{route} route: "
         f"max err {err:.3e} (tol {tol}; abs {abs_err:.3e}); argm differs in "
         f"{len(differ)} of {B * T} rows (largest gap {worst:.2f} bf16 steps)")
     if not err < tol:
@@ -474,14 +570,10 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False):
     return abs_err
 
 
-def qkv_case(dev, cfg, name, T, dt, lengths, S=2048, bias=False, ps=0):
-    """K3 against its plain version at ``cfg``'s attention widths; with
-    ``ps`` the caches are pools of that page size read through a shuffled
-    table (rows past it go to trash block 0, which is not compared).
-    Returns the max abs error."""
-    from repro_torch.kernels import paging as P
-    from repro_torch.kernels.cache_update import (
-        fused_qkv_rope_commit, fused_qkv_rope_commit_plain)
+def qkv_inputs(dev, cfg, T, dt, lengths, S=2048, bias=False, ps=0):
+    """K3's inputs at ``cfg``'s attention widths: (x, p, lens, kc, vc,
+    cos, sin, table); with ``ps`` the caches are pools of that page size
+    read through a shuffled table, else None."""
     from repro_torch.models.layers import rope_cos_sin
 
     B, d, Hq, Hkv, hd = (len(lengths), cfg.d_model, cfg.num_heads,
@@ -508,10 +600,28 @@ def qkv_case(dev, cfg, name, T, dt, lengths, S=2048, bias=False, ps=0):
         kc, vc = rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd)
     cos, sin = rope_cos_sin(lens[:, None] + torch.arange(T, device=dev), hd,
                             cfg.rope_theta)
+    return x, p, lens, kc, vc, cos, sin, table
+
+
+def qkv_case(dev, cfg, name, T, dt, lengths, S=2048, bias=False, ps=0):
+    """K3 against its plain version at ``cfg``'s attention widths; with
+    ``ps`` the caches are pools of that page size read through a shuffled
+    table (rows past it go to trash block 0, which is not compared).
+    Returns the max abs error."""
+    from repro_torch.kernels import paging as P
+    from repro_torch.kernels.cache_update import (
+        fused_qkv_rope_commit, fused_qkv_rope_commit_plain)
+
+    B, d, Hq, Hkv, hd = (len(lengths), cfg.d_model, cfg.num_heads,
+                         cfg.num_kv_heads, cfg.resolved_head_dim)
+    x, p, lens, kc, vc, cos, sin, table = qkv_inputs(dev, cfg, T, dt, lengths,
+                                                     S, bias, ps)
     k0, v0 = kc.clone(), vc.clone()
     k1, v1 = kc.clone(), vc.clone()
-    got = uncounted(fused_qkv_rope_commit, x, p, lens, kc, vc, cos=cos,
-                    sin=sin, table=table)
+    got, route = routed(fused_qkv_rope_commit, x, p, lens, kc, vc, cos=cos,
+                        sin=sin, table=table)
+    where = f" paged ps={ps}" if ps else ""
+    want_route(f"fused_qkv_rope_commit{where} {name}", route, dt)
     ref = fused_qkv_rope_commit_plain(x, p, lens, k1, v1, cos=cos, sin=sin,
                                       table=table)
     torch.cuda.synchronize()
@@ -535,15 +645,40 @@ def qkv_case(dev, cfg, name, T, dt, lengths, S=2048, bias=False, ps=0):
         fail(f"fused_qkv_rope_commit {name}: cache rows outside "
              f"[lengths, lengths + T) changed")
     tol = TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
-    where = f" paged ps={ps}" if ps else ""
     log(f"  fused_qkv_rope_commit{where} {name}: B={B} T={T} d={d} Hq={Hq} "
-        f"Hkv={Hkv} hd={hd} S={S} {dt} lengths={lengths}: max err "
+        f"Hkv={Hkv} hd={hd} S={S} {dt}, {route} route, lengths={lengths}: "
+        f"max err "
         f"{err:.3e} (tol {tol}; abs {abs_err:.3e}); rest of the cache "
         f"unchanged")
     if not err < tol:
         fail(f"fused_qkv_rope_commit{where} {name} disagrees with its plain "
              f"version: {err} >= {tol}")
     return abs_err
+
+
+def qkv_same_case(dev, cfg, T, dt, lengths, ps=64):
+    """K3-dense and K3-paged on the same inputs give bitwise equal q, k and
+    v, and a second run of each gives them again: no step of the sum
+    depends on timing or on the cache layout."""
+    from repro_torch.kernels.cache_update import fused_qkv_rope_commit
+
+    x, p, lens, kc, vc, cos, sin, _ = qkv_inputs(dev, cfg, T, dt, lengths)
+    _, _, _, pk, pv, _, _, table = qkv_inputs(dev, cfg, T, dt, lengths,
+                                              ps=ps)
+    runs = [uncounted(fused_qkv_rope_commit, x, p, lens, kc, vc, cos=cos,
+                      sin=sin, table=t) if t is None else
+            uncounted(fused_qkv_rope_commit, x, p, lens, pk, pv, cos=cos,
+                      sin=sin, table=t)
+            for t in (None, table, None, table)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for run in runs[1:]
+               for a, b in zip(runs[0], run))
+    log(f"  fused_qkv_rope_commit dense vs paged ps={ps}: T={T} {dt} "
+        f"lengths={lengths}: q, k, v bitwise equal over 2 runs of each: "
+        f"{same}")
+    if not same:
+        fail(f"fused_qkv_rope_commit T={T} {dt}: dense and paged (or two "
+             f"runs) differ")
 
 
 def commit_case(dev, name, dtype, width, paged, nu=3, S=2048, ps=64):
@@ -617,17 +752,29 @@ def phase_fusion_kernels(dev):
     from repro_torch.configs.registry import get_config
 
     cfg = get_config("openpangu-7b")
+    cfg64 = dataclasses.replace(cfg, head_dim=64)
     d, V = cfg.d_model, cfg.vocab_size
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         errs["K2", dt] = stats_case(dev, "main", 4, 64, d, V, dt)
         stats_case(dev, "tied columns", 4, 64, d, V, dt, tied=True)
         stats_case(dev, "V 4099 (unaligned rows)", 2, 64, 512, 4099, dt)
+        if dt == torch.bfloat16:
+            # the wgmma route's row tiling: two row tiles, and one mostly
+            # padding (f32 takes the tile route, checked above)
+            stats_case(dev, "N 512", 8, 64, d, V, dt)
+            stats_case(dev, "N 64", 1, 64, d, V, dt)
         ragged = [1, 517, 1300, 1984]
         errs["K3", dt] = qkv_case(dev, cfg, "spec", 64, dt, ragged)
         qkv_case(dev, cfg, "AR", 1, dt, ragged)
         qkv_case(dev, cfg, "spec with biases", 64, dt, ragged, bias=True)
         qkv_case(dev, cfg, "rows past S", 64, dt, [2040, 0, 2047, 100])
+        qkv_case(dev, cfg, "B 3 (M 192)", 64, dt, [1, 517, 1300])
+        qkv_case(dev, cfg, "T 7 (M 28)", 7, dt, ragged)
+        qkv_case(dev, cfg64, "head_dim 64, spec", 64, dt, ragged)
+        qkv_case(dev, cfg64, "head_dim 64, AR", 1, dt, ragged, ps=16)
+        for T in (64, 1):
+            qkv_same_case(dev, cfg, T, dt, ragged)
         errs["K3-paged", dt] = qkv_case(dev, cfg, "spec", 64, dt, ragged,
                                         ps=64)
         qkv_case(dev, cfg, "AR", 1, dt, ragged, ps=16)
@@ -855,10 +1002,29 @@ def phase_serve(dev):
     return srv, counts
 
 
+def map_encodings():
+    """{kernel: tensor maps its library has encoded for weights}."""
+    from repro_torch.kernels.cache_update import qkv_map_encodings
+    from repro_torch.kernels.tree_attention import stats_map_encodings
+    return {"K2": stats_map_encodings(), "K3": qkv_map_encodings()}
+
+
 def phase_serve_fused(dev, srv):
-    """The launcher with ``--verify-fusion`` on ``srv``'s weights."""
+    """The launcher with ``--verify-fusion`` on ``srv``'s weights: every K2
+    and K3 launch on the wgmma route, and at most one tensor map encoded
+    per weight tensor (3 per layer for K3, the lm head for K2)."""
+    enc0 = map_encodings()
     fsrv, counts = serve_counted(SERVE_ARGV + ["--verify-fusion"],
                                  weights=(srv.params, srv.medusa_params))
+    check_routes("fused launcher", counts)
+    enc = {k: n - enc0[k] for k, n in map_encodings().items()}
+    limit = {"K2": 1, "K3": 3 * fsrv.cfg.num_layers}
+    log(f"  weight tensor maps encoded over the run: {enc} (at most {limit}: "
+        f"one per weight tensor; {counts['K2']} K2 and {counts['K3']} K3 "
+        f"launches)")
+    if any(enc[k] > limit[k] for k in enc):
+        fail(f"tensor maps encoded {enc}, more than one per weight tensor "
+             f"{limit}")
     log(f"  {same_answers(fsrv, srv)} of {REQUESTS} answers token-identical "
         f"to the unfused launcher's; tokens/s {fsrv.tokens / fsrv.seconds:.1f}"
         f" fused, {srv.tokens / srv.seconds:.1f} unfused")
@@ -876,8 +1042,13 @@ def phase_serve_layouts(dev, srv, fsrv):
     weights = (srv.params, srv.medusa_params)
     runs = {}
     log("  (a) --cache-layout paged --verify-fusion")
+    enc0 = map_encodings()
     runs["paged fused"] = serve_counted(
         SERVE_ARGV + ["--cache-layout", "paged", "--verify-fusion"], weights)
+    check_routes("paged fused launcher", runs["paged fused"][1])
+    log(f"  weight tensor maps encoded over the run: "
+        f"{ {k: n - enc0[k] for k, n in map_encodings().items()} } (the "
+        f"weights of phase 6, already encoded)")
     same = same_answers(runs["paged fused"][0], fsrv)
     log(f"  {same} of {REQUESTS} answers token-identical to the fused dense "
         f"launcher's (phase 6)")
@@ -933,24 +1104,32 @@ def time_verify_stats(dev, cfg, launches, max_err):
                          dtype=torch.int32)
     tmax = torch.ones((B,), device=dev)
     h2 = h.reshape(N, d)
-    ms = cuda_ms(lambda: uncounted(unembed_verify_stats, h, w, cand, tmax),
-                 20)
-    plain_ms = cuda_ms(
+    _, route = routed(unembed_verify_stats, h, w, cand, tmax)
+
+    def kernel():
+        uncounted(unembed_verify_stats, h, w, cand, tmax)
+
+    ms = queued_ms(kernel, 20)
+    ev_ms = cuda_ms(kernel, 20)
+    plain_ms = queued_ms(
         lambda: unembed_verify_stats_plain(h, w, cand, tmax), 5)
-    lib_ms = cuda_ms(lambda: torch.matmul(h2, w), 20)
+    lib_ms = queued_ms(lambda: torch.matmul(h2, w), 20)
+    h_ms = host_ms(kernel, 20)
     nbytes = d * V * 2 + N * d * 2 + N * 4 + B * 4 + N * 3 * 4 + N * T * 4
     flops = 2 * N * d * V
     b_ms, b_by = bound(nbytes, flops)
-    log(f"  unembed_verify_stats (N={N} d={d} V={V} bf16): kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, torch.matmul of the product only "
-        f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes, "
-        f"{flops} flops)")
+    log(f"  unembed_verify_stats (N={N} d={d} V={V} bf16, {route} route), "
+        f"queued back to back: kernel {ms:.4f} ms ({ms / lib_ms:.2f}x the "
+        f"library call; {ev_ms:.4f} ms issued as the host goes), plain "
+        f"{plain_ms:.4f} ms, torch.matmul of the product only {lib_ms:.4f} "
+        f"ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes, {flops} flops); "
+        f"the wrapper's host time {h_ms:.4f} ms per call")
     return {"name": "unembed_verify_stats", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/verify_stats.cu",
             "replaces": "src/repro/kernels/tree_attention.py:298",
             "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "host_ms": h_ms}
 
 
 def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0):
@@ -993,13 +1172,23 @@ def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0):
                                 + torch.arange(T, device=dev), hd,
                                 cfg.rope_theta)
         it = iter(range(10 ** 9))
-        ms = cuda_ms(lambda: uncounted(
-            fused_qkv_rope_commit, x, sets[next(it) % 4], lengths, kc, vc,
-            cos=cos, sin=sin, table=table), 40)
-        plain_ms = cuda_ms(lambda: fused_qkv_rope_commit_plain(
+        _, route = routed(fused_qkv_rope_commit, x, sets[0], lengths, kc, vc,
+                          cos=cos, sin=sin, table=table)
+
+        def kernel():
+            uncounted(fused_qkv_rope_commit, x, sets[next(it) % 4], lengths,
+                      kc, vc, cos=cos, sin=sin, table=table)
+
+        # the wrapper's host cost is longer than the kernel: the launches
+        # are queued so the card runs them back to back; as the host issues
+        # them (CUDA events, no queue) beside it
+        ms = queued_ms(kernel, 40)
+        ev_ms = cuda_ms(kernel, 40)
+        h_ms = host_ms(kernel, 40)
+        plain_ms = queued_ms(lambda: fused_qkv_rope_commit_plain(
             x, sets[next(it) % 4], lengths, kc, vc, cos=cos, sin=sin,
             table=table), 8)
-        lib_ms = cuda_ms(lambda: torch.matmul(x2, cats[next(it) % 4]), 40)
+        lib_ms = queued_ms(lambda: torch.matmul(x2, cats[next(it) % 4]), 40)
         cols = (Hq + 2 * Hkv) * hd
         nbytes = (d * cols * 2 + N * d * 2 + N * cols * 2
                   + 2 * N * Hkv * hd * 2 + 2 * N * hd // 2 * 4 + B * 4
@@ -1007,19 +1196,22 @@ def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0):
         flops = 2 * N * d * cols
         b_ms, b_by = bound(nbytes, flops)
         out[T] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                      bound_ms=b_ms, bound_by=b_by)
+                      bound_ms=b_ms, bound_by=b_by, host_ms=h_ms)
         where = f" paged ps={ps}" if ps else ""
         log(f"  fused_qkv_rope_commit{where} T={T} (B={B} d={d} Hq={Hq} "
-            f"Hkv={Hkv} hd={hd} bf16, lengths {lens}): kernel {ms:.4f} ms, "
+            f"Hkv={Hkv} hd={hd} bf16, lengths {lens}, {route} route), "
+            f"queued back to back: kernel {ms:.4f} ms ({ms / lib_ms:.2f}x the "
+            f"library call; {ev_ms:.4f} ms issued as the host goes), "
             f"plain {plain_ms:.4f} ms, torch.matmul of the product only "
             f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes, "
-            f"{flops} flops)")
+            f"{flops} flops); the wrapper's host time {h_ms:.4f} ms per call")
     return {"name": "fused_qkv_rope_commit" + ("[paged]" if ps else ""),
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_qkv_rope_commit.cu",
             "replaces": ("src/repro/kernels/cache_update.py:203" if ps else
                          "src/repro/kernels/cache_update.py:209"),
-            "launches": launches, "max_abs_err": max_err, **out[64]}
+            "launches": launches, "max_abs_err": max_err, **out[64],
+            **{k + "_t1": v for k, v in out[1].items() if k != "bound_by"}}
 
 
 K1_REPLACES = {"": "src/repro/kernels/tree_attention.py:126",
@@ -1156,7 +1348,7 @@ def time_commit(dev, launches, paged, ps=64):
                               slot[None, :], pos[None, :]), rows2)
     # each call is shorter than the host's cost of issuing it: device
     # times from the profiler, and the host's rate beside them
-    host_ms = cuda_ms(lambda: uncounted(fn, cache, *extra, rows, lengths),
+    issue_ms = cuda_ms(lambda: uncounted(fn, cache, *extra, rows, lengths),
                       200)
     ms = device_ms(lambda: uncounted(fn, cache, *extra, rows, lengths), 50)
     plain_ms = device_ms(lambda: plain(cache, *extra, rows, lengths), 50)
@@ -1169,7 +1361,7 @@ def time_commit(dev, launches, paged, ps=64):
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_put_ of the same "
         f"rows {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} "
         f"bytes); back to back on CUDA events the kernel's wrapper issues "
-        f"one call per {host_ms:.4f} ms")
+        f"one call per {issue_ms:.4f} ms")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/commit_rows.cu",
             "replaces": ("src/repro/kernels/cache_update.py:86" if paged else

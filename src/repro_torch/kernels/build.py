@@ -4,8 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` under the repo
 root (listed in ``.gitignore``), loaded with ``ctypes``.  The hash covers
 every file in ``csrc/`` and the flags, so an edited source rebuilds and a
-fresh checkout builds at first use.  Nothing here runs at import time:
-this module is imported on machines with no ``nvcc``.
+fresh checkout builds at first use.  Every library links libcuda (the
+driver library, for ``cuTensorMapEncodeTiled``: the wgmma routes' TMA
+maps), found through the toolkit's link stubs; nothing links cuBLAS.
+Nothing here runs at import time: this module is imported on machines
+with no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-lcuda",)
 
 
 def _nvcc() -> str:
@@ -33,10 +37,19 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
+def _stub_dirs(nvcc: str):
+    """The toolkit's directories of link stubs (``libcuda.so`` for
+    linking; the driver's own library is loaded at run time)."""
+    home = pathlib.Path(nvcc).resolve().parents[1]
+    return [d for d in (home / "lib64" / "stubs",
+                        home / "targets" / "x86_64-linux" / "lib" / "stubs")
+            if d.is_dir()]
+
+
 def target(name: str) -> pathlib.Path:
     """Path of the shared library for ``csrc/<name>.cu`` at the current
     sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for f in sorted(CSRC.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -56,7 +69,10 @@ def build(names) -> dict:
             logs[name] = ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        nvcc = _nvcc()
+        stubs = [f"-L{d}" for d in _stub_dirs(nvcc)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *stubs, *LINK_FLAGS]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

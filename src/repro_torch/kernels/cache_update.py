@@ -6,9 +6,14 @@ in-place commit of the accepted rows.
 kernel, bodies ``_fused_qkv_body``/``_fused_qkv_dense``/``_fused_qkv_paged``
 and ``_rope_half``) with the hand-written CUDA kernel
 ``csrc/fused_qkv_rope_commit.cu`` for Hopper (sm_90a): q/k/v projection,
-RoPE and the tree-row write of one layer.  One block owns 64 rows and one
-head, so RoPE's pairs and the head's cache rows stay in the block (the
-design is in the source).
+RoPE and the tree-row write of one layer.  A block owns one head, so
+RoPE's pairs and the head's cache rows stay in it.  Two routes, chosen per
+launch by ``qkv_plan`` from the dtype, the row count and the alignment:
+the ``"wgmma"`` route (bf16, every pointer and row stride 16-byte aligned:
+the main path) runs the product on ``csrc/hopper_gemm.cuh``'s TMA +
+``wgmma`` mainloop, with the depth split over a cluster of blocks; the
+``"tile"`` route (f32, or anything TMA cannot take) keeps the
+``csrc/tile_gemm.cuh`` product (the design of both is in the source).
 
 ``commit_rows_stacked`` and ``commit_rows_paged_stacked`` replace
 ``commit_rows`` (body ``_kernel``) and ``commit_rows_paged`` (body
@@ -134,16 +139,53 @@ def _check_cuda_args(x, p, lengths, k_cache, v_cache, cos, sin, table):
                              f"and {t.device}")
 
 
-def _kernel_fn(dtype):
+def aligned16(ptrs=(), strides=()) -> bool:
+    """Whether every address in ``ptrs`` and every bf16 element stride in
+    ``strides`` is a multiple of 16 bytes: what TMA boxes and the wgmma
+    routes' 16-byte stores need."""
+    return all(p % 16 == 0 for p in ptrs) and all(s % 8 == 0 for s in strides)
+
+
+def qkv_plan(M, d, hd, dtype, aligned=True):
+    """(route, consumers, splits) of one ``fused_qkv_rope_commit`` launch on
+    the card, for M = B * T rows, depth d and head_dim hd.
+
+    ``"wgmma"`` (bf16, d a multiple of 8 and ``aligned``, see
+    ``aligned16``): at the spec step (M > 64) 2 consumer warpgroups, 256
+    rows a block, d split over clusters of 2 blocks (96 blocks for 48
+    heads); at the AR step (M <= 64) 1 consumer warpgroup, 64 rows a
+    block, d split 4 ways (192 blocks, two per SM, streaming the weights).
+    No split gets fewer than one 64-deep stage.  ``"tile"`` otherwise:
+    ``(route, 0, 1)``."""
+    if dtype != torch.bfloat16 or not aligned or d % 8 or hd not in _HEAD_DIMS:
+        return "tile", 0, 1
+    stages = -(-d // 64)
+    if M <= 64:
+        return "wgmma", 1, min(4, stages)
+    return "wgmma", 2, min(2, stages)
+
+
+def _kernel_fn(dtype, route="tile"):
     from repro_torch.kernels.build import library
-    fn = getattr(library("fused_qkv_rope_commit"),
-                 "fused_qkv_rope_commit_" + _KERNEL_DTYPES[dtype])
+    name = "fused_qkv_rope_commit_" + _KERNEL_DTYPES[dtype]
+    if route == "wgmma":
+        name += "_wgmma"
+    fn = getattr(library("fused_qkv_rope_commit"), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + \
             [ctypes.c_int64] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + \
-            [ctypes.c_void_p]
+            [ctypes.c_int] * (2 if route == "wgmma" else 0) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def qkv_map_encodings() -> int:
+    """Tensor maps the K3 library has encoded for weights since it was
+    loaded (each weight's map is encoded once, then cached)."""
+    from repro_torch.kernels.build import library
+    fn = library("fused_qkv_rope_commit").fused_qkv_rope_commit_map_encodings
+    fn.restype = ctypes.c_longlong
+    return fn()
 
 
 def fused_qkv_rope_commit(x, p, lengths, k_cache, v_cache, *, cos=None,
@@ -162,8 +204,9 @@ def fused_qkv_rope_commit(x, p, lengths, k_cache, v_cache, *, cos=None,
     past it to trash block 0.
 
     CPU tensors take ``fused_qkv_rope_commit_plain``.  CUDA tensors launch
-    the kernel, or raise: there is no fallback.
-    ``fused_qkv_rope_commit.launches`` counts kernel launches.
+    the kernel on the route ``qkv_plan`` picks, or raise: there is no
+    fallback.  ``fused_qkv_rope_commit.launches`` counts kernel launches,
+    ``.launches_by_route`` the same launches by route.
     """
     if x.device.type == "cpu":
         return fused_qkv_rope_commit_plain(x, p, lengths, k_cache, v_cache,
@@ -193,22 +236,28 @@ def fused_qkv_rope_commit(x, p, lengths, k_cache, v_cache, *, cos=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _kernel_fn(x.dtype)(
+    inputs = [x, *w, *b, *cs, k_cache, v_cache]
+    strides = [*k_cache.stride()[:3], *v_cache.stride()[:3]]
+    route, consumers, splits = qkv_plan(
+        B * T, d, hd, x.dtype,
+        aligned16([t.data_ptr() for t in inputs if t is not None], strides))
+    extra = (consumers, splits) if route == "wgmma" else ()
+    err = _kernel_fn(x.dtype, route)(
         x.data_ptr(), *(t.data_ptr() for t in w), *(ptr(t) for t in b),
         *(ptr(t) for t in cs), lengths.data_ptr(), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        B * T, T, d, Hq, Hkv, hd, k_cache.shape[1], k_cache.stride(0),
-        k_cache.stride(1), k_cache.stride(2), v_cache.stride(0),
-        v_cache.stride(1), v_cache.stride(2), ptr(table), ps, mb,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        B * T, T, d, Hq, Hkv, hd, k_cache.shape[1], *strides, ptr(table), ps,
+        mb, *extra, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused_qkv_rope_commit: CUDA launch failed with "
-                           f"error {err}")
+        raise RuntimeError(f"fused_qkv_rope_commit: CUDA launch ({route} "
+                           f"route) failed with error {err}")
     fused_qkv_rope_commit.launches += 1
+    fused_qkv_rope_commit.launches_by_route[route] += 1
     return q, k, v
 
 
 fused_qkv_rope_commit.launches = 0
+fused_qkv_rope_commit.launches_by_route = {"wgmma": 0, "tile": 0}
 
 
 # ---------------------------------------------------------------------------

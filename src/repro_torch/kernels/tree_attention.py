@@ -16,9 +16,15 @@ source.
 
 ``unembed_verify_stats`` replaces ``unembed_verify_stats`` of the same
 reference file (body ``_verify_stats_kernel``) with ``csrc/verify_stats.cu``:
-the vocabulary is tiled across blocks, each block emits per-row partial
-statistics of its tile, and a second launch merges them in vocabulary
-order (the design is in the source).
+a first launch leaves per-row partial statistics in vocabulary order and a
+second merges them in that order.  Two routes make the partials, chosen
+per launch by ``stats_plan``: the ``"wgmma"`` route (bf16, 16-byte aligned
+rows: the main path) is a persistent grid of one block per SM, in
+clusters of 2 that share each hidden tile, walking their vocabulary tiles
+on ``csrc/hopper_gemm.cuh``'s TMA + ``wgmma`` mainloop with 256 rows a
+tile; the ``"tile"`` route (f32, or rows TMA cannot take) keeps one block
+per (128 rows, 128 columns) tile on ``csrc/tile_gemm.cuh`` (the design of
+both is in the source).
 
 Each ``*_plain`` function is the same function in plain PyTorch: the CPU
 path, and what the card's kernel is held against.
@@ -26,11 +32,13 @@ path, and what the card's kernel is held against.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import paging as P
 from repro_torch.kernels import quant as Q
+from repro_torch.kernels.cache_update import aligned16
 from repro_torch.models.layers import NEG_INF
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -235,17 +243,52 @@ def unembed_verify_stats_plain(hidden, w, candidates, tmax, *,
     return argm.to(torch.int32), m, l, cand_w
 
 
-def _stats_fn(dtype):
+_STATS_TILE_V = 128   # vocabulary columns per tile, both routes of the kernel
+_STATS_CLUSTER = 2    # wgmma route: blocks of a cluster share each hidden tile
+
+
+def stats_plan(N, d, V, dtype, aligned=True, n_sm=132):
+    """(route, n_parts) of one ``unembed_verify_stats`` launch on the card,
+    for N rows, depth d and V vocabulary columns; the partials are
+    [N, n_parts] each (max, argmax, sum-exp).
+
+    ``"wgmma"`` (bf16, d and V multiples of 8 and ``aligned``: TMA takes
+    the rows): a persistent grid of at most one block per SM, in clusters
+    of 2 blocks that share each hidden tile, each cluster owning a run of
+    at least one 128-column vocabulary tile; one partial per row and
+    block.  ``"tile"`` otherwise: one partial per row and vocabulary
+    tile."""
+    n_tiles = -(-V // _STATS_TILE_V)
+    if dtype != torch.bfloat16 or not aligned or d % 8 or V % 8:
+        return "tile", n_tiles
+    return "wgmma", _STATS_CLUSTER * min(n_sm // _STATS_CLUSTER, n_tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stats_fn(dtype, route="tile"):
     from repro_torch.kernels.build import library
-    lib = library("verify_stats")
-    fn = getattr(lib, "verify_stats_" + _KERNEL_DTYPES[dtype])
+    name = "verify_stats_" + _KERNEL_DTYPES[dtype]
+    if route == "wgmma":
+        name += "_wgmma"
+    fn = getattr(library("verify_stats"), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
-            [ctypes.c_void_p]
+            [ctypes.c_int] * (1 if route == "wgmma" else 0) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.verify_stats_n_tiles.argtypes = [ctypes.c_int]
-        lib.verify_stats_n_tiles.restype = ctypes.c_int
-    return fn, lib.verify_stats_n_tiles
+    return fn
+
+
+def stats_map_encodings() -> int:
+    """Tensor maps the K2 library has encoded for weights since it was
+    loaded (the lm head's map is encoded once, then cached)."""
+    from repro_torch.kernels.build import library
+    fn = library("verify_stats").verify_stats_map_encodings
+    fn.restype = ctypes.c_longlong
+    return fn()
 
 
 def _check_stats_args(hidden, w, candidates, tmax):
@@ -280,9 +323,10 @@ def unembed_verify_stats(hidden, w, candidates, tmax):
     is made on the card.
 
     CPU tensors take ``unembed_verify_stats_plain``.  CUDA tensors launch
-    the kernel (a tile pass and a merge pass, counted as one launch of
-    the op in ``unembed_verify_stats.launches``), or raise: there is no
-    fallback.
+    the kernel on the route ``stats_plan`` picks (a partials pass and a
+    merge pass, counted as one launch of the op in
+    ``unembed_verify_stats.launches``, and by route in
+    ``.launches_by_route``), or raise: there is no fallback.
     """
     if hidden.device.type == "cpu":
         return unembed_verify_stats_plain(hidden, w, candidates, tmax)
@@ -295,26 +339,33 @@ def unembed_verify_stats(hidden, w, candidates, tmax):
     candidates, tmax = candidates.contiguous(), tmax.contiguous()
     B, T, d = hidden.shape
     V = w.shape[1]
-    fn, n_tiles = _stats_fn(hidden.dtype)
-    n_vt = n_tiles(V)
     dev = hidden.device
+    route, n_parts = stats_plan(
+        B * T, d, V, hidden.dtype, aligned16((hidden.data_ptr(),
+                                              w.data_ptr())),
+        _n_sm(dev.index if dev.index is not None
+              else torch.cuda.current_device()))
     f32 = torch.float32
     argm = torch.empty((B, T), dtype=torch.int32, device=dev)
     m = torch.empty((B, T), dtype=f32, device=dev)
     l = torch.empty((B, T), dtype=f32, device=dev)
     cand_w = torch.empty((B, T, T), dtype=f32, device=dev)
-    pm = torch.empty((B * T, n_vt), dtype=f32, device=dev)
-    pi = torch.empty((B * T, n_vt), dtype=torch.int32, device=dev)
-    pl = torch.empty((B * T, n_vt), dtype=f32, device=dev)
-    err = fn(hidden.data_ptr(), w.data_ptr(), candidates.data_ptr(),
-             tmax.data_ptr(), argm.data_ptr(), m.data_ptr(), l.data_ptr(),
-             cand_w.data_ptr(), pm.data_ptr(), pi.data_ptr(), pl.data_ptr(),
-             B * T, T, d, V, torch.cuda.current_stream(dev).cuda_stream)
+    pm = torch.empty((B * T, n_parts), dtype=f32, device=dev)
+    pi = torch.empty((B * T, n_parts), dtype=torch.int32, device=dev)
+    pl = torch.empty((B * T, n_parts), dtype=f32, device=dev)
+    extra = (n_parts,) if route == "wgmma" else ()
+    err = _stats_fn(hidden.dtype, route)(
+        hidden.data_ptr(), w.data_ptr(), candidates.data_ptr(),
+        tmax.data_ptr(), argm.data_ptr(), m.data_ptr(), l.data_ptr(),
+        cand_w.data_ptr(), pm.data_ptr(), pi.data_ptr(), pl.data_ptr(),
+        B * T, T, d, V, *extra, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"unembed_verify_stats: CUDA launch failed with "
-                           f"error {err}")
+        raise RuntimeError(f"unembed_verify_stats: CUDA launch ({route} "
+                           f"route) failed with error {err}")
     unembed_verify_stats.launches += 1
+    unembed_verify_stats.launches_by_route[route] += 1
     return argm, m, l, cand_w
 
 
 unembed_verify_stats.launches = 0
+unembed_verify_stats.launches_by_route = {"wgmma": 0, "tile": 0}
