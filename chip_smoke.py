@@ -12,12 +12,14 @@ non-zero exit:
    port from the checkout's sources (one nvcc per source, in parallel);
 2. hold the ``flash_decode`` kernel (K1) against ``flash_decode_plain`` on
    the card (the reference's kernel-test shape sweep plus the main path's
-   shapes, f32 and bf16), and ``ops.tree_attention`` against the
-   ``tree_attention_ref`` oracle; then K1's int8, paged and int8 + paged
-   variants the same way, on pools of page size 16, 64 and 128 read
+   shapes, f32 and bf16, and at R 8 rows short enough that most of the
+   32 splits start past the length), and ``ops.tree_attention`` against
+   the ``tree_attention_ref`` oracle; then K1's int8, paged and int8 +
+   paged variants the same way, on pools of page size 16, 64 and 128 read
    through a shuffled block table, with an idle slot (zero table, length
    0); every paged run must also be bitwise the dense kernel's run on the
-   same logical rows;
+   same logical rows; every K1 case logs its route ("single" or "split"),
+   which must be the one ``decode_plan`` gives its shapes;
 3. hold the verify-fusion kernels against their plain versions on the
    card, f32 and bf16: ``unembed_verify_stats`` (K2) at the spec step's
    shape (B 4, T 64, d 4096, V 153376, which is not a multiple of the
@@ -44,11 +46,14 @@ non-zero exit:
    paged with verify fusion, int8, int8 paged and int8 with verify fusion
    (K2 on the unfused int8 write side, no K3); the fp variants all give
    the dense tokens and the int8 variants the int8 ones; every run
-   launches K1-K5 exactly as ``expected_counts`` says;
+   launches K1-K5 exactly as ``expected_counts`` says, and K1 takes the
+   routes ``decode_plan`` gives the spec step (R 256: "single") and the
+   AR step (R 8: "split", with a merge launch each);
 5. the launcher (``repro_torch.launch.serve.main``) serves 8 requests on
    bf16 openPangu-7B at full width and depth; every request must finish,
-   the kernels launch exactly as expected (K1 per layer and step, K4 per
-   cache leaf and step), and each answer matches ``ar_generate`` up to its
+   the kernels launch exactly as expected (K1 per layer and step, on its
+   "single" route in phases 5-7, K4 per cache leaf and step), and each
+   answer matches ``ar_generate`` up to its
    first divergence, where AR's logit for the token the speculative path
    emitted must lie within ``MARGIN_BOUND`` of AR's top logit;
 6. the launcher with ``--verify-fusion`` answers the same 8 requests on
@@ -67,17 +72,19 @@ non-zero exit:
    --page-size 16`` (K1-int8+paged, K5) must give all 8 answers of (b);
 8. time every kernel and variant, its plain version, and one PyTorch call
    as a yardstick the port never calls where one computes the same
-   function (``scaled_dot_product_attention`` for K1 and, over the
-   gathered dense view, K1-paged; for K2 and K3 one ``torch.matmul`` of
-   the same product, which does only the product; ``index_put_`` of the
-   same rows for K4 and K5; none for the int8 variants of K1) at the main
-   path's shapes: CUDA events around back-to-back launches; for K2 and
-   K3, whose wrappers' host cost is near or above the kernel's time, with
-   the launches queued behind a spin kernel so the card runs them back to
-   back (the unqueued reading logged beside it); for K4 and K5 the
-   kernels' device time from ``torch.profiler``.  K3's rows carry the AR
-   step's (T 1) numbers beside the spec step's; K2's and K3's rows carry
-   the wrapper's host ms per call.
+   function (``scaled_dot_product_attention`` for K1, its backend pinned
+   with ``torch.nn.attention.sdpa_kernel`` and named in the log, over the
+   dense bf16 view the cache holds: gathered from the pool for K1-paged,
+   dequantized to bf16 for K1-int8, neither step timed; for K2 and K3 one
+   ``torch.matmul`` of the same product, which does only the product;
+   ``index_put_`` of the same rows for K4 and K5) at the main path's
+   shapes: for K1, K2 and K3, whose wrappers' host cost is near or above
+   the kernel's time, CUDA events around launches queued behind a spin
+   kernel so the card runs them back to back (the unqueued reading
+   logged beside it); for K4 and K5 the kernels' device time from
+   ``torch.profiler``.  K1's rows carry the AR step's (R 8) numbers
+   beside the spec step's, K3's the AR step's (T 1); K1's, K2's and K3's
+   rows carry the wrapper's host ms per call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -242,16 +249,51 @@ def reset_counts():
 
 def read_routes():
     """{kernel: {route: launches}} since ``reset_counts``, for the kernels
-    with two routes (K2 and K3)."""
+    that count their routes (K1, K2 and K3)."""
     return {k: dict(f.launches_by_route) for k, f in _wrappers().items()
             if hasattr(f, "launches_by_route")}
 
 
-def check_routes(label, counts):
-    """Every K2 and K3 launch of a bf16 main-path run took the wgmma route."""
+def folded_rows(G, T):
+    """K1's query rows for T tree rows and G q heads per kv head: T padded
+    until G * T is a multiple of 8, as ``ops.tree_attention`` folds."""
+    while (G * T) % 8:
+        T += 1
+    return G * T
+
+
+def k1_routes(cfg, B, S, steps, ar_steps=0, T=64):
+    """K1's launches by route that ``decode_plan`` gives ``steps`` spec
+    steps (T tree rows) and ``ar_steps`` AR steps on ``cfg``, B slots and
+    S cache rows: one per layer and step, and a merge per split launch."""
+    from repro_torch.kernels.tree_attention import decode_plan
+    from repro_torch.runtime import torch_dtype
+
+    G = cfg.num_heads // cfg.num_kv_heads
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {"single": 0, "split": 0, "merge": 0}
+    for t, n in ((T, steps), (1, ar_steps)):
+        route = decode_plan(B, cfg.num_kv_heads, folded_rows(G, t), S,
+                            torch_dtype(cfg.dtype), n_sm).route
+        want[route] += n * cfg.num_layers
+        if route == "split":
+            want["merge"] += n * cfg.num_layers
+    return want
+
+
+def check_routes(label, counts, k1_want=None):
+    """K1's launches took the routes ``decode_plan`` gives the run
+    (``k1_want``, from ``k1_routes``); with ``counts`` given, every K2 and
+    K3 launch of a bf16 main-path run took the wgmma route."""
     routes = read_routes()
     log(f"  routes {routes}")
-    for k, by in routes.items():
+    if k1_want is not None and routes["K1"] != k1_want:
+        fail(f"{label}: K1 launches by route {routes['K1']}, expected "
+             f"{k1_want}")
+    if counts is None:
+        return
+    for k in ("K2", "K3"):
+        by = routes[k]
         if by["tile"] or by["wgmma"] != counts[k]:
             fail(f"{label}: {k} launches by route {by}, expected all "
                  f"{counts[k]} on the wgmma route")
@@ -277,14 +319,26 @@ def uncounted(fn, *args, **kwargs):
 
 
 def routed(fn, *args, **kwargs):
-    """``uncounted`` call of a wrapper with two routes; returns (its
-    result, the route its launch took)."""
+    """``uncounted`` call of a wrapper that counts its routes; returns (its
+    result, the route its launch took: for K1 "single" or "split", whose
+    merge launch is not returned)."""
     before = dict(fn.launches_by_route)
     out = fn(*args, **kwargs)
     took = [r for r, n in fn.launches_by_route.items() if n != before[r]]
     fn.launches -= 1
     fn.launches_by_route.update(before)
     return out, took[0]
+
+
+def want_k1_route(name, route, B, Hkv, R, S, dt):
+    """K1 takes the route ``decode_plan`` gives the launch's shapes."""
+    from repro_torch.kernels.tree_attention import decode_plan
+
+    want = decode_plan(B, Hkv, R, S, dt,
+                       torch.cuda.get_device_properties(0)
+                       .multi_processor_count).route
+    if route != want:
+        fail(f"{name}: took the {route} route, expected {want}")
 
 
 def want_route(name, route, dt, aligned=True):
@@ -340,13 +394,15 @@ def phase_kernels(dev):
         k = torch.from_numpy(rng.standard_normal((B, S, Hkv, D))).to(dev, dt)
         v = torch.from_numpy(rng.standard_normal((B, S, Hkv, D))).to(dev, dt)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        got = flash_decode(q, k, v, lens)
+        got, route = routed(flash_decode, q, k, v, lens)
+        want_k1_route(f"flash_decode {name}", route, B, Hkv, R, S, dt)
         ref = flash_decode_plain(q, k, v, lens)
         torch.cuda.synchronize()
         err, out_err = stats_errors(got, ref)
         tol = TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
         log(f"  flash_decode {name}: B={B} S={S} Hkv={Hkv} R={R} D={D} "
-            f"{dt} lengths={lengths}: max err {err:.3e} (tol {tol})")
+            f"{dt} lengths={lengths}, {route} route: max err {err:.3e} "
+            f"(tol {tol})")
         if not err < tol:
             fail(f"flash_decode {name} disagrees with its plain version: "
                  f"{err} >= {tol}")
@@ -381,6 +437,9 @@ def phase_kernels(dev):
     for dt in (torch.float32, torch.bfloat16):
         folded_case("main R=256", 4, 2048, 8, 256, 128, dt, ragged)
         folded_case("main R=8", 4, 2048, 8, 8, 128, dt, ragged)
+        # short rows: most of the 32 splits start past the length
+        folded_case("main R=8 short", 4, 2048, 8, 8, 128, dt,
+                    [1, 64, 65, 190])
     return main_err
 
 
@@ -431,7 +490,9 @@ def variant_case(dev, name, B, S, Hkv, R, D, dt, lengths, quantized, ps,
         k, v = pools["k"], pools["v"]
         kw = {n: pools[n] for n in dense_kw}
         kw["block_tables"] = table
-    got = uncounted(flash_decode, q, k, v, lens, **kw)
+    got, route = routed(flash_decode, q, k, v, lens, **kw)
+    what = ("int8" if quantized else "fp") + (f" paged ps={ps}" if ps else "")
+    want_k1_route(f"flash_decode {what} {name}", route, B, Hkv, R, S, dt)
     ref = flash_decode_plain(q, k, v, lens, **kw)
     torch.cuda.synchronize()
     live = lens > 0
@@ -445,9 +506,9 @@ def variant_case(dev, name, B, S, Hkv, R, D, dt, lengths, quantized, ps,
                           **dense_kw)
         same = all(torch.equal(a, b) for a, b in zip(got, dense))
     tol = TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
-    what = ("int8" if quantized else "fp") + (f" paged ps={ps}" if ps else "")
     log(f"  flash_decode {what} {name}: B={B} S={S} Hkv={Hkv} R={R} D={D} "
-        f"{dt} lengths={lengths}: max err {err:.3e} (tol {tol})"
+        f"{dt} lengths={lengths}, {route} route: max err {err:.3e} "
+        f"(tol {tol})"
         + ("; bitwise equal to the dense kernel" if ps else ""))
     if not err < tol:
         fail(f"flash_decode {what} {name} disagrees with its plain version: "
@@ -498,6 +559,14 @@ def phase_kernel_variants(dev):
                                        quantized, ps, R + ps)
                     if dt == torch.bfloat16 and R == 256 and ps == 64:
                         main["int8+paged" if quantized else "paged"] = err
+        # R 8 with short rows and an idle slot: most splits start past the
+        # length, and the idle slot's are all empty
+        args = (dev, "main R=8 short", 4, 2048, 8, 8, 128, dt,
+                [0, 64, 65, 190])
+        variant_case(*args, True, 0, 3)
+        for ps in sizes:
+            for quantized in (False, True):
+                variant_case(*args, quantized, ps, 4 + ps)
     return main
 
 
@@ -858,6 +927,10 @@ def phase_f32(dev):
             f"{mean_acc:.3f}), {max_new} AR steps; launches {counts}")
         if counts != want:
             fail(f"f32 {label}: launches {counts}, expected {want}")
+        ps = cfg.page_size if cfg.paged else 1
+        check_routes(f"f32 {label}", None,
+                     k1_routes(eng.cfg, 4, -(-max_len // ps) * ps, st.steps,
+                               max_new, T=eng.tb.T))
         return sp
 
     sp = run("dense")
@@ -988,6 +1061,11 @@ def serve_counted(argv, weights=None):
     srv = serve.main(argv, weights=weights)
     counts = read_counts()
     check_served(srv, counts)
+    steps = sum(srv.results[g]["steps"] for g in range(0, REQUESTS, SLOTS))
+    ps = srv.cfg.page_size if srv.cfg.paged else 1
+    check_routes(" ".join(argv[len(SERVE_ARGV):]) or "launcher",
+                 counts if srv.cfg.verify_fusion else None,
+                 k1_routes(srv.cfg, SLOTS, -(-MAX_LEN // ps) * ps, steps))
     return srv, counts
 
 
@@ -1016,7 +1094,6 @@ def phase_serve_fused(dev, srv):
     enc0 = map_encodings()
     fsrv, counts = serve_counted(SERVE_ARGV + ["--verify-fusion"],
                                  weights=(srv.params, srv.medusa_params))
-    check_routes("fused launcher", counts)
     enc = {k: n - enc0[k] for k, n in map_encodings().items()}
     limit = {"K2": 1, "K3": 3 * fsrv.cfg.num_layers}
     log(f"  weight tensor maps encoded over the run: {enc} (at most {limit}: "
@@ -1045,7 +1122,6 @@ def phase_serve_layouts(dev, srv, fsrv):
     enc0 = map_encodings()
     runs["paged fused"] = serve_counted(
         SERVE_ARGV + ["--cache-layout", "paged", "--verify-fusion"], weights)
-    check_routes("paged fused launcher", runs["paged fused"][1])
     log(f"  weight tensor maps encoded over the run: "
         f"{ {k: n - enc0[k] for k, n in map_encodings().items()} } (the "
         f"weights of phase 6, already encoded)")
@@ -1077,7 +1153,7 @@ def phase_serve_layouts(dev, srv, fsrv):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: timing at the main path's spec-step shape
+# phase 8: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
 def bound(nbytes, flops):
@@ -1220,23 +1296,43 @@ K1_REPLACES = {"": "src/repro/kernels/tree_attention.py:126",
                "int8+paged": "src/repro/kernels/tree_attention.py:105"}
 
 
+# K1's yardstick: the SDPA backend that takes a boolean mask at this shape
+# (flash attention takes none)
+SDPA_BACKEND = "EFFICIENT_ATTENTION"
+
+
+def sdpa_pinned(q, k, v, mask):
+    """A call of ``scaled_dot_product_attention`` on these inputs, pinned to
+    ``SDPA_BACKEND`` with ``torch.nn.attention.sdpa_kernel`` (it raises
+    rather than fall back to another backend)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        with sdpa_kernel(getattr(SDPBackend, SDPA_BACKEND)):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=1.0)
+    return call
+
+
 def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
                       variant="", ps=64):
     """K1 at the spec (R 256) and AR (R 8) shapes, B 4, Hkv 8, D 128, a
     2048-row bf16 cache (int8 + f32 scales for the int8 variants; pools of
-    page size ``ps`` through a shuffled table for the paged ones).  The
-    yardstick is ``scaled_dot_product_attention`` over the rows K1 sweeps
-    (for the paged variant over the gathered dense view, the gather not
-    timed); no PyTorch call takes an int8 cache with scales, so the int8
-    variants have none."""
-    import torch.nn.functional as F
-
+    page size ``ps`` through a shuffled table for the paged ones).  Kernel,
+    plain version and yardstick are timed queued behind a spin kernel
+    (``queued_ms``): the kernel is shorter than its wrapper's host cost.
+    The yardstick is ``scaled_dot_product_attention`` with its backend
+    pinned (``sdpa_pinned``) over the rows K1 sweeps, on the dense bf16
+    view the cache holds: gathered from the pool for the paged variants,
+    dequantized to bf16 for the int8 ones, neither step timed."""
     from repro_torch.kernels import paging as P
-    from repro_torch.kernels.quant import quantize_rows
+    from repro_torch.kernels.quant import dequantize, quantize_rows
     from repro_torch.kernels.tree_attention import (flash_decode,
                                                     flash_decode_plain)
 
     B, S, Hkv, D = 4, 2048, 8, 128
+    bf = torch.bfloat16
     quantized, paged = "int8" in variant, "paged" in variant
     gen = torch.Generator(device=dev).manual_seed(0)
     # lengths mid-way through the first group's generation
@@ -1247,14 +1343,11 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
     rows = {}
     for R in (256, 8):
         q = torch.randn((B, Hkv, R, D), generator=gen, device=dev,
-                        dtype=torch.bfloat16) * (D ** -0.5)
-        k = torch.randn((B, S, Hkv, D), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        v = torch.randn((B, S, Hkv, D), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
+                        dtype=bf) * (D ** -0.5)
+        k = torch.randn((B, S, Hkv, D), generator=gen, device=dev, dtype=bf)
+        v = torch.randn((B, S, Hkv, D), generator=gen, device=dev, dtype=bf)
         mask = (torch.arange(S, device=dev)[None, :]
                 < lengths[:, None])[:, None, None, :]
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
         kw = {}
         if quantized:
             (k, kw["k_scale"]), (v, kw["v_scale"]) = (quantize_rows(k),
@@ -1264,20 +1357,29 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
             k, v = to_pool(k, table, ps, gen), to_pool(v, table, ps, gen)
             kw = {n: to_pool(t, table, ps, gen) for n, t in kw.items()}
             kw["block_tables"] = table
-            # the dense view the pool holds, as the library call needs it
-            kt = P.gather_cache(k, table).transpose(1, 2)
-            vt = P.gather_cache(v, table).transpose(1, 2)
-        ms = cuda_ms(lambda: uncounted(flash_decode, q, k, v, lengths, **kw),
-                     100)
-        plain_ms = cuda_ms(lambda: flash_decode_plain(q, k, v, lengths,
-                                                      **kw), 20)
-        lib_ms = lib_full_ms = None
-        if not quantized:
-            kr, vr, mr = kt[:, :, :S_run], vt[:, :, :S_run], mask[..., :S_run]
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, kr, vr, attn_mask=mr, scale=1.0), 20)
-            lib_full_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, kt, vt, attn_mask=mask, scale=1.0), 20)
+        # the dense bf16 view the cache holds, as the library call needs it
+        kd, vd = k, v
+        ks, vs = kw.get("k_scale"), kw.get("v_scale")
+        if paged:
+            kd, vd = P.gather_cache(k, table), P.gather_cache(v, table)
+            if quantized:
+                ks, vs = P.gather_cache(ks, table), P.gather_cache(vs, table)
+        if quantized:
+            kd, vd = dequantize(kd, ks, bf), dequantize(vd, vs, bf)
+        kt = kd.transpose(1, 2)[:, :, :S_run]
+        vt = vd.transpose(1, 2)[:, :, :S_run]
+        lib = sdpa_pinned(q, kt, vt, mask[..., :S_run])
+        _, route = routed(flash_decode, q, k, v, lengths, **kw)
+
+        def kernel():
+            uncounted(flash_decode, q, k, v, lengths, **kw)
+
+        ms = queued_ms(kernel, 100)
+        ev_ms = cuda_ms(kernel, 100)
+        h_ms = host_ms(kernel, 100)
+        plain_ms = queued_ms(lambda: flash_decode_plain(q, k, v, lengths,
+                                                        **kw), 20)
+        lib_ms = queued_ms(lib, 100)
         # bytes: q, the swept rows of k and v (+ their f32 scales), the
         # lengths, the table entries of the swept rows, the f32 outputs
         row_bytes = Hkv * (D + 4) if quantized else Hkv * D * 2
@@ -1287,22 +1389,25 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
         flops = 4 * R * D * Hkv * n_cols
         b_ms, b_by = bound(nbytes, flops)
         rows[R] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by)
-        lib = ("none (no PyTorch call takes an int8 cache with scales)"
-               if quantized else
-               f"sdpa over {S_run} rows {lib_ms:.4f} ms (over all {S} rows "
-               f"{lib_full_ms:.4f} ms)")
+                       bound_ms=b_ms, bound_by=b_by, host_ms=h_ms,
+                       library_backend=SDPA_BACKEND)
         what = variant + (f" ps={ps}" if paged else "")
+        view = ("the dequantized bf16 view" if quantized else "the rows")
+        view += ", gathered from the pool," if paged else ""
         log(f"  flash_decode {what or 'dense'} R={R} (B={B} Hkv={Hkv} D={D} "
-            f"S={S} bf16, lengths {lens}): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, {lib}, bound {b_ms:.5f} ms ({b_by}: "
-            f"{nbytes} bytes, {flops} flops; f32 CUDA-core floor "
-            f"{flops / H100_F32_FLOPS * 1e3:.5f} ms)")
+            f"S={S} bf16, lengths {lens}, {route} route), queued back to "
+            f"back: kernel {ms:.4f} ms ({ms / lib_ms:.2f}x the library call; "
+            f"{ev_ms:.4f} ms issued as the host goes), plain {plain_ms:.4f} "
+            f"ms, sdpa ({SDPA_BACKEND}) over {view} {S_run} rows {lib_ms:.4f} "
+            f"ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes, {flops} "
+            f"flops); "
+            f"the wrapper's host time {h_ms:.4f} ms per call")
     return {"name": "flash_decode" + (f"[{variant}]" if variant else ""),
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": K1_REPLACES[variant], "launches": launches,
-            "max_abs_err": max_err, **rows[256]}
+            "max_abs_err": max_err, **rows[256],
+            **{k + "_r8": v for k, v in rows[8].items() if k != "bound_by"}}
 
 
 def time_commit(dev, launches, paged, ps=64):

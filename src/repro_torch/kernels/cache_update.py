@@ -86,8 +86,10 @@ def _check_cuda_args(x, p, lengths, k_cache, v_cache, cos, sin, table):
     if k_cache.dtype != x.dtype or v_cache.dtype != x.dtype:
         raise TypeError(f"fused_qkv_rope_commit: caches of {k_cache.dtype} "
                         f"and {v_cache.dtype} for x of {x.dtype}: the fused "
-                        f"write side takes fp caches of x's dtype (the int8 "
-                        f"cache is ROADMAP queue 1 item 9)")
+                        f"write side takes fp caches of x's dtype; an int8 "
+                        f"cache keeps the unfused projection, as the "
+                        f"reference does "
+                        f"(repro/models/transformer.py:508-513)")
     B, T, d = x.shape
     Hq, hd = p["wq"].shape[1], p["wq"].shape[2]
     Hkv = p["wk"].shape[1]

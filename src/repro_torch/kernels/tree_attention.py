@@ -7,12 +7,15 @@ statistics).
 (the Pallas TPU kernel: the dense fp/bf16 body ``_kernel``, its int8
 branch and the paged body ``_kernel_paged``) with the hand-written CUDA
 kernel ``csrc/flash_decode.cu`` for Hopper (sm_90a), built by
-``kernels/build.py`` and called through ``ctypes``.  The kernel is bound
-by the bytes of K and V it sweeps; its design (one block per (b, kv head,
-32 query rows), 64-column cache tiles streamed through shared memory up
-to ``lengths[b]``, int8 rows dequantized in the tile, pool rows found
-through the block table per tile, f32 online softmax) is described in the
-source.
+``kernels/build.py`` and called through ``ctypes``.  Its grid is chosen per
+launch by ``decode_plan`` from the shapes alone (never from ``lengths``):
+blocks own (b, kv head, a tile of query rows, a split of the cache
+columns), and with more than one split a second kernel merges the splits'
+partial statistics in split order.  bf16 queries run both products on the
+tensor cores (``mma.sync``; an int8 cache widened to bf16, its p times
+v_scale split into two bf16 terms), f32 queries on CUDA-core FMAs; every
+tile arrives by 16-byte ``cp.async`` copies (the design is in the source).
+``flash_decode_split_plain`` is the same split-and-merge in plain PyTorch.
 
 ``unembed_verify_stats`` replaces ``unembed_verify_stats`` of the same
 reference file (body ``_verify_stats_kernel``) with ``csrc/verify_stats.cu``:
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -81,6 +85,101 @@ def flash_decode_plain(q, k, v, lengths, *, k_scale=None, v_scale=None,
     return acc, m, l
 
 
+_TILE = 64          # cache columns per kernel tile; a split is whole tiles
+_MAX_SPLITS = 32
+
+
+class DecodePlan(NamedTuple):
+    """One ``flash_decode`` launch on the card: ``route`` "single" (one
+    split, the kernel writes the statistics) or "split" (``n_splits``
+    splits of ``split_cols`` cache columns each, whose partials a merge
+    kernel combines); ``rows`` query rows a block."""
+    route: str
+    rows: int
+    split_cols: int
+    n_splits: int
+
+
+def decode_plan(B, Hkv, R, S, dtype, n_sm=132) -> DecodePlan:
+    """The grid of one ``flash_decode`` launch, from host-known ints only:
+    B slots, Hkv kv heads, R folded query rows, S cache columns, the
+    query dtype and the card's SM count.  It never sees ``lengths``, so
+    choosing it needs no device sync.
+
+    Rows a block: bf16 (tensor cores, 16 rows a warp) 16 for R <= 16, else
+    64; f32 (CUDA cores) 8 for R <= 8, else 32.  Splits: a split is whole
+    64-column tiles and at least 8 R columns long, so that its f32
+    partials (written and read: 8 R D bytes) stay within a quarter of the
+    bf16 K/V bytes it streams (4 L D), and there are at most 32 of them.
+    The grid keeps one split when the (b, head, row tile) blocks already
+    fill the card (at least ``n_sm``) or one split covers S: R 256 at the
+    spec step gives 128 blocks of 64 rows and one split; R 8 at the AR step
+    gives 32 blocks and 64-column splits, one block per live tile."""
+    if dtype == torch.bfloat16:
+        rows = 16 if R <= 16 else 64
+    else:
+        rows = 8 if R <= 8 else 32
+    blocks = B * Hkv * -(-R // rows)
+    tiles = max(1, -(-S // _TILE))
+    split_tiles = max(-(-8 * R // _TILE), -(-tiles // _MAX_SPLITS))
+    if blocks >= n_sm or split_tiles >= tiles:
+        return DecodePlan("single", rows, tiles * _TILE, 1)
+    return DecodePlan("split", rows, split_tiles * _TILE,
+                      -(-tiles // split_tiles))
+
+
+def merge_split_stats(parts, lengths, split_cols):
+    """The merge kernel's combination of per-split statistics in plain
+    PyTorch: ``parts`` [(acc, m, l)] in split order, split i covering
+    columns [i * split_cols, (i + 1) * split_cols).  Only splits that start
+    below lengths[b] take part: m = max m_i, acc = sum acc_i e^(m_i - m),
+    l = sum l_i e^(m_i - m), summed in split order; a row with none gives
+    m = -1e30, l = 0, acc = 0."""
+    dev = parts[0][0].device
+    n_live = -(-lengths.to(dev).long() // split_cols)
+    live = [(i < n_live)[:, None, None, None] for i in range(len(parts))]
+    m = torch.full_like(parts[0][1], NEG_INF)
+    for (_, mi, _), on in zip(parts, live):
+        m = torch.where(on, torch.maximum(m, mi), m)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for (ai, mi, li), on in zip(parts, live):
+        w = torch.where(on, torch.exp(mi - m), torch.zeros((), device=dev))
+        acc = acc + ai * w
+        l = l + li * w
+    return acc, m, l
+
+
+def flash_decode_split_plain(q, k, v, lengths, *, k_scale=None,
+                             v_scale=None, block_tables=None,
+                             split_cols=None):
+    """The kernel's split-KV form in plain PyTorch: ``flash_decode_plain``
+    over each split of ``split_cols`` cache columns (by default the ones
+    ``decode_plan`` gives this launch), then ``merge_split_stats`` in split
+    order.  Arguments and results as ``flash_decode``."""
+    if block_tables is not None:
+        k, v = P.gather_cache(k, block_tables), P.gather_cache(v, block_tables)
+        if k_scale is not None:
+            k_scale = P.gather_cache(k_scale, block_tables)
+            v_scale = P.gather_cache(v_scale, block_tables)
+    B, Hkv, R, _ = q.shape
+    S = k.shape[1]
+    if split_cols is None:
+        split_cols = decode_plan(B, Hkv, R, S, q.dtype).split_cols
+    if split_cols % _TILE:
+        raise ValueError(f"flash_decode: a split of {split_cols} columns is "
+                         f"not whole {_TILE}-column tiles")
+    parts = []
+    for c0 in range(0, S, split_cols):
+        cols = slice(c0, c0 + split_cols)
+        scales = {} if k_scale is None else {"k_scale": k_scale[:, cols],
+                                             "v_scale": v_scale[:, cols]}
+        part_len = torch.clamp(lengths - c0, 0, split_cols).to(lengths.dtype)
+        parts.append(flash_decode_plain(q, k[:, cols], v[:, cols], part_len,
+                                        **scales))
+    return merge_split_stats(parts, lengths, split_cols)
+
+
 def _check_layout(name, t, shape, dtype, paged):
     if t.dtype != dtype:
         raise TypeError(f"flash_decode: {name} is {t.dtype}, expected {dtype}")
@@ -121,6 +220,11 @@ def _check_cuda_args(q, k, v, lengths, k_scale, v_scale, block_tables):
     for t in (k, v, lengths, k_scale, v_scale, block_tables):
         if t is not None and t.device != q.device:
             raise ValueError(f"flash_decode: tensors on {q.device} and {t.device}")
+    es = k.element_size()
+    if any(t.data_ptr() % 16 or any(st * es % 16 for st in t.stride()[:3])
+           for t in (k, v)):
+        raise ValueError("flash_decode: the kernel's 16-byte copies need k "
+                         "and v and their row strides 16-byte aligned")
 
 
 def _kernel_fn(dtype):
@@ -128,7 +232,7 @@ def _kernel_fn(dtype):
     fn = getattr(library("flash_decode"), "flash_decode_" + _KERNEL_DTYPES[dtype])
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 10 + [i32] * 8 + [vp, vp]
+        fn.argtypes = [vp] * 13 + [i32] * 12 + [vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -150,8 +254,10 @@ def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
     merge in ``ops.py``.
 
     CPU tensors take ``flash_decode_plain``.  CUDA tensors launch the
-    kernel, or raise: there is no fallback.  ``flash_decode.launches``
-    counts kernel launches.
+    kernel on the grid ``decode_plan`` picks, or raise: there is no
+    fallback.  ``flash_decode.launches`` counts one launch a call;
+    ``.launches_by_route`` counts the calls by route ("single" or
+    "split") and the merge kernel's launches ("merge").
     """
     if (k.dtype == torch.int8) != (k_scale is not None) \
             or (k_scale is None) != (v_scale is None):
@@ -164,7 +270,11 @@ def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     _check_cuda_args(q, k, v, lengths, k_scale, v_scale, block_tables)
     q = q.contiguous()
+    if q.data_ptr() % 16:
+        raise ValueError("flash_decode: the kernel's 16-byte copies need q "
+                         "16-byte aligned")
     B, Hkv, R, D = q.shape
+    dev = q.device
     paged = block_tables is not None
     if paged:
         block_tables = block_tables.contiguous()
@@ -172,9 +282,21 @@ def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
         S = ps * mb
     else:
         ps, mb, S = 0, 0, k.shape[1]
-    acc = torch.empty((B, Hkv, R, D), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hkv, R, 1), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, Hkv, R, 1), dtype=torch.float32, device=q.device)
+    plan = decode_plan(B, Hkv, R, S, q.dtype,
+                       _n_sm(dev.index if dev.index is not None
+                             else torch.cuda.current_device()))
+    f32 = torch.float32
+    acc = torch.empty((B, Hkv, R, D), dtype=f32, device=dev)
+    m = torch.empty((B, Hkv, R, 1), dtype=f32, device=dev)
+    l = torch.empty((B, Hkv, R, 1), dtype=f32, device=dev)
+    parts = (None, None, None)
+    if plan.n_splits > 1:
+        n = plan.n_splits
+        parts = (torch.empty((n, B, Hkv, R, D), dtype=f32, device=dev),
+                 torch.empty((n, B, Hkv, R), dtype=f32, device=dev),
+                 torch.empty((n, B, Hkv, R), dtype=f32, device=dev))
+    # block-table entries one block reads: those of its split's columns
+    max_pages = min(mb, -(-plan.split_cols // ps) + 1) if paged else 0
     quantized = k_scale is not None
     strides = []
     for t in (k, v, k_scale, v_scale):
@@ -190,15 +312,21 @@ def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
     err = _kernel_fn(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
         lengths.data_ptr(), ptr(block_tables), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, Hkv, R, D, S, int(quantized), ps, mb, c_strides,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        l.data_ptr(), *(ptr(t) for t in parts), B, Hkv, R, D, S,
+        int(quantized), ps, mb, plan.rows, plan.split_cols, plan.n_splits,
+        max_pages, c_strides, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_decode: CUDA launch failed with error {err}")
+        raise RuntimeError(f"flash_decode: CUDA launch ({plan.route} route) "
+                           f"failed with error {err}")
     flash_decode.launches += 1
+    flash_decode.launches_by_route[plan.route] += 1
+    if plan.n_splits > 1:
+        flash_decode.launches_by_route["merge"] += 1
     return acc, m, l
 
 
 flash_decode.launches = 0
+flash_decode.launches_by_route = {"single": 0, "split": 0, "merge": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,9 @@ prints the wall time per step (host clock around synchronised work, once
 without the profiler and once under it: the difference is the profiler's
 own cost on the host), the device time per step (sum of the CUDA
 kernels' own time), the device's idle share (1 - device / wall without
-the profiler), the kernel launches per step, and the kernels that take
-the most device time.  ``--cache-dtype``, ``--cache-layout`` and
+the profiler), the kernel launches per step, the kernels that take the
+most device time and every one of the port's own kernels, with their
+time per launch.  ``--cache-dtype``, ``--cache-layout`` and
 ``--page-size`` (the launcher's flags, names and defaults) trace the same
 steps on the int8 cache and on the paged pool.
 """
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import re
 import time
 
 import torch
@@ -34,6 +36,22 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import ar_step, build_engine
 from repro_torch.launch.serve import build_model, make_prompts
 from repro_torch.runtime import resolve_device
+
+
+def _port_kernels() -> set:
+    """Names of the kernels defined in the port's ``kernels/csrc/``."""
+    from repro_torch.kernels.build import CSRC
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\(.*?\)\s+)?"
+                     r"(\w+)\s*\(", re.S)
+    return {m[1] for f in CSRC.glob("*.cu*")
+            for m in pat.finditer(f.read_text())}
+
+
+def _kernel_name(key: str) -> str:
+    """The unqualified name in a profiler key such as
+    ``void (anonymous namespace)::decode_mma<...>(...)``."""
+    m = re.search(r"::(\w+)[<(]", key)
+    return m[1] if m else key
 
 
 def _device_us(evt) -> float:
@@ -53,9 +71,16 @@ def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
           f"under the profiler), device {dev_ms:.3f} ms/step, device idle "
           f"{1 - dev_ms / wall_ms:.3f}, {launches / steps:.0f} kernel "
           f"launches/step")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:top]:
+    ranked = sorted(kernels, key=_device_us, reverse=True)
+    own = _port_kernels()
+    # the top kernels, then the port's own below them, each with its time
+    # a launch
+    for e in ranked[:top] + [e for e in ranked[top:]
+                             if _kernel_name(e.key) in own]:
         print(f"  {_device_us(e) / 1e3 / steps:9.4f} ms/step "
-              f"{e.count / steps:6.0f}x  {e.key[:90]}")
+              f"{e.count / steps:6.0f}x "
+              f"{_device_us(e) / 1e3 / max(e.count, 1):8.4f} ms/launch  "
+              f"{e.key[:90]}")
 
 
 def main(argv=None):

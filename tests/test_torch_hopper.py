@@ -1,5 +1,6 @@
-"""The Hopper routes of K2 (``unembed_verify_stats``) and K3
-(``fused_qkv_rope_commit``): what can be held on the CPU.
+"""The Hopper routes of K1 (``flash_decode``), K2
+(``unembed_verify_stats``) and K3 (``fused_qkv_rope_commit``): what can be
+held on the CPU.
 
 * No kernel source reaches a library GEMM (cuBLAS, cuDNN, CUTLASS's
   device-level GEMMs), the build links no cuBLAS, and the CUDA paths of
@@ -10,6 +11,10 @@
 * The K2 partials' sizing: one per row and block on the wgmma route, one
   per row and 128-column tile on the tile route.
 * On CPU tensors neither wrapper counts a launch on any route.
+* K1's grid plan (``decode_plan``): rows a block, splits of whole 64-column
+  tiles, the partials' size, at the main path's shapes and at
+  ``tests/test_kernels.py::CASES``, from host-known ints only (never
+  ``lengths``).
 
 The kernels themselves run only on the card: the last tests hold them to
 their plain versions at the new edge shapes there and skip here.
@@ -49,7 +54,7 @@ def test_no_library_gemm_in_the_kernels():
 
 
 @pytest.mark.parametrize("fn", [CU.fused_qkv_rope_commit,
-                                TA.unembed_verify_stats])
+                                TA.unembed_verify_stats, TA.flash_decode])
 def test_wrappers_call_no_product_and_catch_nothing(fn):
     tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
     names = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
@@ -164,6 +169,74 @@ def test_no_route_counted_on_the_cpu():
     assert [f.launches_by_route for f in (TA.unembed_verify_stats,
                                           CU.fused_qkv_rope_commit)] == before
     assert set(before[0]) == set(before[1]) == {"wgmma", "tile"}
+
+
+# B, Hkv, R (folded), S, dtype -> (route, rows, split_cols, n_splits)
+PLAN_CASES = [
+    (4, 8, 256, 2048, BF16, ("single", 64, 2048, 1)),   # spec step, R 256
+    (4, 8, 8, 2048, BF16, ("split", 16, 64, 32)),       # AR step, R 8
+    (4, 8, 256, 512, F32, ("single", 32, 512, 1)),      # f32 spec step
+    (4, 8, 8, 512, F32, ("split", 8, 64, 8)),           # f32 AR step
+    (4, 8, 64, 2048, BF16, ("split", 64, 512, 4)),      # 32 blocks, L 8 R
+    (32, 8, 8, 2048, BF16, ("single", 16, 2048, 1)),    # 256 blocks fill it
+    (4, 8, 8, 32768, BF16, ("split", 16, 1024, 32)),    # at most 32 splits
+    (4, 8, 8, 100, BF16, ("split", 16, 64, 2)),         # S not whole tiles
+    # tests/test_kernels.py::CASES: (B, S, Hq, Hkv, D, tree) folded
+    (2, 2, 256, 1024, F32, ("single", 32, 1024, 1)),    # medusa, G 4
+    (1, 4, 8, 512, F32, ("split", 8, 64, 8)),           # chain, G 1
+    (3, 1, 512, 2048, BF16, ("single", 64, 2048, 1)),   # medusa, G 8
+    (2, 2, 24, 640, F32, ("split", 32, 192, 4)),        # chain, G 3
+    (1, 2, 8, 256, BF16, ("split", 16, 64, 4)),         # chain, D 256
+    (2, 8, 128, 512, F32, ("single", 32, 512, 1)),      # medusa, G 2
+]
+
+
+@pytest.mark.parametrize("B, Hkv, R, S, dtype, want", PLAN_CASES)
+def test_decode_plan(B, Hkv, R, S, dtype, want):
+    plan = TA.decode_plan(B, Hkv, R, S, dtype)
+    assert tuple(plan) == want
+    route, rows, split_cols, n = plan
+    assert split_cols % 64 == 0 and 1 <= n <= 32
+    assert (n - 1) * split_cols < max(S, 64) <= n * split_cols
+    assert (route == "single") == (n == 1)
+    if route == "split":
+        # the partials, written and read (8 R D bytes a split), stay within
+        # a quarter of the bf16 K/V a split streams (4 split_cols D bytes)
+        assert split_cols >= 8 * R
+        assert B * Hkv * -(-R // rows) < 132
+
+
+def test_decode_plan_sees_no_lengths():
+    """The plan takes host ints only, and the wrapper hands it none of
+    ``lengths``: choosing the grid needs no device sync."""
+    params = list(inspect.signature(TA.decode_plan).parameters)
+    assert params == ["B", "Hkv", "R", "S", "dtype", "n_sm"]
+    tree = ast.parse(textwrap.dedent(inspect.getsource(TA.flash_decode)))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == "decode_plan"]
+    assert len(calls) == 1
+    assert "lengths" not in {n.id for n in ast.walk(calls[0])
+                             if isinstance(n, ast.Name)}
+
+
+def test_decode_plan_partials_at_the_main_shapes():
+    """The split route's partials at the AR step: acc [32, 4, 8, 8, 128]
+    and m, l [32, 4, 8, 8] f32 (4.25 MB); the spec step has none."""
+    n = TA.decode_plan(4, 8, 8, 2048, BF16).n_splits
+    assert n * 4 * 8 * 8 * (128 + 2) * 4 == 4_259_840
+    assert TA.decode_plan(4, 8, 256, 2048, BF16).n_splits == 1
+    # a card with fewer SMs still keeps one split at R 256 (128 blocks)
+    assert TA.decode_plan(4, 8, 256, 2048, BF16, 114).route == "single"
+    assert TA.decode_plan(4, 8, 64, 2048, BF16, 16).route == "single"
+
+
+def test_no_k1_route_counted_on_the_cpu():
+    before = dict(TA.flash_decode.launches_by_route)
+    q = torch.zeros(1, 2, 8, 64)
+    k = torch.zeros(1, 128, 2, 64)
+    TA.flash_decode(q, k, k, torch.tensor([5], dtype=torch.int32))
+    assert TA.flash_decode.launches_by_route == before
+    assert set(before) == {"single", "split", "merge"}
 
 
 # ---------------------------------------------------------------------------

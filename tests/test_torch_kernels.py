@@ -6,8 +6,8 @@ against the reference wrapper and its oracle, over the reference kernel
 tests' shape sweep (``tests/test_kernels.py::CASES``).  Tolerances are
 that file's: 3e-5 for float32, 2e-2 for bfloat16 (bf16 rounds p and the
 outputs at other places in the two frameworks).  The CUDA kernel itself
-runs only on the card: ``test_cuda_kernel_matches_plain`` skips without
-one, and ``chip_smoke.py`` holds it to the same sweep."""
+runs only on the card: ``test_torch_cuda.py`` (which imports no JAX, so it
+runs there) and ``chip_smoke.py`` hold it to the same sweep."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +19,7 @@ from repro.kernels import ref as JR
 from repro.kernels.tree_attention import flash_decode as jax_flash_decode
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
-from repro_torch.kernels.tree_attention import flash_decode, flash_decode_plain
+from repro_torch.kernels.tree_attention import flash_decode
 
 # B, S, Hq, Hkv, D, tree, dtype — tests/test_kernels.py::CASES
 CASES = [
@@ -140,23 +140,3 @@ def test_length_zero_row_gives_empty_stats(rng):
     acc, m, l = flash_decode(q, k, k, torch.tensor([0, 9], dtype=torch.int32))
     assert (acc[0] == 0).all() and (l[0] == 0).all()
     assert (m[0] == -1e30).all() and (l[1] > 0).all()
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain(rng):
-    """The CUDA kernel against its plain version on the card, at the main
-    path's shape (needs a GPU and nvcc; skipped without them)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    for dt, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
-        q = torch.randn((4, 8, 256, 128), device="cuda", dtype=dt) / 128 ** 0.5
-        k = torch.randn((4, 2048, 8, 128), device="cuda", dtype=dt)
-        v = torch.randn((4, 2048, 8, 128), device="cuda", dtype=dt)
-        lengths = torch.tensor([1, 517, 1300, 2048], dtype=torch.int32,
-                               device="cuda")
-        before = flash_decode.launches
-        got = flash_decode(q, k, v, lengths)
-        assert flash_decode.launches == before + 1
-        ref = flash_decode_plain(q, k, v, lengths)
-        assert _stats_err([x.cpu() for x in got],
-                          [x.cpu().numpy() for x in ref]) < tol

@@ -28,9 +28,9 @@ The same numpy inputs go through both packages:
   the int8 paged cache.
 
 Tolerances are the reference kernel tests': 3e-5 for float32, 2e-2 for
-bfloat16.  The CUDA kernels run only on the card:
-``test_cuda_kernels_match_plain`` skips without one, and ``chip_smoke.py``
-holds them at full width."""
+bfloat16.  The CUDA kernels run only on the card: ``test_torch_cuda.py``
+(which imports no JAX, so it runs there) and ``chip_smoke.py`` hold them
+to their plain versions."""
 import dataclasses
 
 import jax
@@ -60,8 +60,7 @@ from repro_torch.kernels import ops as TO
 from repro_torch.kernels import paging as P
 from repro_torch.kernels import quant as Q
 from repro_torch.kernels import ref as TR
-from repro_torch.kernels.tree_attention import (flash_decode,
-                                                flash_decode_plain)
+from repro_torch.kernels.tree_attention import flash_decode
 from repro_torch.launch import serve
 from repro_torch.models import transformer as TT
 
@@ -540,51 +539,3 @@ def test_launcher_int8_paged_answers_every_request(capsys):
                        weights=(srv.params, srv.medusa_params))
     for a, b in zip(srv.results, dense.results):
         np.testing.assert_array_equal(a["output"], b["output"])
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain(rng):
-    """K1 int8 / paged / int8 + paged, K3 paged, K4 and K5 against their
-    plain versions on the card, f32 (needs a GPU and nvcc; skipped
-    without them)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    dev = "cuda"
-    Bc, S, Hkv, D, ps = 2, 256, 2, 64, 16
-    q = torch.randn((Bc, Hkv, 16, D), device=dev) / D ** 0.5
-    kd = torch.randn((Bc, S, Hkv, D), device=dev)
-    table = _t(_shuffled_table(rng, Bc, S // ps)).to(dev)
-    lengths = torch.tensor([0, 200], dtype=torch.int32, device=dev)
-    table[0] = 0
-    pool = torch.randn((1 + Bc * S // ps, ps, Hkv, D), device=dev)
-    k8, ks = (torch.randint(-127, 128, kd.shape, dtype=torch.int8,
-                            device=dev), torch.rand(kd.shape[:-1] + (1,),
-                                                    device=dev))
-    p8, psc = (torch.randint(-127, 128, pool.shape, dtype=torch.int8,
-                             device=dev), torch.rand(pool.shape[:-1] + (1,),
-                                                     device=dev))
-    for args, kw in (((q, k8, k8, lengths), dict(k_scale=ks, v_scale=ks)),
-                     ((q, pool, pool, lengths), dict(block_tables=table)),
-                     ((q, p8, p8, lengths), dict(k_scale=psc, v_scale=psc,
-                                                 block_tables=table))):
-        before = flash_decode.launches
-        got = flash_decode(*args, **kw)
-        assert flash_decode.launches == before + 1
-        ref = flash_decode_plain(*args, **kw)
-        for g, r in zip(got, ref):
-            assert (g - r).abs().max().item() < 3e-5
-    rows = torch.randn((Bc, 5, Hkv, D), device=dev)
-    starts = torch.tensor([S - 2, 7], dtype=torch.int32, device=dev)
-    for fn, plain, cache in (
-            (CU.commit_rows_stacked, CU.commit_rows_stacked_plain,
-             torch.randn((1, Bc, S, Hkv, D), device=dev)),
-            (CU.commit_rows_paged_stacked, CU.commit_rows_paged_stacked_plain,
-             pool[None])):
-        extra = (table,) if fn is CU.commit_rows_paged_stacked else ()
-        a, b = cache.clone(), cache.clone()
-        before = fn.launches
-        fn(a, *extra, rows[None], starts)
-        assert fn.launches == before + 1
-        plain(b, *extra, rows[None], starts)
-        assert (torch.equal(a[:, 1:], b[:, 1:]) if extra
-                else torch.equal(a, b))
