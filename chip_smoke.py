@@ -44,16 +44,21 @@ non-zero exit:
 4. float32 openPangu-7B at full width, 2 layers: speculative ``generate``
    == ``ar_generate`` token for token, dense, with verify fusion, paged,
    paged with verify fusion, int8, int8 paged and int8 with verify fusion
-   (K2 on the unfused int8 write side, no K3); the fp variants all give
-   the dense tokens and the int8 variants the int8 ones; every run
-   launches K1-K5 exactly as ``expected_counts`` says, and K1 takes the
-   routes ``decode_plan`` gives the spec step (R 256: "single") and the
-   AR step (R 8: "split", with a merge launch each);
+   (K2 on the unfused int8 write side, no K3), each through the captured
+   steps (CUDA graphs, the default), again on the engine's reused cache
+   (every step replayed, no new capture) and through the eager steps
+   (``graphs=False``): graph tokens == eager tokens == AR tokens; the fp
+   variants all give the dense tokens and the int8 variants the int8
+   ones; every run launches K1-K5 exactly as ``expected_counts`` says,
+   and K1 takes the routes ``decode_plan`` gives the spec step (R 256:
+   "single") and the AR step (R 8: "split", with a merge launch each);
 5. the launcher (``repro_torch.launch.serve.main``) serves 8 requests on
-   bf16 openPangu-7B at full width and depth; every request must finish,
-   the kernels launch exactly as expected (K1 per layer and step, on its
-   "single" route in phases 5-7, K4 per cache leaf and step), and each
-   answer matches ``ar_generate`` up to its
+   bf16 openPangu-7B at full width and depth through the captured step
+   (one eager warm-up step, then replays of one graph for both groups,
+   the capture's seconds logged); every request must finish, the kernels
+   launch exactly as expected (K1 per layer and step, on its "single"
+   route in phases 5-7, K4 per cache leaf and step), and each answer
+   matches ``ar_generate`` (its step captured too) up to its
    first divergence, where AR's logit for the token the speculative path
    emitted must lie within ``MARGIN_BOUND`` of AR's top logit;
 6. the launcher with ``--verify-fusion`` answers the same 8 requests on
@@ -62,7 +67,12 @@ non-zero exit:
    prints how many answers are token-identical to phase 5's and the
    tokens/s of both; every K2 and K3 launch must take the ``wgmma`` route,
    and the tensor maps encoded for weights over the run must be at most
-   one per weight tensor (3 per layer for K3, 1 for K2);
+   one per weight tensor (3 per layer for K3, 1 for K2); then (6b) the
+   same configuration once more through the eager step (``graphs=False``,
+   launches exact), logging the tokens/s of graph and eager, how many of
+   the 8 answers are token-identical (expected 8), the capture's
+   seconds, wall against device ms per step of the captured fused step,
+   and the peak memory with the graph pools;
 7. the same weights under the other cache layouts: (a) ``--cache-layout
    paged --verify-fusion`` (K1-paged, K3-paged, K2, K5) must give all 8
    answers of phase 6 token for token, every K2 and K3 launch on the
@@ -82,9 +92,10 @@ non-zero exit:
    the kernel's time, CUDA events around launches queued behind a spin
    kernel so the card runs them back to back (the unqueued reading
    logged beside it); for K4 and K5 the kernels' device time from
-   ``torch.profiler``.  K1's rows carry the AR step's (R 8) numbers
-   beside the spec step's, K3's the AR step's (T 1); K1's, K2's and K3's
-   rows carry the wrapper's host ms per call.
+   ``torch.profiler``, beside an empty kernel's (``torch.cuda._sleep(0)``:
+   a launch's fixed device cost).  K1's rows carry the AR step's (R 8)
+   numbers beside the spec step's, K3's the AR step's (T 1); K1's, K2's
+   and K3's rows carry the wrapper's host ms per call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -888,9 +899,18 @@ def expected_counts(cfg, steps: int, ar_steps: int = 0):
             "K5": commits if cfg.paged else 0}
 
 
+def kept_graphs(eng):
+    """[(label, StepGraph)] of the step graphs ``eng`` keeps."""
+    from repro_torch.core.engine import SpecCarry
+    return [("spec" if isinstance(c, SpecCarry) else "AR", g)
+            for g, c in eng.step_graphs.kept()]
+
+
 def phase_f32(dev):
-    """Float32 openPangu-7B at full width, 2 layers: spec == AR token for
-    token on every cache layout, with exact launch counts."""
+    """Float32 openPangu-7B at full width, 2 layers, on every cache layout:
+    spec == AR token for token through the captured steps, a second run on
+    the reused cache replays them without a new capture, and the eager
+    steps give the same tokens; launch counts exact on every run."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import ar_generate, build_engine
     from repro_torch.launch.serve import build_model, make_prompts
@@ -905,32 +925,61 @@ def phase_f32(dev):
     plen = torch.from_numpy(plen).to(dev)
     max_new, max_len = 32, 512
 
-    def run(label, verify_fusion=False, **layout):
-        cfg = dataclasses.replace(base, **layout)
-        eng = build_engine(cfg, "medusa", use_kernel=True, device=dev,
-                           verify_fusion=verify_fusion)
+    def counted_run(label, eng):
+        """spec and AR on ``eng``'s cache (its graphs, or eager), the
+        counts set to 0 just before and checked just after."""
         reset_counts()
         sp, _, st = eng.generate(params, mp, tok, plen,
                                  eng.init_cache(4, max_len), max_new)
         ar, _ = ar_generate(eng.cfg, params, tok, plen,
                             eng.init_cache(4, max_len), max_new,
-                            use_kernel=True)
+                            use_kernel=True, graphs=eng.step_graphs)
         counts = read_counts()
-        sp, ar = sp.cpu(), ar.cpu()
-        if not torch.equal(sp, ar):
-            fail(f"float32 {label}: spec != AR:\nspec {sp.tolist()}\n"
-                 f"AR   {ar.tolist()}")
         want = expected_counts(eng.cfg, st.steps, max_new)
-        mean_acc = st.accepted_sum.item() / (st.steps * 4)
-        log(f"  f32 full width, 2 layers, {label}: spec == AR for 4 x "
-            f"{max_new} tokens; {st.steps} spec steps (mean accepted "
-            f"{mean_acc:.3f}), {max_new} AR steps; launches {counts}")
         if counts != want:
             fail(f"f32 {label}: launches {counts}, expected {want}")
-        ps = cfg.page_size if cfg.paged else 1
+        ps = eng.cfg.page_size if eng.cfg.paged else 1
         check_routes(f"f32 {label}", None,
                      k1_routes(eng.cfg, 4, -(-max_len // ps) * ps, st.steps,
                                max_new, T=eng.tb.T))
+        return sp.cpu(), ar.cpu(), st, counts
+
+    def run(label, verify_fusion=False, **layout):
+        cfg = dataclasses.replace(base, **layout)
+        eng, eager = (build_engine(cfg, "medusa", use_kernel=True, device=dev,
+                                   verify_fusion=verify_fusion, graphs=g)
+                      for g in (True, False))
+        sp, ar, st, counts = counted_run(label, eng)
+        if not torch.equal(sp, ar):
+            fail(f"float32 {label}: spec != AR:\nspec {sp.tolist()}\n"
+                 f"AR   {ar.tolist()}")
+        graphs = kept_graphs(eng)
+        if sorted(k for k, g in graphs if g.graph is not None) != ["AR",
+                                                                   "spec"]:
+            fail(f"f32 {label}: captured {[k for k, _ in graphs]}, expected "
+                 f"one spec and one AR graph")
+        replays = {k: g.replays for k, g in graphs}
+        sp2, ar2, st2, _ = counted_run(label + " (second run)", eng)
+        again = {k: g.replays - replays[k] for k, g in kept_graphs(eng)}
+        if again != {"spec": st2.steps, "AR": max_new} \
+                or len(kept_graphs(eng)) != 2:
+            fail(f"f32 {label}: the second run on the reused cache replayed "
+                 f"{again}, expected {st2.steps} spec and {max_new} AR "
+                 f"replays and no new capture")
+        spe, are, _, _ = counted_run(label + " (eager)", eager)
+        for what, out in (("second run", sp2), ("second run AR", ar2),
+                          ("eager", spe), ("eager AR", are)):
+            if not torch.equal(out, sp):
+                fail(f"float32 {label}: graph spec != {what}:\n"
+                     f"{sp.tolist()}\n{out.tolist()}")
+        mean_acc = st.accepted_sum.item() / (st.steps * 4)
+        capture_s = eng.step_graphs.capture_s
+        log(f"  f32 full width, 2 layers, {label}: graph spec == graph AR == "
+            f"eager spec == eager AR for 4 x {max_new} tokens; {st.steps} "
+            f"spec steps (mean accepted {mean_acc:.3f}), {max_new} AR steps; "
+            f"launches {counts} (exact on the graph runs and the eager run); "
+            f"a second run on the reused cache replayed {again} with no new "
+            f"capture; capture {capture_s:.3f}s")
         return sp
 
     sp = run("dense")
@@ -985,13 +1034,22 @@ def check_served(srv, counts):
     mean_acc = (sum(r["accepted"] for r in res)
                 / sum(r["steps"] for r in res))
     want = expected_counts(srv.cfg, steps)
+    graphs = kept_graphs(srv.engine)
+    replays = sum(g.replays for _, g in graphs)
     log(f"  served {REQUESTS} requests: {srv.tokens} tokens in "
-        f"{srv.seconds:.3f}s = {srv.tokens / srv.seconds:.1f} tok/s; "
-        f"{steps} decode steps; mean accepted length {mean_acc:.3f} "
-        f"tokens per step (1 = no draft token accepted); launches {counts} "
-        f"(expected {want})")
+        f"{srv.seconds:.3f}s = {srv.tokens / srv.seconds:.1f} tok/s "
+        f"({srv.capture_s:.3f}s of it capturing the step graph); {steps} "
+        f"decode steps, {replays} of them graph replays; mean accepted "
+        f"length {mean_acc:.3f} tokens per step (1 = no draft token "
+        f"accepted); launches {counts} (expected {want}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if counts != want:
         fail(f"kernel launches on the path {counts}, expected {want}")
+    if [k for k, g in graphs if g.graph is not None] != ["spec"] \
+            or replays != steps - 1:
+        fail(f"the launcher's steps were not replayed from one captured "
+             f"graph: {[(k, g.replays) for k, g in graphs]} for {steps} "
+             f"steps (one eager warm-up step, then replays)")
 
 
 def check_against_ar(srv, dev):
@@ -1107,6 +1165,67 @@ def phase_serve_fused(dev, srv):
         f" fused, {srv.tokens / srv.seconds:.1f} unfused")
     check_against_ar(fsrv, dev)
     return fsrv, counts
+
+
+def step_times(eng, steps: int = 10):
+    """(wall ms, device ms) per step of the captured spec step ``eng``
+    keeps, replayed ``steps`` times from where its last run stopped, each
+    replay followed by the loop's exit test (a host read) as in
+    ``generate``: wall from the host clock, device from the kernels' own
+    time under ``torch.profiler``."""
+    graph, c = eng.step_graphs.kept()[0]
+
+    def step_and_exit_test():
+        graph()
+        bool(torch.any(c.n_out < 0))
+
+    step_and_exit_test()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step_and_exit_test()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    return wall, device_ms(step_and_exit_test, steps, warmup=1)
+
+
+def phase_serve_eager(dev, fsrv):
+    """The phase 6 configuration served once more on the same weights
+    with the eager step (``graphs=False``): its launches exact, and its
+    answers, tokens/s and step times logged beside the graph's."""
+    from repro_torch.core.engine import build_engine
+    from repro_torch.launch.serve import serve_static
+
+    eng = build_engine(fsrv.cfg, "medusa", use_kernel=True, device=dev,
+                       graphs=False)
+    reset_counts()
+    results, seconds, tokens, _ = serve_static(
+        eng, fsrv.params, fsrv.medusa_params, fsrv.prompts, SLOTS, MAX_NEW,
+        MAX_LEN)
+    counts = read_counts()
+    steps = sum(results[g]["steps"] for g in range(0, REQUESTS, SLOTS))
+    want = expected_counts(fsrv.cfg, steps)
+    if counts != want:
+        fail(f"eager fused launcher: launches {counts}, expected {want}")
+    same = [np.array_equal(a["output"], b["output"])
+            for a, b in zip(results, fsrv.results)]
+    log(f"  eager step: {tokens} tokens in {seconds:.3f}s = "
+        f"{tokens / seconds:.1f} tok/s; graph (phase 6): "
+        f"{fsrv.tokens / fsrv.seconds:.1f} tok/s, "
+        f"{fsrv.tokens / (fsrv.seconds - fsrv.capture_s):.1f} tok/s without "
+        f"its {fsrv.capture_s:.3f}s of capture; launches {counts} (exact)")
+    log(f"  {sum(same)} of {REQUESTS} answers token-identical to the graph's "
+        f"(expected {REQUESTS} of {REQUESTS})")
+    for i, ok in enumerate(same):
+        if not ok:
+            at = int(np.nonzero(results[i]["output"]
+                                != fsrv.results[i]["output"])[0][0])
+            log(f"  req {i}: eager differs from the graph from token {at}")
+    wall, dev_ms = step_times(fsrv.engine)
+    log(f"  captured fused step, replayed: wall {wall:.3f} ms/step, device "
+        f"{dev_ms:.3f} ms/step (idle {1 - dev_ms / wall:.3f}); peak memory "
+        f"with the graph pools {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
 
 
 def phase_serve_layouts(dev, srv, fsrv):
@@ -1458,22 +1577,24 @@ def time_commit(dev, launches, paged, ps=64):
     ms = device_ms(lambda: uncounted(fn, cache, *extra, rows, lengths), 50)
     plain_ms = device_ms(lambda: plain(cache, *extra, rows, lengths), 50)
     lib_ms = device_ms(lib, 50)
+    empty_ms = device_ms(lambda: torch.cuda._sleep(0), 50)
     nbytes = 2 * rows.numel() * 2 + B * 4 + (B * 2 * 4 if paged else 0)
     b_ms, b_by = bound(nbytes, 0)
     name = "commit_rows_paged" if paged else "commit_rows"
     log(f"  {name} (via {fn.__name__}: nu={nu} B={B} K1={K1} rows [{H}, {D}] "
         f"bf16{f', page size {ps}' if paged else ''}), device time per call: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_put_ of the same "
-        f"rows {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} "
-        f"bytes); back to back on CUDA events the kernel's wrapper issues "
-        f"one call per {issue_ms:.4f} ms")
+        f"rows {lib_ms:.4f} ms, an empty kernel {empty_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}: {nbytes} bytes); back to back on CUDA "
+        f"events the kernel's wrapper issues one call per {issue_ms:.4f} "
+        f"ms")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/commit_rows.cu",
             "replaces": ("src/repro/kernels/cache_update.py:86" if paged else
                          "src/repro/kernels/cache_update.py:32"),
             "launches": launches, "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "empty_kernel_ms": empty_ms}
 
 
 def main() -> int:
@@ -1520,11 +1641,16 @@ def main() -> int:
     phase_f32(dev)
     torch.cuda.empty_cache()
 
-    log("phase 5: the launcher on bf16 openPangu-7B, full width and depth")
+    log("phase 5: the launcher on bf16 openPangu-7B, full width and depth, "
+        "through the captured step")
+    torch.cuda.reset_peak_memory_stats()
     srv, _ = phase_serve(dev)
 
     log("phase 6: the launcher with --verify-fusion on the same weights")
     fsrv, fused = phase_serve_fused(dev, srv)
+    log("phase 6b: the same configuration through the eager step "
+        "(graphs=False)")
+    phase_serve_eager(dev, fsrv)
 
     log("phase 7: the launcher on the same weights under the paged and int8 "
         "cache layouts")

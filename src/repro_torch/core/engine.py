@@ -4,19 +4,24 @@ of ``repro.core.engine``, greedy acceptance).
 ``SpecEngine`` runs the paper's static speculation step: candidates from
 the proposer -> one backbone verification forward -> tensorized greedy
 acceptance -> zero-copy commit.  Where the reference runs the generation
-loop as one ``lax.while_loop``, this engine runs a host Python loop over
-one fixed-shape step; the only device->host read per step is the loop's
-exit test.
+loop as one compiled ``lax.while_loop``, this engine keeps the loop's
+carry in static buffers (``SpecCarry``) and runs the loop body as one
+CUDA graph on the card (``runtime.StepGraph``): captured once per step
+shape and replayed every step.  The host's only work per step is the
+replay and the loop's exit test, its one device->host read.  Prefill runs
+eagerly.  On the CPU, or with ``graphs=False``, the same body runs
+eagerly.
 
 ``ar_generate`` is the greedy autoregressive baseline on the same cache
-machinery (T=1 decode): the losslessness oracle (greedy spec == greedy AR,
-token for token).  Given a config with ``verify_fusion`` and
-``use_kernel``, its decode steps take the fused write side too.
+machinery (T=1 decode), its step captured the same way: the losslessness
+oracle (greedy spec == greedy AR, token for token).  Given a config with
+``verify_fusion`` and ``use_kernel``, its decode steps take the fused
+write side too.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -25,10 +30,12 @@ from repro_torch.core import verify as V
 from repro_torch.core.proposers import MedusaProposer, Proposer
 from repro_torch.core.tree import TreeBuffers
 from repro_torch.kernels import ops as KO
+from repro_torch.kernels import paging as P
 from repro_torch.models import api as model_api
 from repro_torch.models.api import get_model
 from repro_torch.models.transformer import PAGES_KEY
-from repro_torch.runtime import resolve_device
+from repro_torch.runtime import (StepGraphs, binding, resolve_device,
+                                 torch_dtype)
 
 
 class StepStats(NamedTuple):
@@ -40,6 +47,31 @@ class StepStats(NamedTuple):
                                  # accepted_sum / (steps * B) is the
                                  # unbiased mean accepted length
     accepted_per_slot: torch.Tensor  # [B] the same clamped acc, per row
+
+
+@dataclasses.dataclass
+class SpecCarry:
+    """The speculative loop's carry (the reference's ``while_loop``
+    carry) in static buffers: the step reads and writes them in place, so
+    a captured step replays on them.  ``cache`` holds the caller's cache
+    tensors, written in place by every step."""
+    cache: dict
+    lengths: torch.Tensor        # [B] int32 committed rows
+    base: torch.Tensor           # [B] int32 the next certain token
+    state: dict                  # the proposer's state
+    out: torch.Tensor            # [B, max_new + K + 2] int32
+    n_out: torch.Tensor          # [B] int32 tokens written so far
+    acc_sum: torch.Tensor        # () int64, as StepStats.accepted_sum
+    acc_slot: torch.Tensor       # [B] int32, as StepStats.accepted_per_slot
+
+    def load(self, lengths, base, state):
+        """Start a loop from a prefill's (lengths, base, state)."""
+        self.lengths.copy_(lengths)
+        self.base.copy_(base)
+        for k, t in state.items():
+            self.state[k].copy_(t)
+        for t in (self.out, self.n_out, self.acc_sum, self.acc_slot):
+            t.zero_()
 
 
 class SpecEngine:
@@ -54,13 +86,17 @@ class SpecEngine:
     from the ``unembed_verify_stats`` kernel's statistics instead of the
     [B, T, V] logits, and with ``use_kernel`` also runs each layer's write
     side as one ``fused_qkv_rope_commit`` launch.  ``device`` defaults to
-    the card and raises if there is none.
+    the card and raises if there is none.  ``graphs`` (default True)
+    replays ``generate``'s step as a CUDA graph on the card; False runs
+    the same step eagerly (to compare the two).  The engine keeps its
+    graphs, one per step shape, in ``step_graphs``, and drops them with
+    itself.
     """
 
     def __init__(self, cfg: ModelConfig, tb: Optional[TreeBuffers] = None,
                  use_kernel: bool = False,
                  proposer: Optional[Proposer] = None, device="cuda",
-                 verify_fusion: Optional[bool] = None):
+                 verify_fusion: Optional[bool] = None, graphs: bool = True):
         if proposer is not None and tb is not None:
             raise ValueError("pass either tb (Medusa tree) or proposer, "
                              "not both")
@@ -81,12 +117,27 @@ class SpecEngine:
                              "single-path candidates; pass a chain_tree()")
         self.dtree = self.proposer.dtree
         self.use_kernel = use_kernel
+        self.step_graphs = StepGraphs(self.device, capture=graphs)
+        self._caches = {}
 
     def init_cache(self, batch: int, max_len: int):
         """Decode cache for ``batch`` slots on the engine's device in the
-        config's cache dtype and layout (paged: the identity table)."""
-        return model_api.init_cache(self.cfg, batch, max_len,
-                                    device=self.device)
+        config's cache dtype and layout (paged: the identity table).  The
+        engine keeps one cache per (batch, max_len): a later call zeroes
+        that cache in place and returns it again, so a graph captured on
+        it replays for every group of requests."""
+        cache = self._caches.get((batch, max_len))
+        if cache is None:
+            cache = self._caches[batch, max_len] = model_api.init_cache(
+                self.cfg, batch, max_len, device=self.device)
+            return cache
+        for pos, entry in cache.items():
+            for t in entry.values():
+                if pos == PAGES_KEY:
+                    t.copy_(P.identity_table(*t.shape, device=t.device))
+                else:
+                    t.zero_()
+        return cache
 
     def init_proposer_state(self, batch: int, capacity: int):
         return self.proposer.init_state(batch, capacity)
@@ -138,6 +189,55 @@ class SpecEngine:
                                                cand, tmax))
         return V.greedy_verify_stats(cand, stats, self.dtree)
 
+    # -- the loop -----------------------------------------------------------
+
+    def loop_step(self, params, proposer_params, cache, state, max_new: int):
+        """-> (StepGraph, SpecCarry): ``generate``'s loop body on a static
+        carry over ``cache``, one step a call.  Kept in ``step_graphs``
+        under (batch, max_new, the state's shapes) while ``cache`` and the
+        weights are the same tensors, and built anew (recaptured) when
+        they are not.  ``state`` gives the proposer state's shapes."""
+        B = _cache_batch(cache)
+        key = ("spec", B, max_new,
+               tuple((k, tuple(t.shape), t.dtype)
+                     for k, t in sorted(state.items())))
+
+        def make():
+            dev = self.device
+            i32 = torch.int32
+            c = SpecCarry(
+                cache=cache, lengths=torch.zeros((B,), dtype=i32, device=dev),
+                base=torch.zeros((B,), dtype=i32, device=dev),
+                state={k: torch.empty_like(t) for k, t in state.items()},
+                out=torch.zeros((B, max_new + self.dtree.K + 2), dtype=i32,
+                                device=dev),
+                n_out=torch.zeros((B,), dtype=i32, device=dev),
+                acc_sum=torch.zeros((), dtype=torch.int64, device=dev),
+                acc_slot=torch.zeros((B,), dtype=i32, device=dev))
+            return self.step_graphs.graph(
+                lambda: self._carry_step(params, proposer_params, c,
+                                         max_new)), c
+
+        return self.step_graphs.get(
+            key, binding(params, proposer_params, cache), make)
+
+    def _carry_step(self, params, proposer_params, c: SpecCarry,
+                    max_new: int):
+        """One step of the loop on the static carry, in place (the body of
+        the reference's ``while_loop``)."""
+        _, lengths, verdict, state = self.spec_step(
+            params, proposer_params, c.cache, c.lengths, c.base, c.state)
+        _write_out(c, verdict.path_tokens)
+        acc_row = torch.minimum(verdict.acc,
+                                torch.clamp(max_new - c.n_out, min=0))
+        c.acc_sum.add_(acc_row.sum())
+        c.acc_slot.add_(acc_row)
+        c.n_out.add_(verdict.acc)
+        c.lengths.copy_(lengths)
+        c.base.copy_(verdict.next_token)
+        for k, t in state.items():
+            c.state[k].copy_(t)
+
     def generate(self, params, proposer_params, tokens, prompt_lengths, cache,
                  max_new: int, state=None):
         """Full speculative generation loop.
@@ -148,50 +248,51 @@ class SpecEngine:
         lengths, StepStats)."""
         dt = self.dtree
         B, Sp = tokens.shape
-        K1 = dt.K + 1
-        buf_len = max_new + K1 + 1
-        dev = tokens.device
         if state is None:
             state = self.init_proposer_state(B, Sp + max_new + dt.T + 2)
         cache, lengths, base, state = self.prefill(
             params, proposer_params, tokens, prompt_lengths, cache,
             state=state)
-        out = torch.zeros((B, buf_len), dtype=torch.int32, device=dev)
-        rows = torch.arange(B, device=dev)[:, None]
-        cols = torch.arange(K1, device=dev)[None, :]
-
-        def write_out(toks, n_out):
-            start = torch.clamp(n_out, max=buf_len - K1).long()[:, None]
-            out[rows, start + cols] = toks.to(torch.int32)
-
-        n_out = torch.zeros((B,), dtype=torch.int32, device=dev)
-        acc_sum = torch.zeros((), dtype=torch.int64, device=dev)
-        acc_slot = torch.zeros((B,), dtype=torch.int32, device=dev)
+        step, c = self.loop_step(params, proposer_params, cache, state,
+                                 max_new)
+        c.load(lengths, base, state)
         steps = 0
-        # host-driven loop (max_new bounds it: every step commits >= 1
-        # token per row); the exit test is the one host read per step
-        while steps < max_new and bool(torch.any(n_out < max_new)):  # speclint: disable=trace-safety
-            cache, lengths, verdict, state = self.spec_step(
-                params, proposer_params, cache, lengths, base, state)
-            write_out(verdict.path_tokens, n_out)
-            acc_row = torch.minimum(verdict.acc,
-                                    torch.clamp(max_new - n_out, min=0))
-            acc_sum += acc_row.sum()
-            acc_slot += acc_row
-            n_out = n_out + verdict.acc
-            base = verdict.next_token
+        # max_new bounds the loop (every step commits >= 1 token per row);
+        # the exit test is the one host read per step
+        while steps < max_new and bool(torch.any(c.n_out < max_new)):  # speclint: disable=trace-safety
+            step()
             steps += 1
         # final certain token
-        write_out(base[:, None].expand(B, K1), n_out)
-        n_out = n_out + 1
-        stats = StepStats(tokens_out=n_out, steps=steps, accepted_sum=acc_sum,
-                          accepted_per_slot=acc_slot)
-        return out[:, :max_new], torch.clamp(n_out, max=max_new), stats
+        _write_out(c, c.base[:, None].expand(B, dt.K + 1))
+        n_out = c.n_out + 1
+        stats = StepStats(tokens_out=n_out, steps=steps,
+                          accepted_sum=c.acc_sum.clone(),
+                          accepted_per_slot=c.acc_slot.clone())
+        return c.out[:, :max_new].clone(), torch.clamp(n_out, max=max_new), \
+            stats
+
+
+def _write_out(c: SpecCarry, toks):
+    """c.out[b, n_out[b] + j] = toks[b, j] for the K + 1 columns of
+    ``toks``, the start clamped so the row stays inside ``out``."""
+    B, K1 = toks.shape
+    dev = toks.device
+    start = torch.clamp(c.n_out, max=c.out.shape[1] - K1).long()[:, None]
+    rows = torch.arange(B, device=dev)[:, None]
+    c.out[rows, start + torch.arange(K1, device=dev)] = toks.to(torch.int32)
+
+
+def _cache_batch(cache) -> int:
+    """Slots of a cache: the table's rows (paged) or the B axis (dense)."""
+    if PAGES_KEY in cache:
+        return cache[PAGES_KEY]["table"].shape[0]
+    return cache["pos0"]["k"].shape[1]
 
 
 def build_engine(cfg: ModelConfig, proposer: str = "medusa", *,
                  use_kernel: bool = False, device="cuda",
-                 verify_fusion: Optional[bool] = None) -> SpecEngine:
+                 verify_fusion: Optional[bool] = None,
+                 graphs: bool = True) -> SpecEngine:
     """Engine construction shared by the launcher and the tests.  The
     port carries the Medusa proposer only."""
     if proposer != "medusa":
@@ -201,7 +302,7 @@ def build_engine(cfg: ModelConfig, proposer: str = "medusa", *,
     dev = resolve_device(device)
     return SpecEngine(cfg, use_kernel=use_kernel,
                       proposer=MedusaProposer(cfg, dev), device=dev,
-                      verify_fusion=verify_fusion)
+                      verify_fusion=verify_fusion, graphs=graphs)
 
 
 def ar_step(cfg: ModelConfig, params, cache, tok, lengths,
@@ -220,31 +321,90 @@ def ar_step(cfg: ModelConfig, params, cache, tok, lengths,
             _squeeze_spec(spec_cache), lengths + 1)
 
 
+@dataclasses.dataclass
+class ARCarry:
+    """The AR loop's carry (the reference's ``fori_loop`` carry) in static
+    buffers, with the loop index on the device so the captured step
+    writes ``out[:, i]`` at the step's own index."""
+    cache: dict
+    lengths: torch.Tensor        # [B] int32
+    tok: torch.Tensor            # [B] int32 the token this step writes
+    logits: torch.Tensor         # [B, V] whose argmax is ``tok``
+    out: torch.Tensor            # [B, max_new] int32
+    i: torch.Tensor              # [1] int64 the step's output column
+
+    def load(self, lengths, logits):
+        """Start a loop from a prefill's lengths and last logits."""
+        self.lengths.copy_(lengths)
+        self.logits.copy_(logits)
+        self.tok.copy_(torch.argmax(logits, dim=-1).to(torch.int32))
+        self.out.zero_()
+        self.i.zero_()
+
+
+def ar_loop_step(cfg: ModelConfig, params, cache, max_new: int,
+                 use_kernel: bool, graphs: StepGraphs):
+    """-> (StepGraph, ARCarry): ``ar_generate``'s loop body on a static
+    carry over ``cache``, kept in ``graphs`` as ``SpecEngine.loop_step``
+    keeps the speculative one."""
+    B = _cache_batch(cache)
+    key = ("ar", cfg, B, max_new, use_kernel)
+
+    def make():
+        dev = graphs.device
+        c = ARCarry(
+            cache=cache, lengths=torch.zeros((B,), dtype=torch.int32,
+                                             device=dev),
+            tok=torch.zeros((B,), dtype=torch.int32, device=dev),
+            logits=torch.zeros((B, cfg.vocab_size),
+                               dtype=torch_dtype(cfg.dtype), device=dev),
+            out=torch.zeros((B, max_new), dtype=torch.int32, device=dev),
+            i=torch.zeros((1,), dtype=torch.int64, device=dev))
+        return graphs.graph(lambda: _ar_carry_step(cfg, params, c,
+                                                   use_kernel)), c
+
+    return graphs.get(key, binding(params, cache), make)
+
+
+def _ar_carry_step(cfg, params, c: ARCarry, use_kernel):
+    """One AR step on the static carry, in place (the reference's
+    ``fori_loop`` body)."""
+    c.out.index_copy_(1, c.i, c.tok[:, None])              # out[:, i] = tok
+    logits, _, lengths = ar_step(cfg, params, c.cache, c.tok, c.lengths,
+                                 use_kernel)
+    c.i.add_(1)
+    c.lengths.copy_(lengths)
+    c.logits.copy_(logits)
+    c.tok.copy_(torch.argmax(logits, dim=-1).to(torch.int32))
+
+
 def ar_generate(cfg: ModelConfig, params, tokens, prompt_lengths, cache,
-                max_new: int, use_kernel: bool = False, observe=None):
+                max_new: int, use_kernel: bool = False, observe=None,
+                graphs: Union[bool, StepGraphs] = True):
     """Greedy autoregressive baseline on the same cache machinery (T=1).
 
     tokens [B, S_p] int32, prompt_lengths [B] int32, cache from
     ``init_cache``.  ``use_kernel`` routes decode attention through the
     ``flash_decode`` kernel as the speculative engine does.  ``observe``,
-    if given, is called as ``observe(i, logits)`` with the [B, V] logits
-    whose argmax is output token ``i`` (``chip_smoke.py`` reads the
-    near-tie margins there).  Returns (out [B, max_new] int32, lengths [B]
+    if given, is called as ``observe(i, logits)`` with a copy of the
+    [B, V] logits whose argmax is output token ``i`` (``chip_smoke.py``
+    reads the near-tie margins there).  ``graphs``: True replays the step
+    as a CUDA graph on the card, captured for this call; False runs it
+    eagerly; a ``StepGraphs`` (an engine's ``step_graphs``) keeps the
+    graph across calls.  Returns (out [B, max_new] int32, lengths [B]
     final cache lengths)."""
     model = get_model(cfg)
-    B = tokens.shape[0]
     last_hidden, cache = model.prefill(params, cfg, tokens, prompt_lengths,
                                        cache)
-    logits = model.unembed(params, cfg, last_hidden)
-    out = torch.zeros((B, max_new), dtype=torch.int32, device=tokens.device)
-    lengths = prompt_lengths
+    if not isinstance(graphs, StepGraphs):
+        graphs = StepGraphs(tokens.device, capture=graphs)
+    step, c = ar_loop_step(cfg, params, cache, max_new, use_kernel, graphs)
+    c.load(prompt_lengths, model.unembed(params, cfg, last_hidden))
     for i in range(max_new):
         if observe is not None:
-            observe(i, logits)
-        out[:, i] = torch.argmax(logits, dim=-1).to(torch.int32)
-        logits, cache, lengths = ar_step(cfg, params, cache, out[:, i],
-                                         lengths, use_kernel)
-    return out, lengths
+            observe(i, c.logits.clone())
+        step()
+    return c.out.clone(), c.lengths.clone()
 
 
 def _squeeze_spec(spec_cache):

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.kernels import paging as P
 from repro_torch.models import layers as L
+from repro_torch.runtime import counted
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (64, 128)
@@ -258,8 +259,7 @@ def fused_qkv_rope_commit(x, p, lengths, k_cache, v_cache, *, cos=None,
     return q, k, v
 
 
-fused_qkv_rope_commit.launches = 0
-fused_qkv_rope_commit.launches_by_route = {"wgmma": 0, "tile": 0}
+counted(fused_qkv_rope_commit, ("wgmma", "tile"))
 
 
 # ---------------------------------------------------------------------------
@@ -419,5 +419,5 @@ def commit_rows_paged_stacked(pool, block_tables, rows, lengths):
     return pool
 
 
-commit_rows_stacked.launches = 0
-commit_rows_paged_stacked.launches = 0
+counted(commit_rows_stacked)
+counted(commit_rows_paged_stacked)

@@ -61,6 +61,8 @@ def tree_attention(q, k, v, tree_mask, lengths, scale, *, k_scale=None,
         T_pad += 1
     qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, T_pad - T))
     qf = qp.reshape(B, T_pad, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    # a 0-dim CPU tensor reaches the multiply as a scalar argument (no copy
+    # to the device), so stream capture takes it
     qf = qf.reshape(B, Hkv, G * T_pad, D) * torch.tensor(scale, dtype=q.dtype)
 
     acc1, m1, l1 = flash_decode(qf, k, v, lengths, k_scale=k_scale,
@@ -81,8 +83,9 @@ def tree_attention(q, k, v, tree_mask, lengths, scale, *, k_scale=None,
     row_mask = torch.zeros((T_pad, T), dtype=torch.bool, device=q.device)
     row_mask[:T] = tree_mask
     row_mask = row_mask.repeat(G, 1)                        # [R, T]
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
-    scores2 = torch.where(row_mask, scores2, neg)
+    # a Python scalar, not a tensor made on the device: that would be a
+    # copy from host memory, which stream capture refuses
+    scores2 = torch.where(row_mask, scores2, NEG_INF)
     m2 = torch.clamp(torch.amax(scores2, dim=-1, keepdim=True), min=NEG_INF)
     p2 = torch.where(row_mask, torch.exp(scores2 - m2),
                      torch.zeros((), device=q.device))

@@ -44,6 +44,7 @@ from repro_torch.kernels import paging as P
 from repro_torch.kernels import quant as Q
 from repro_torch.kernels.cache_update import aligned16
 from repro_torch.models.layers import NEG_INF
+from repro_torch.runtime import counted
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (64, 128, 256)
@@ -325,8 +326,7 @@ def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
     return acc, m, l
 
 
-flash_decode.launches = 0
-flash_decode.launches_by_route = {"single": 0, "split": 0, "merge": 0}
+counted(flash_decode, ("single", "split", "merge"))
 
 
 # ---------------------------------------------------------------------------
@@ -495,5 +495,4 @@ def unembed_verify_stats(hidden, w, candidates, tmax):
     return argm, m, l, cand_w
 
 
-unembed_verify_stats.launches = 0
-unembed_verify_stats.launches_by_route = {"wgmma": 0, "tile": 0}
+counted(unembed_verify_stats, ("wgmma", "tile"))

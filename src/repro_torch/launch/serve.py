@@ -10,7 +10,11 @@ numpy prompts, each group of ``--slots`` requests answered by one
 ``SpecEngine.generate``.  It serves openPangu-7B at full width on the card
 by default (random weights from ``--seed``, in the config's bf16);
 ``--reduced`` takes the reference's reduced CPU-test config and
-``--device cpu`` the plain PyTorch versions of the kernels.  Decode
+``--device cpu`` the plain PyTorch versions of the kernels.  On the card
+the decode step is a CUDA graph, captured in the first group's second
+step and replayed for every later step and group (the engine keeps one
+cache per batch shape, so the graph's addresses hold); the capture's
+seconds are printed apart from the serving seconds.  Decode
 attention always goes through ``kernels.ops.tree_attention``: there is no
 switch that turns the kernel off.  ``--verify-fusion`` (the reference
 launcher's flag, off by default) verifies from the
@@ -49,8 +53,9 @@ class Served(NamedTuple):
     medusa_params: dict
     prompts: list
     results: list          # one dict per request, in submission order
-    seconds: float
+    seconds: float         # serving, the graphs' capture included
     tokens: int
+    capture_s: float       # capturing and instantiating the step graphs
 
 
 def make_prompts(vocab: int, n: int, seed: int, lo: int, hi: int):
@@ -77,9 +82,11 @@ def build_model(cfg, seed: int, K: int, device):
 def serve_static(engine: SpecEngine, params, mp, prompts, slots: int,
                  max_new: int, max_len: int):
     """Answer ``prompts`` in groups of ``slots`` through one
-    ``engine.generate`` each.  A request whose prompt, ``max_new`` tokens
-    and one step's tree rows do not fit ``max_len`` cache rows is
-    rejected.  Returns (results, seconds, tokens)."""
+    ``engine.generate`` each, every group on the engine's one cache of
+    ``slots`` x ``max_len`` rows.  A request whose prompt, ``max_new``
+    tokens and one step's tree rows do not fit ``max_len`` cache rows is
+    rejected.  Returns (results, seconds, tokens, capture_s): capture_s
+    is the part of ``seconds`` spent capturing step graphs."""
     dev = engine.device
     need = max_new + engine.dtree.K + engine.dtree.T
     results = [{"rid": i, "prompt_len": len(p), "status": "rejected",
@@ -89,6 +96,7 @@ def serve_static(engine: SpecEngine, params, mp, prompts, slots: int,
     fits = [i for i, p in enumerate(prompts) if len(p) + need <= max_len]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    capture0 = engine.step_graphs.capture_s
     t0 = time.perf_counter()
     for g in range(0, len(fits), slots):
         group = fits[g:g + slots]
@@ -112,7 +120,7 @@ def serve_static(engine: SpecEngine, params, mp, prompts, slots: int,
         torch.cuda.synchronize(dev)
     seconds = max(time.perf_counter() - t0, 1e-9)
     tokens = sum(len(r["output"]) for r in results)
-    return results, seconds, tokens
+    return results, seconds, tokens, engine.step_graphs.capture_s - capture0
 
 
 def main(argv=None, weights=None) -> Served:
@@ -168,9 +176,8 @@ def main(argv=None, weights=None) -> Served:
         params, mp = weights
     prompts = make_prompts(cfg.vocab_size, args.requests, args.seed,
                            args.min_prompt, args.max_prompt)
-    results, seconds, tokens = serve_static(engine, params, mp, prompts,
-                                            args.slots, args.max_new,
-                                            args.max_len)
+    results, seconds, tokens, capture_s = serve_static(
+        engine, params, mp, prompts, args.slots, args.max_new, args.max_len)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
     for r in results:
         tps = len(r["output"]) / max(r["steps"], 1)
@@ -184,9 +191,9 @@ def main(argv=None, weights=None) -> Served:
                   + ")")
     print(f"{cfg.name}{fused}{layout}: {len(results)} requests, {tokens} "
           f"tokens in {seconds:.3f}s ({tokens / seconds:.1f} tok/s on "
-          f"{where})")
+          f"{where}; {capture_s:.3f}s of it capturing the step graph)")
     return Served(engine.cfg, engine, params, mp, prompts, results, seconds,
-                  tokens)
+                  tokens, capture_s)
 
 
 if __name__ == "__main__":

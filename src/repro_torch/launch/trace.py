@@ -1,26 +1,34 @@
 """Where a decode step's time goes, on the card: ``torch.profiler`` over a
-few speculative steps and a few AR steps of the served model.
+few speculative steps and a few AR steps of the served model, each run
+eagerly and as the captured CUDA graph the engine replays.
 
   PYTHONPATH=src python -m repro_torch.launch.trace [--steps 4] \
       [--cache-dtype int8] [--cache-layout paged] [--page-size 64]
 
 Builds the launcher's model (bf16 openPangu-7B at full width and depth,
 random weights from seed 0), prefills 4 prompts of 64–256 tokens from the
-same seed and warms up, then traces ``--steps`` spec steps
-(``SpecEngine.spec_step``), ``--steps`` AR decode steps
-(``engine.ar_step``) and ``--steps`` spec steps of the verify-fusion
-engine on the same weights (``build_engine(..., verify_fusion=True)``:
-the ``unembed_verify_stats`` and ``fused_qkv_rope_commit`` kernels in
-place of the [B, T, V] logits and the unfused write side).  For each it
-prints the wall time per step (host clock around synchronised work, once
-without the profiler and once under it: the difference is the profiler's
-own cost on the host), the device time per step (sum of the CUDA
-kernels' own time), the device's idle share (1 - device / wall without
-the profiler), the kernel launches per step, the kernels that take the
-most device time and every one of the port's own kernels, with their
-time per launch.  ``--cache-dtype``, ``--cache-layout`` and
-``--page-size`` (the launcher's flags, names and defaults) trace the same
-steps on the int8 cache and on the paged pool.
+same seed, then runs six kinds of step in turn on the one cache, each
+from where the last left off: the speculative loop body
+(``SpecEngine.loop_step``) eagerly (``graphs=False``) and as a graph,
+the AR loop body (``ar_loop_step``) eagerly and as a graph, and the
+verify-fusion engine's loop body (``verify_fusion=True``: the
+``unembed_verify_stats`` and ``fused_qkv_rope_commit`` kernels in place
+of the [B, T, V] logits and the unfused write side) eagerly and as a
+graph.  Each kind warms up for two steps (a graph: its eager warm-up
+step, then its capture and first replay), then runs ``--steps`` steps
+timed and ``--steps`` under the profiler; the spec kinds end each step
+with the loop's exit test, a host read, as ``generate`` does.  For each
+it prints the wall time per step (host clock around synchronised work,
+once without the profiler and once under it: the difference is the
+profiler's own cost on the host), the device time per step (sum of the
+CUDA kernels' own time), the device's idle share (1 - device / wall
+without the profiler), the kernel launches per step as the profiler sees
+them (inside the graph, for a graph kind), the graph replays per step
+and the capture's seconds, the kernels that take the most device time
+and every one of the port's own kernels, with their time per launch.
+``--cache-dtype``, ``--cache-layout`` and ``--page-size`` (the
+launcher's flags, names and defaults) trace the same steps on the int8
+cache and on the paged pool.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.registry import get_config
-from repro_torch.core.engine import ar_step, build_engine
+from repro_torch.core.engine import ar_loop_step, build_engine
 from repro_torch.launch.serve import build_model, make_prompts
 from repro_torch.runtime import resolve_device
 
@@ -60,8 +68,9 @@ def _device_us(evt) -> float:
 
 
 def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
-           top: int = 12):
-    """Print one traced phase's per-step breakdown."""
+           replays: int, capture_s: float, top: int = 12):
+    """Print one traced phase's per-step breakdown, with the graph
+    replays under the profiler and the graph's capture seconds."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
@@ -70,7 +79,8 @@ def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
     print(f"{name}: wall {wall_ms:.3f} ms/step ({traced_s * 1e3 / steps:.3f} "
           f"under the profiler), device {dev_ms:.3f} ms/step, device idle "
           f"{1 - dev_ms / wall_ms:.3f}, {launches / steps:.0f} kernel "
-          f"launches/step")
+          f"launches/step, {replays / steps:.2f} graph replays/step, "
+          f"capture {capture_s:.3f} s")
     ranked = sorted(kernels, key=_device_us, reverse=True)
     own = _port_kernels()
     # the top kernels, then the port's own below them, each with its time
@@ -99,9 +109,11 @@ def main(argv=None):
                               page_size=args.page_size)
     print(f"{cfg.name}: {cfg.resolved_cache_dtype} {cfg.cache_layout} cache"
           + (f", page size {cfg.page_size}" if cfg.paged else ""))
-    eng = build_engine(cfg, "medusa", use_kernel=True, device=dev)
-    fused = build_engine(cfg, "medusa", use_kernel=True, device=dev,
-                         verify_fusion=True)
+    engines = {(vf, graphs): build_engine(cfg, "medusa", use_kernel=True,
+                                          device=dev, verify_fusion=vf,
+                                          graphs=graphs)
+               for vf in (False, True) for graphs in (False, True)}
+    eng = engines[False, False]
     params, mp = build_model(cfg, 0, eng.dtree.K, dev)
     prompts = make_prompts(cfg.vocab_size, 4, 0, 64, 257)
     S = max(len(p) for p in prompts)
@@ -113,18 +125,34 @@ def main(argv=None):
                         device=dev)
     cache = eng.init_cache(4, 2048)
     cache, lengths, base, state = eng.prefill(params, mp, tok, plen, cache)
+    # where the generation stands, handed from one kind of step to the next
+    pos = {"lengths": lengths, "base": base, "state": state}
+    n = 2 + 2 * args.steps                 # steps each kind runs
 
-    def spec(engine=eng):
-        nonlocal cache, lengths, base, state
-        cache, lengths, verdict, state = engine.spec_step(
-            params, mp, cache, lengths, base, state)
-        base = verdict.next_token
+    def spec(vf, graphs):
+        step, c = engines[vf, graphs].loop_step(params, mp, cache,
+                                                pos["state"], n)
+        c.load(pos["lengths"], pos["base"], pos["state"])
 
-    def ar():
-        nonlocal cache, lengths, base
-        logits, cache, lengths = ar_step(cfg, params, cache, base, lengths,
-                                         use_kernel=True)
-        base = torch.argmax(logits, dim=-1).to(torch.int32)
+        def step_and_exit_test():
+            step()
+            bool(torch.any(c.n_out < n))  # the loop's exit test, a host read
+
+        def done():
+            pos.update(lengths=c.lengths.clone(), base=c.base.clone(),
+                       state={k: t.clone() for k, t in c.state.items()})
+        return step, step_and_exit_test, done
+
+    def ar(graphs):
+        step, c = ar_loop_step(cfg, params, cache, n, True,
+                               engines[False, graphs].step_graphs)
+        c.lengths.copy_(pos["lengths"])
+        c.tok.copy_(pos["base"])
+        c.i.zero_()
+
+        def done():
+            pos.update(lengths=c.lengths.clone(), base=c.tok.clone())
+        return step, step, done
 
     def timed(step):
         torch.cuda.synchronize()
@@ -134,15 +162,23 @@ def main(argv=None):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    for name, step in (("spec", spec), ("ar", ar),
-                       ("spec-fused", lambda: spec(fused))):
-        for _ in range(2):                                  # warm up
+    kinds = (("spec", lambda: spec(False, False)),
+             ("spec graph", lambda: spec(False, True)),
+             ("ar", lambda: ar(False)), ("ar graph", lambda: ar(True)),
+             ("spec-fused", lambda: spec(True, False)),
+             ("spec-fused graph", lambda: spec(True, True)))
+    for name, make in kinds:
+        graph, step, done = make()
+        for _ in range(2):          # warm up (a graph: warm-up, capture)
             step()
         wall = timed(step)
+        replays = graph.replays
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             traced = timed(step)
-        report(name, prof, wall, traced, args.steps)
+        done()
+        report(name, prof, wall, traced, args.steps, graph.replays - replays,
+               graph.capture_s)
 
 
 if __name__ == "__main__":

@@ -134,9 +134,9 @@ def _gqa_scores_to_out(q, k, v, mask, scale):
     if mask is not None:
         if mask.dim() == 2:
             mask = mask[None]
-        scores = torch.where(mask[:, None, None], scores,
-                             torch.tensor(NEG_INF, dtype=scores.dtype,
-                                          device=scores.device))
+        # a Python scalar: a tensor made on the device would be a copy
+        # from host memory, which stream capture refuses
+        scores = torch.where(mask[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v)
     return out.reshape(B, T, Hq, D)

@@ -17,7 +17,14 @@ has no JAX, so these tests run there from a copy of this file outside
 * The K1-K5 checks that sat in the JAX parity files: K1 at the main shape,
   K2 and K3 in f32, K1's int8 / paged / int8 + paged variants on a small
   cache, K4 and K5.
+* The captured decode step (``runtime.StepGraph``) on openPangu-7B cut to
+  2 layers of width 64 (head_dim 64, which the kernels take), f32, in
+  every layout and fusion mode: graph tokens == eager tokens == AR tokens
+  exactly, launch counts exact, and a second ``generate`` on the
+  engine's reused cache replays every step with no new capture.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -295,3 +302,84 @@ def test_cuda_paged_kernels_match_plain(dev):
         plain(b, *extra, rows[None], starts)
         assert (torch.equal(a[:, 1:], b[:, 1:]) if extra
                 else torch.equal(a, b))
+
+
+# ---------------------------------------------------------------------------
+# the captured decode step
+# ---------------------------------------------------------------------------
+
+GRAPH_LAYOUTS = {
+    "dense": {}, "fusion": dict(verify_fusion=True),
+    "paged": dict(cache_layout="paged", page_size=16),
+    "paged+fusion": dict(cache_layout="paged", page_size=16,
+                         verify_fusion=True),
+    "int8": dict(cache_dtype="int8"),
+    "int8+paged": dict(cache_dtype="int8", cache_layout="paged",
+                       page_size=16),
+    "int8+fusion": dict(cache_dtype="int8", verify_fusion=True)}
+GRAPH_WRAPPERS = {"K1": flash_decode, "K2": unembed_verify_stats,
+                  "K3": CU.fused_qkv_rope_commit,
+                  "K4": CU.commit_rows_stacked,
+                  "K5": CU.commit_rows_paged_stacked}
+
+
+def _expected_counts(cfg, steps, ar_steps):
+    """``chip_smoke.py``'s ``expected_counts``."""
+    per_layer = cfg.num_layers * (steps + ar_steps)
+    quantized = cfg.resolved_cache_dtype == "int8"
+    commits = (4 if quantized else 2) * steps
+    fused = cfg.verify_fusion
+    return {"K1": per_layer, "K2": steps if fused else 0,
+            "K3": per_layer if fused and not quantized else 0,
+            "K4": 0 if cfg.paged else commits,
+            "K5": commits if cfg.paged else 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GRAPH_LAYOUTS))
+def test_cuda_graph_step_equals_eager(dev, name):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import SpecCarry, ar_generate, build_engine
+    from repro_torch.launch.serve import build_model, make_prompts
+
+    cfg = dataclasses.replace(get_config("openpangu-7b", reduced=True),
+                              head_dim=64, num_layers=2,
+                              **GRAPH_LAYOUTS[name])
+    eng, eager = (build_engine(cfg, use_kernel=True, device=dev, graphs=g)
+                  for g in (True, False))
+    params, mp = build_model(cfg, 3, eng.dtree.K, dev)
+    prompts = make_prompts(cfg.vocab_size, 4, 3, 8, 40)
+    tok = torch.zeros((4, max(len(p) for p in prompts)), dtype=torch.int32)
+    for j, p in enumerate(prompts):
+        tok[j, :len(p)] = torch.from_numpy(p)
+    tok = tok.to(dev)
+    plen = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    max_new, max_len = 24, 256
+
+    def run(e):
+        for f in GRAPH_WRAPPERS.values():
+            f.launches = 0
+        sp, _, st = e.generate(params, mp, tok, plen,
+                               e.init_cache(4, max_len), max_new)
+        ar, _ = ar_generate(e.cfg, params, tok, plen,
+                            e.init_cache(4, max_len), max_new,
+                            use_kernel=True, graphs=e.step_graphs)
+        torch.cuda.synchronize()
+        assert {k: f.launches for k, f in GRAPH_WRAPPERS.items()} == \
+            _expected_counts(e.cfg, st.steps, max_new)
+        return sp.cpu(), ar.cpu(), st
+
+    want, want_ar, want_st = run(eager)
+    sp, ar, st = run(eng)
+    graphs = {isinstance(c, SpecCarry): g for g, c in eng.step_graphs.kept()}
+    assert len(graphs) == 2 and all(g.graph is not None
+                                    for g in graphs.values())
+    replays = {k: g.replays for k, g in graphs.items()}
+    sp2, ar2, st2 = run(eng)
+    assert len(eng.step_graphs.kept()) == 2
+    assert {k: g.replays - replays[k] for k, g in graphs.items()} == {
+        True: st2.steps, False: max_new}
+    for got in (sp, ar, sp2, ar2, want_ar):
+        assert torch.equal(got, want)
+    assert st.steps == st2.steps == want_st.steps
