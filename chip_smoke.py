@@ -26,7 +26,9 @@ non-zero exit:
    kernel's 128-column tile), with a candidate in the last partial tile,
    and with tied lm-head columns in different tiles (first index wins),
    plus a vocabulary whose rows are not 16-byte aligned, and at N 512
-   (B 8, T 64) and N 64;
+   (B 8, T 64) and N 64, and at the sampled step's per-row temperatures
+   ``TMAX_ROWS`` (1e-6 standing for temperature 0; m and cand_w held in
+   the logits' units, finite, argm the tmax 1 argm) on both routes;
    ``fused_qkv_rope_commit`` (K3) at the spec (T 64) and AR (T 1) shapes
    of openPangu-7B's attention, with biases, with rows past the cache's
    end (dropped; the rest of the cache unchanged bit for bit), at row
@@ -51,7 +53,20 @@ non-zero exit:
    variants all give the dense tokens and the int8 variants the int8
    ones; every run launches K1-K5 exactly as ``expected_counts`` says,
    and K1 takes the routes ``decode_plan`` gives the spec step (R 256:
-   "single") and the AR step (R 8: "split", with a merge launch each);
+   "single") and the AR step (R 8: "split", with a merge launch each).
+   Before them, a captured step that draws from a generator registered
+   with its capture must draw the eager draws, fresh at every replay, and
+   one that draws from an unregistered generator must fail to capture.
+   On every layout ``accept="sample"`` at temperature 0 gives the AR
+   tokens (launches exact); dense and fused, at temperature 0.7 the
+   captured sampled step gives the eager step's tokens from the same
+   seed, and a second run at 0.9 replays the same graph (no new capture)
+   and again gives the eager tokens;
+4b. the sampled distribution gate: float32 at full width, 2 layers, a
+   16-token vocabulary, untrained heads on a cartesian (2, 2) tree, 1024
+   rows of one prompt, 5 tokens at temperature 0.9: sampled speculative
+   tokens (unfused and fused, through K1-K4) against
+   ``ar_generate_sampled``, max marginal TVD <= 1.5 * floor + 0.05;
 5. the launcher (``repro_torch.launch.serve.main``) serves 8 requests on
    bf16 openPangu-7B at full width and depth through the captured step
    (one eager warm-up step, then replays of one graph for both groups,
@@ -80,6 +95,14 @@ non-zero exit:
    (K1-int8, K4) is held to ``ar_generate`` on the int8 config under
    ``MARGIN_BOUND``; (c) ``--cache-dtype int8 --cache-layout paged
    --page-size 16`` (K1-int8+paged, K5) must give all 8 answers of (b);
+   7s: ``--accept sample --temperature 0.7``, unfused and fused (K2 at
+   per-row temperatures), launches exact, tokens/s, steps, accepted
+   length, capture seconds and the replayed step's wall and device ms
+   logged beside greedy's, with the peak memory; at ``LOW_TEMPERATURE``
+   (where candidates are accepted), unfused and fused, the same readings
+   and how many answers the eager step (``graphs=False``, same seed)
+   gives token for token; at temperature 0 all 8 answers must equal
+   greedy's (phase 5);
 8. time every kernel and variant, its plain version, and one PyTorch call
    as a yardstick the port never calls where one computes the same
    function (``scaled_dot_product_attention`` for K1, its backend pinned
@@ -95,7 +118,8 @@ non-zero exit:
    ``torch.profiler``, beside an empty kernel's (``torch.cuda._sleep(0)``:
    a launch's fixed device cost).  K1's rows carry the AR step's (R 8)
    numbers beside the spec step's, K3's the AR step's (T 1); K1's, K2's
-   and K3's rows carry the wrapper's host ms per call.
+   and K3's rows carry the wrapper's host ms per call, and K2's its time
+   at ``TMAX_ROWS`` (``tmax_ms``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -136,6 +160,7 @@ REF_CASES = [
     (2, 512, 16, 8, 64, "medusa", "float32"),
 ]
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+TMAX_ROWS = [0.7, 1.0, 1e-6, 2.0]   # K2's per-row warp temperatures
 
 
 def log(msg: str):
@@ -590,10 +615,14 @@ def bf16_step(x):
     return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - 7)
 
 
-def stats_case(dev, name, B, T, d, V, dt, tied=False):
+def stats_case(dev, name, B, T, d, V, dt, tied=False, tmax=None):
     """K2 against its plain version; returns the max abs error of m and
     cand_w.  V not a multiple of 8 leaves rows TMA cannot take (tile
-    route)."""
+    route).  ``tmax`` (one per row; default ones) are the rows' warp
+    temperatures: then m, l and cand_w must also be finite, l at least
+    1, and argm exactly the kernel's own at tmax 1 on the same inputs
+    (dividing a row by a positive temperature cannot move its argmax).
+    The returned error is in the divided logits' units."""
     from repro_torch.kernels.tree_attention import (
         unembed_verify_stats, unembed_verify_stats_plain)
 
@@ -611,12 +640,26 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False):
         w[:, tied_cols] = 0.0
         w[0, tied_cols] = 4.0
         cand[:, :3] = torch.tensor(tied_cols, device=dev)
-    tmax = torch.ones((B,), device=dev)
+    ones = torch.ones((B,), device=dev)
+    tmax = ones if tmax is None else torch.tensor(tmax, dtype=torch.float32,
+                                                  device=dev)
     (argm, m, l, cw), route = routed(unembed_verify_stats, h, w, cand, tmax)
     want_route(f"unembed_verify_stats {name}", route, dt, V % 8 == 0)
     rargm, rm, rl, rcw = unembed_verify_stats_plain(h, w, cand, tmax)
     torch.cuda.synchronize()
-    err = max(scaled_err(m, rm), scaled_err(cw, rcw),
+    if tmax is not ones:
+        argm1 = uncounted(unembed_verify_stats, h, w, cand, ones)[0]
+        finite = all(bool(torch.isfinite(x).all()) for x in (m, l, cw))
+        if not finite or bool((l < 1).any()) \
+                or not torch.equal(argm, argm1):
+            fail(f"unembed_verify_stats {name}: at tmax {tmax.tolist()} "
+                 f"finite {finite}, min l {l.min().item()}, argm equal to "
+                 f"tmax 1's {torch.equal(argm, argm1)}")
+    # m and cand_w are the logits divided by the row's tmax: compared in
+    # the logits' own units (times tmax), where the tmax 1 tolerance holds
+    # (divided by 1e-6, a logit's f32 rounding grows a millionfold)
+    t2, t3 = tmax[:, None], tmax[:, None, None]
+    err = max(scaled_err(m * t2, rm * t2), scaled_err(cw * t3, rcw * t3),
               (l / rl - 1).abs().max().item())
     abs_err = max((m - rm).abs().max().item(), (cw - rcw).abs().max().item())
     differ = (argm != rargm).nonzero().tolist()
@@ -627,8 +670,8 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False):
     if differ:
         # bf16: the two products may round a logit to a neighbouring step;
         # the plain logit at the kernel's argm must lie within one bf16
-        # step of the plain max
-        logits = torch.matmul(h, w).float()
+        # step of the plain max (both divided by the row's tmax)
+        logits = torch.matmul(h, w).float() / tmax[:, None, None]
         for b, t in differ:
             gap = (rm[b, t] - logits[b, t, argm[b, t]]).item()
             worst = max(worst, gap / bf16_step(rm[b, t].item()))
@@ -640,7 +683,8 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False):
         fail(f"unembed_verify_stats {name}: tied columns {tied_cols}, argm "
              f"{argm.unique().tolist()} (plain {rargm.unique().tolist()})")
     tol = TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
-    log(f"  unembed_verify_stats {name}: B={B} T={T} d={d} V={V} {dt}, "
+    at = "" if tmax is ones else f" at tmax {tmax.tolist()}"
+    log(f"  unembed_verify_stats {name}: B={B} T={T} d={d} V={V} {dt}{at}, "
         f"{route} route: "
         f"max err {err:.3e} (tol {tol}; abs {abs_err:.3e}); argm differs in "
         f"{len(differ)} of {B * T} rows (largest gap {worst:.2f} bf16 steps)")
@@ -837,6 +881,8 @@ def phase_fusion_kernels(dev):
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         errs["K2", dt] = stats_case(dev, "main", 4, 64, d, V, dt)
+        # the sampled step's per-row temperatures; 1e-6 is temperature 0
+        stats_case(dev, "per-row tmax", 4, 64, d, V, dt, tmax=TMAX_ROWS)
         stats_case(dev, "tied columns", 4, 64, d, V, dt, tied=True)
         stats_case(dev, "V 4099 (unaligned rows)", 2, 64, 512, 4099, dt)
         if dt == torch.bfloat16:
@@ -906,11 +952,60 @@ def kept_graphs(eng):
             for g, c in eng.step_graphs.kept()]
 
 
+def phase_graph_rng(dev):
+    """The captured step's randomness: a step that draws from a generator
+    registered with its capture draws fresh noise at every replay, the
+    noise the same steps draw eagerly from the same generator state; a
+    capture whose step draws from a generator that is not registered
+    raises (no eager fallback), and the card works on after it."""
+    from repro_torch import runtime
+    from repro_torch.core import sampling as S
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    buf = torch.empty((4, 153376), device=dev)
+    graph = runtime.StepGraph(lambda: buf.copy_(S.gumbel(buf.shape, gen)),
+                              dev, generators=(gen,))
+    seen = []
+    for _ in range(5):
+        graph()
+        seen.append(buf.clone())
+    gen.manual_seed(0)
+    eager = [S.gumbel(buf.shape, gen) for _ in range(5)]
+    same = [torch.equal(a, b) for a, b in zip(seen, eager)]
+    fresh = [not torch.equal(a, b) for a, b in zip(seen, seen[1:])]
+    log(f"  registered generator: warm-up, capture and {graph.replays} "
+        f"replays drew the eager draws {same}; each draw differs from the "
+        f"one before {fresh}")
+    if not (all(same) and all(fresh)) or graph.replays != 4:
+        fail("a captured step's draws are not the eager draws, or a replay "
+             "repeated the noise of the one before")
+    other = torch.Generator(device=dev).manual_seed(1)
+    bad = runtime.StepGraph(lambda: buf.copy_(S.gumbel(buf.shape, other)),
+                            dev)
+    bad()                                   # the eager warm-up draws
+    try:
+        bad()
+    except RuntimeError as e:
+        log(f"  unregistered generator: the capture raised ({e}; cause: "
+            f"{str(e.__cause__).splitlines()[0][:160]})")
+    else:
+        fail("a capture drew from a generator not registered with it and "
+             "did not raise")
+    if bad.graph is not None or float(torch.ones(8, device=dev).sum()) != 8:
+        fail("the card did not work on after the refused capture")
+
+
 def phase_f32(dev):
     """Float32 openPangu-7B at full width, 2 layers, on every cache layout:
     spec == AR token for token through the captured steps, a second run on
     the reused cache replays them without a new capture, and the eager
-    steps give the same tokens; launch counts exact on every run."""
+    steps give the same tokens; launch counts exact on every run.  On
+    every layout ``accept="sample"`` at temperature 0 gives the AR tokens
+    too; at temperature 0.7 (dense, and with verify fusion) the captured
+    sampled step gives the eager step's tokens from the same generator
+    seed, and a second run at temperature 0.9 replays the same graph
+    with no new capture and again gives the eager tokens."""
+    from repro_torch.configs.base import SamplingParams
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import ar_generate, build_engine
     from repro_torch.launch.serve import build_model, make_prompts
@@ -944,7 +1039,61 @@ def phase_f32(dev):
                                max_new, T=eng.tb.T))
         return sp.cpu(), ar.cpu(), st, counts
 
-    def run(label, verify_fusion=False, **layout):
+    def sampled(cfg, verify_fusion, temperature, graphs=True):
+        return build_engine(cfg, "medusa", use_kernel=True, device=dev,
+                            verify_fusion=verify_fusion, graphs=graphs,
+                            accept="sample", seed=11,
+                            sampling=SamplingParams(temperature=temperature))
+
+    def sampled_run(label, eng, **kw):
+        """One sampled generate, its launches exact."""
+        reset_counts()
+        out, n_out, st = eng.generate(params, mp, tok, plen,
+                                      eng.init_cache(4, max_len), max_new,
+                                      **kw)
+        counts = read_counts()
+        want = expected_counts(eng.cfg, st.steps)
+        if counts != want or not bool((n_out == max_new).all()):
+            fail(f"f32 sampled {label}: launches {counts}, expected {want}; "
+                 f"n_out {n_out.tolist()}")
+        return out.cpu(), st
+
+    def sampled_zero(label, cfg, verify_fusion, ar):
+        out, st = sampled_run(label + " at temperature 0",
+                              sampled(cfg, verify_fusion, 0.0))
+        if not torch.equal(out, ar):
+            fail(f"float32 {label}: sampled at temperature 0 != AR:\n"
+                 f"{out.tolist()}\n{ar.tolist()}")
+        log(f"  f32 {label}: accept=sample at temperature 0 == AR for 4 x "
+            f"{max_new} tokens ({st.steps} steps, launches exact)")
+
+    def sampled_hot(label, cfg, verify_fusion, greedy):
+        eng, eager = (sampled(cfg, verify_fusion, 0.7, g)
+                      for g in (True, False))
+        out, st = sampled_run(label + " at 0.7", eng)
+        e_out, _ = sampled_run(label + " at 0.7 (eager)", eager)
+        graphs = kept_graphs(eng)
+        replays = {k: g.replays for k, g in graphs}
+        out2, st2 = sampled_run(label + " at 0.9 (second run)", eng,
+                                temperature=0.9)
+        e_out2, _ = sampled_run(label + " at 0.9 (eager, second run)", eager,
+                                temperature=0.9)
+        again = {k: g.replays - replays[k] for k, g in kept_graphs(eng)}
+        log(f"  f32 {label}: sampled at temperature 0.7, graph == eager "
+            f"{torch.equal(out, e_out)} ({int((out != greedy).sum())} of "
+            f"{out.numel()} tokens differ from greedy; {st.steps} steps); "
+            f"a second run at 0.9 on the same engine replayed {again} "
+            f"({st2.steps} steps), graph == eager {torch.equal(out2, e_out2)}"
+            f"; capture {eng.step_graphs.capture_s:.3f}s")
+        if not (torch.equal(out, e_out) and torch.equal(out2, e_out2)):
+            fail(f"float32 {label}: sampled graph tokens != eager tokens from "
+                 f"the same generator seed:\n{out.tolist()}\n"
+                 f"{e_out.tolist()}\n{out2.tolist()}\n{e_out2.tolist()}")
+        if again != {"spec": st2.steps} or len(kept_graphs(eng)) != 1:
+            fail(f"float32 {label}: the second sampled run replayed {again}, "
+                 f"expected {st2.steps} spec replays and no new capture")
+
+    def run(label, verify_fusion=False, hot=False, **layout):
         cfg = dataclasses.replace(base, **layout)
         eng, eager = (build_engine(cfg, "medusa", use_kernel=True, device=dev,
                                    verify_fusion=verify_fusion, graphs=g)
@@ -980,10 +1129,14 @@ def phase_f32(dev):
             f"launches {counts} (exact on the graph runs and the eager run); "
             f"a second run on the reused cache replayed {again} with no new "
             f"capture; capture {capture_s:.3f}s")
+        sampled_zero(label, cfg, verify_fusion, ar)
+        if hot:
+            sampled_hot(label, cfg, verify_fusion, sp)
         return sp
 
-    sp = run("dense")
-    others = {"verify fusion": run("verify fusion", verify_fusion=True),
+    sp = run("dense", hot=True)
+    others = {"verify fusion": run("verify fusion", verify_fusion=True,
+                                   hot=True),
               "paged (page size 64)": run("paged (page size 64)",
                                           cache_layout="paged",
                                           page_size=64),
@@ -1011,15 +1164,80 @@ def phase_f32(dev):
         f"to the fp ones)")
 
 
+def phase_tvd(dev):
+    """The reference's tiny-vocabulary distribution gate on the card:
+    openPangu-7B's widths in float32, 2 layers, a 16-token vocabulary, a
+    cartesian (2, 2) tree with untrained heads (heavy rejection), 1024
+    rows of one 4-token prompt, 5 new tokens at temperature 0.9, through
+    K1, K2 (fused), K3 (fused) and K4.  The sampled speculative tokens
+    must meet ``TVD <= 1.5 * floor + 0.05`` against
+    ``ar_generate_sampled``, the floor being the TVD of two AR runs of
+    other seeds, unfused and fused."""
+    from repro_torch.configs.base import SamplingParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import medusa as M
+    from repro_torch.core import sampling as S
+    from repro_torch.core.engine import SpecEngine, ar_generate_sampled
+    from repro_torch.core.tree import cartesian_tree
+    from repro_torch.models.api import get_model
+
+    cfg = dataclasses.replace(get_config("openpangu-7b"), num_layers=2,
+                              vocab_size=16, dtype="float32",
+                              param_dtype="float32",
+                              name="openpangu-7b-2layer-f32-v16")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = get_model(cfg).init_params(gen, cfg, dtype=cfg.dtype)
+    tb = cartesian_tree((2, 2))
+    mp = M.init_medusa(gen, cfg, tb.K)
+    mp["w1"].normal_(generator=gen).mul_(0.1)
+    B, new = 1024, 5
+    tok = torch.randint(0, cfg.vocab_size, (1, 4), generator=gen, device=dev,
+                        dtype=torch.int32).expand(B, 4).contiguous()
+    plen = torch.full((B,), 4, dtype=torch.int32, device=dev)
+    max_len = 4 + new + tb.T + 8
+    sp = SamplingParams(temperature=0.9)
+    for fused in (False, True):
+        c = dataclasses.replace(cfg, verify_fusion=fused)
+        eng = SpecEngine(c, tb, use_kernel=True, device=dev, accept="sample",
+                         sampling=sp, seed=21)
+        reset_counts()
+        spec, n_out, st = eng.generate(params, mp, tok, plen,
+                                       eng.init_cache(B, max_len), new)
+        counts = read_counts()
+        if counts != expected_counts(eng.cfg, st.steps) \
+                or not bool((n_out == new).all()):
+            fail(f"TVD gate, fused {fused}: launches {counts}, expected "
+                 f"{expected_counts(eng.cfg, st.steps)}")
+        ar1, ar2 = (ar_generate_sampled(
+            c, params, tok, plen, eng.init_cache(B, max_len), new,
+            torch.Generator(device=dev).manual_seed(s), sp, use_kernel=True,
+            graphs=eng.step_graphs)[0].cpu() for s in (22, 23))
+        floor = S.max_marginal_tvd(ar1, ar2, c.vocab_size)
+        tvd = S.max_marginal_tvd(spec.cpu(), ar1, c.vocab_size)
+        log(f"  TVD gate, {'fused' if fused else 'unfused'}: {B} rows x {new}"
+            f" tokens at temperature 0.9, {st.steps} spec steps, launches "
+            f"{counts}: max marginal TVD "
+            f"spec vs AR {tvd:.4f}, AR vs AR floor {floor:.4f}, bound "
+            f"{1.5 * floor + 0.05:.4f}")
+        if not tvd <= 1.5 * floor + 0.05:
+            fail(f"sampled spec tokens are not distributed as sampled AR's "
+                 f"(fused {fused}): TVD {tvd} > 1.5 * {floor} + 0.05")
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the launcher on bf16 openPangu-7B, full width and depth,
 # unfused and then with verify fusion on the same weights
 # ---------------------------------------------------------------------------
 
-REQUESTS, SLOTS, MAX_NEW, MAX_LEN = 8, 4, 64, 2048
+REQUESTS, SLOTS, MAX_NEW, MAX_LEN, SEED = 8, 4, 64, 2048, 0
 SERVE_ARGV = ["--requests", str(REQUESTS), "--slots", str(SLOTS),
               "--max-new", str(MAX_NEW), "--max-len", str(MAX_LEN),
-              "--min-prompt", "64", "--max-prompt", "257", "--seed", "0"]
+              "--min-prompt", "64", "--max-prompt", "257", "--seed",
+              str(SEED)]
+# a temperature at which the random-weight target is peaked enough that
+# sampled candidates are accepted (at 0.7 none are), so 7s sees the
+# accepting branch of the walks
+LOW_TEMPERATURE = 0.1
 
 
 def check_served(srv, counts):
@@ -1271,6 +1489,81 @@ def phase_serve_layouts(dev, srv, fsrv):
     return runs
 
 
+def eager_answers(run) -> list:
+    """The answers of launcher run ``run`` served again on its weights,
+    config, sampling and seed through the eager step (``graphs=False``)."""
+    from repro_torch.core.engine import build_engine
+    from repro_torch.launch.serve import serve_static
+
+    e = run.engine
+    eng = build_engine(e.cfg, "medusa", use_kernel=True, device=e.device,
+                       accept=e.accept, sampling=e.sampling, graphs=False,
+                       seed=SEED)
+    return serve_static(eng, run.params, run.medusa_params, run.prompts,
+                        SLOTS, MAX_NEW, MAX_LEN)[0]
+
+
+def phase_serve_sampled(dev, srv, fsrv):
+    """The launcher on the same weights with ``--accept sample``: at
+    temperature 0.7, unfused and with ``--verify-fusion`` (K2 at per-row
+    temperatures, every launch on the wgmma route), through the captured
+    step with launches exact, each logged beside greedy's (phases 5 and 6)
+    with the wall and device ms of its replayed step; at
+    ``LOW_TEMPERATURE`` its accepted length and its answers against the
+    eager step's; at temperature 0 all 8 answers token-identical to
+    greedy's (phase 5)."""
+    weights = (srv.params, srv.medusa_params)
+    hot = SERVE_ARGV + ["--accept", "sample", "--temperature", "0.7"]
+    torch.cuda.reset_peak_memory_stats()
+
+    def summary(run):
+        steps = sum(run.results[g]["steps"] for g in range(0, REQUESTS,
+                                                           SLOTS))
+        mean_acc = (sum(r["accepted"] for r in run.results)
+                    / sum(r["steps"] for r in run.results))
+        return (f"{run.tokens / run.seconds:.1f} tok/s, {steps} steps, mean "
+                f"accepted {mean_acc:.3f}, capture {run.capture_s:.3f}s")
+
+    runs = {}
+    for label, argv, greedy in (("sampled", hot, srv),
+                                ("sampled fused", hot + ["--verify-fusion"],
+                                 fsrv)):
+        log(f"  ({label}) {' '.join(argv[len(SERVE_ARGV):])}")
+        run, _ = serve_counted(argv, weights)
+        wall, dev_ms = step_times(run.engine)
+        log(f"  {label}: {summary(run)}; greedy: {summary(greedy)}; "
+            f"{same_answers(run, greedy)} of {REQUESTS} answers equal to "
+            f"greedy's; replayed step wall {wall:.3f} ms, device "
+            f"{dev_ms:.3f} ms (idle {1 - dev_ms / wall:.3f})")
+        runs[label] = run
+    log(f"  peak memory over the sampled runs, the weights and every kept "
+        f"graph pool included: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    cold = SERVE_ARGV + ["--accept", "sample", "--temperature",
+                         str(LOW_TEMPERATURE)]
+    for label, argv in (("cold", cold),
+                        ("cold fused", cold + ["--verify-fusion"])):
+        log(f"  ({label}) {' '.join(argv[len(SERVE_ARGV):])}")
+        run, _ = serve_counted(argv, weights)
+        eager = sum(np.array_equal(r["output"], e["output"])
+                    for r, e in zip(run.results, eager_answers(run)))
+        log(f"  {label}: {summary(run)}; {same_answers(run, srv)} of "
+            f"{REQUESTS} answers equal to greedy's; {eager} of {REQUESTS} "
+            f"token-identical to the eager step's from the same seed "
+            f"(expected {REQUESTS})")
+        del run
+    log("  (zero) --accept sample --temperature 0")
+    zero, _ = serve_counted(SERVE_ARGV + ["--accept", "sample",
+                                          "--temperature", "0"], weights)
+    same = same_answers(zero, srv)
+    log(f"  {same} of {REQUESTS} answers at temperature 0 token-identical "
+        f"to greedy's (phase 5)")
+    if same != REQUESTS:
+        fail(f"sampled at temperature 0: {same} of {REQUESTS} answers equal "
+             f"to greedy's")
+    return runs
+
+
 # ---------------------------------------------------------------------------
 # phase 8: timing at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -1306,6 +1599,9 @@ def time_verify_stats(dev, cfg, launches, max_err):
 
     ms = queued_ms(kernel, 20)
     ev_ms = cuda_ms(kernel, 20)
+    rows_t = torch.tensor(TMAX_ROWS, dtype=torch.float32, device=dev)
+    tmax_ms = queued_ms(
+        lambda: uncounted(unembed_verify_stats, h, w, cand, rows_t), 20)
     plain_ms = queued_ms(
         lambda: unembed_verify_stats_plain(h, w, cand, tmax), 5)
     lib_ms = queued_ms(lambda: torch.matmul(h2, w), 20)
@@ -1318,13 +1614,14 @@ def time_verify_stats(dev, cfg, launches, max_err):
         f"library call; {ev_ms:.4f} ms issued as the host goes), plain "
         f"{plain_ms:.4f} ms, torch.matmul of the product only {lib_ms:.4f} "
         f"ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes, {flops} flops); "
-        f"the wrapper's host time {h_ms:.4f} ms per call")
+        f"the wrapper's host time {h_ms:.4f} ms per call; at per-row tmax "
+        f"{TMAX_ROWS} {tmax_ms:.4f} ms")
     return {"name": "unembed_verify_stats", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/verify_stats.cu",
             "replaces": "src/repro/kernels/tree_attention.py:298",
             "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "host_ms": h_ms}
+            "library_ms": lib_ms, "host_ms": h_ms, "tmax_ms": tmax_ms}
 
 
 def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0):
@@ -1637,8 +1934,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 4: float32, full width, 2 layers: speculative == AR on every "
-        "cache layout, fused too")
+        "cache layout, fused too; sampled at temperature 0 == AR, and "
+        "sampled graph == eager")
+    phase_graph_rng(dev)
     phase_f32(dev)
+    torch.cuda.empty_cache()
+    log("phase 4b: the sampled distribution gate (tiny vocabulary, 1024 "
+        "rows), unfused and fused")
+    phase_tvd(dev)
     torch.cuda.empty_cache()
 
     log("phase 5: the launcher on bf16 openPangu-7B, full width and depth, "
@@ -1656,8 +1959,14 @@ def main() -> int:
         "cache layouts")
     runs = phase_serve_layouts(dev, srv, fsrv)
     layout_counts = {label: counts for label, (_, counts) in runs.items()}
+    del runs
+    torch.cuda.empty_cache()
+    log("phase 7s: the launcher on the same weights with --accept sample "
+        f"(temperature 0.7 and {LOW_TEMPERATURE}, unfused and fused; "
+        "temperature 0)")
+    phase_serve_sampled(dev, srv, fsrv)
     prompt_lens = [len(p) for p in srv.prompts[:4]]
-    del srv, fsrv, runs
+    del srv, fsrv
     torch.cuda.empty_cache()
 
     log("phase 8: timing at the main path's shapes")

@@ -5,10 +5,29 @@ names and defaults, so one architecture reads the same in both packages
 and a test can compare the two field by field.  ``reduce`` derives the
 CPU-test variant exactly as the reference does.  The port runs the dense
 family only; ``models/api.get_model`` rejects the rest.
+``SamplingParams`` is a copy of the reference's sampling controls.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Token-sampling controls threaded from the launch flags through the
+    engine down to the verification math, so the head and backbone
+    distributions are warped identically (the precondition for lossless
+    stochastic speculative sampling).  ``temperature <= 0`` is exact
+    greedy: the warped distribution is one-hot at the argmax, so
+    ``accept="sample"`` collapses to the greedy engine token for token.
+
+    ``temperature`` and ``top_p`` may be overridden per row (the engine's
+    loop carries them as [B] device tensors); ``top_k`` is a static
+    engine-level knob (it changes the warp's shapes).
+    """
+    temperature: float = 1.0
+    top_k: int = 0          # 0 => no top-k truncation
+    top_p: float = 1.0      # 1.0 => no nucleus truncation
 
 
 @dataclass(frozen=True)

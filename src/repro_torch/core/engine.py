@@ -1,9 +1,10 @@
 """Speculative decoding engine over a pluggable ``Proposer`` (counterpart
-of ``repro.core.engine``, greedy acceptance).
+of ``repro.core.engine``).
 
 ``SpecEngine`` runs the paper's static speculation step: candidates from
-the proposer -> one backbone verification forward -> tensorized greedy
-acceptance -> zero-copy commit.  Where the reference runs the generation
+the proposer -> one backbone verification forward -> tensorized
+acceptance (greedy, typical or lossless sampling, ``core/verify.py``) ->
+zero-copy commit.  Where the reference runs the generation
 loop as one compiled ``lax.while_loop``, this engine keeps the loop's
 carry in static buffers (``SpecCarry``) and runs the loop body as one
 CUDA graph on the card (``runtime.StepGraph``): captured once per step
@@ -16,16 +17,26 @@ eagerly.
 machinery (T=1 decode), its step captured the same way: the losslessness
 oracle (greedy spec == greedy AR, token for token).  Given a config with
 ``verify_fusion`` and ``use_kernel``, its decode steps take the fused
-write side too.
+write side too.  ``ar_generate_sampled`` is its stochastic sibling, the
+distribution-equality oracle for ``accept="sample"``.
+
+Randomness comes from a ``torch.Generator`` on the engine's device (the
+engine's own, seeded by ``seed``; ``ar_generate_sampled`` takes one).  A
+captured step registers it with its graph, so every replay draws fresh
+noise, the noise the same step run eagerly from the same generator state
+draws.  The per-row temperature and top-p live in the loop's carry as
+[B] device tensors, so a new value replays the same graph.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SamplingParams
+from repro_torch.core import sampling as S
 from repro_torch.core import verify as V
 from repro_torch.core.proposers import MedusaProposer, Proposer
 from repro_torch.core.tree import TreeBuffers
@@ -49,6 +60,15 @@ class StepStats(NamedTuple):
     accepted_per_slot: torch.Tensor  # [B] the same clamped acc, per row
 
 
+class Draws(NamedTuple):
+    """One speculative step's noise (``core.sampling``: randomness is an
+    argument), drawn from the engine's generator or passed in."""
+    u: Optional[torch.Tensor]    # [B, max(K, 1), Cmax] f32 acceptance
+                                 # uniforms (accept="sample")
+    g: torch.Tensor              # [B, V] f32 Gumbel noise of the step's
+                                 # final draw
+
+
 @dataclasses.dataclass
 class SpecCarry:
     """The speculative loop's carry (the reference's ``while_loop``
@@ -63,23 +83,35 @@ class SpecCarry:
     n_out: torch.Tensor          # [B] int32 tokens written so far
     acc_sum: torch.Tensor        # () int64, as StepStats.accepted_sum
     acc_slot: torch.Tensor       # [B] int32, as StepStats.accepted_per_slot
+    temperature: torch.Tensor    # [B] f32 per-row warp temperature
+    top_p: torch.Tensor          # [B] f32 per-row nucleus mass
 
-    def load(self, lengths, base, state):
-        """Start a loop from a prefill's (lengths, base, state)."""
+    def load(self, lengths, base, state, temperature=1.0, top_p=1.0):
+        """Start a loop from a prefill's (lengths, base, state), at the
+        given per-row (or scalar) temperature and top-p."""
         self.lengths.copy_(lengths)
         self.base.copy_(base)
         for k, t in state.items():
             self.state[k].copy_(t)
         for t in (self.out, self.n_out, self.acc_sum, self.acc_slot):
             t.zero_()
+        B, dev = self.base.shape[0], self.base.device
+        self.temperature.copy_(S.per_row(temperature, B, dev))
+        self.top_p.copy_(S.per_row(top_p, B, dev))
 
 
 class SpecEngine:
-    """Greedy speculative engine for one (config, proposer) pair on one
-    device.
+    """Speculative engine for one (config, proposer) pair on one device.
 
     ``proposer`` selects the draft policy; passing a ``TreeBuffers`` as
     ``tb`` (or nothing) builds a ``MedusaProposer`` on that tree.
+    ``accept`` selects verification: "greedy" (lossless argmax match),
+    "typical" (Medusa's lossy typical acceptance at ``temperature``) or
+    "sample" (lossless rejection sampling under ``sampling``, whose
+    temperature defaults to ``temperature``).  At ``sampling.temperature
+    <= 0`` the "sample" mode is token-identical to "greedy".  ``seed``
+    seeds the engine's ``generator`` (on its device), which every draw of
+    the non-greedy modes comes from.
     ``use_kernel`` routes decode attention through
     ``kernels.ops.tree_attention`` (the ``flash_decode`` kernel on the
     card).  ``verify_fusion`` (default: ``cfg.verify_fusion``) verifies
@@ -90,13 +122,20 @@ class SpecEngine:
     replays ``generate``'s step as a CUDA graph on the card; False runs
     the same step eagerly (to compare the two).  The engine keeps its
     graphs, one per step shape, in ``step_graphs``, and drops them with
-    itself.
+    itself.  Verify fusion refuses ``accept="typical"`` (it needs full-row
+    entropies) and a truncating warp (top_k or top_p < 1 need the sorted
+    row); neither falls back to the unfused path.
     """
 
     def __init__(self, cfg: ModelConfig, tb: Optional[TreeBuffers] = None,
-                 use_kernel: bool = False,
+                 use_kernel: bool = False, accept: str = "greedy",
+                 temperature: float = 0.7,
+                 sampling: Optional[SamplingParams] = None,
                  proposer: Optional[Proposer] = None, device="cuda",
-                 verify_fusion: Optional[bool] = None, graphs: bool = True):
+                 verify_fusion: Optional[bool] = None, graphs: bool = True,
+                 seed: int = 0):
+        if accept not in ("greedy", "typical", "sample"):
+            raise ValueError(f"unknown accept mode {accept!r}")
         if proposer is not None and tb is not None:
             raise ValueError("pass either tb (Medusa tree) or proposer, "
                              "not both")
@@ -117,6 +156,25 @@ class SpecEngine:
                              "single-path candidates; pass a chain_tree()")
         self.dtree = self.proposer.dtree
         self.use_kernel = use_kernel
+        self.accept = accept
+        self.temperature = temperature
+        self.sampling = sampling if sampling is not None else \
+            SamplingParams(temperature=temperature)
+        sp = self.sampling
+        if cfg.verify_fusion:
+            # the fused epilogue carries Verdict-sized statistics only:
+            # typical acceptance needs full-row entropies and a top-k /
+            # top-p warp the sorted row, so both stay unfused
+            if accept == "typical":
+                raise ValueError("verify_fusion does not support "
+                                 "accept='typical'")
+            if accept == "sample" and (sp.top_k or sp.top_p != 1.0):
+                raise ValueError("verify_fusion + accept='sample' requires "
+                                 "top_k=0 and top_p=1.0")
+        if accept == "sample" and self.proposer.q_kind != "mprob":
+            raise NotImplementedError("the chain walk (draft-model "
+                                      "proposals) is ROADMAP queue 1 item 12")
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step_graphs = StepGraphs(self.device, capture=graphs)
         self._caches = {}
 
@@ -142,34 +200,74 @@ class SpecEngine:
     def init_proposer_state(self, batch: int, capacity: int):
         return self.proposer.init_state(batch, capacity)
 
+    def _sampling_args(self, temperature=None, top_p=None):
+        """(temperature, top_k, top_p) with the engine's defaults, per-call
+        (or per-row [B] tensor) overrides winning."""
+        sp = self.sampling
+        return (sp.temperature if temperature is None else temperature,
+                sp.top_k, sp.top_p if top_p is None else top_p)
+
+    def draws(self, batch: int) -> Optional[Draws]:
+        """One step's noise from the engine's generator: none under greedy,
+        the Gumbel noise of the bonus draw under typical, and the
+        acceptance uniforms too under sample."""
+        if self.accept == "greedy":
+            return None
+        u = None
+        if self.accept == "sample":
+            u = S.uniform((batch, max(self.dtree.K, 1), self.dtree.Cmax),
+                          self.generator)
+        return Draws(u, S.gumbel((batch, self.cfg.vocab_size),
+                                 self.generator))
+
     def prefill(self, params, proposer_params, tokens, lengths, cache,
-                state=None):
-        """-> (cache, lengths, base_token [B], proposer state)."""
+                state=None, temperature=None, top_p=None):
+        """-> (cache, lengths, base_token [B], proposer state).
+
+        Under ``accept="sample"`` the base token (the first emitted token)
+        is drawn from the warped target logits with noise from the
+        engine's generator, as the sampled AR oracle draws it; otherwise
+        it is the argmax.  ``temperature``/``top_p`` may be per-row [B]
+        tensors."""
         B, Sp = tokens.shape
         last_hidden, cache = self.model.prefill(params, self.cfg, tokens,
                                                 lengths, cache)
         logits = self.model.unembed(params, self.cfg, last_hidden)
-        base = torch.argmax(logits, dim=-1).to(torch.int32)
+        if self.accept == "sample":
+            t, k, p = self._sampling_args(temperature, top_p)
+            base = S.sample(S.gumbel(tuple(logits.shape), self.generator),
+                            logits, t, k, p)
+        else:
+            base = torch.argmax(logits, dim=-1).to(torch.int32)
         if state is None:
             state = self.init_proposer_state(B, Sp + self.dtree.T + 2)
         state = self.proposer.prime(proposer_params, state, tokens, lengths,
                                     last_hidden, base)
         return cache, lengths, base, state
 
-    def spec_step(self, params, proposer_params, cache, lengths, base, state):
+    def spec_step(self, params, proposer_params, cache, lengths, base, state,
+                  draws: Optional[Draws] = None, temperature=None,
+                  top_p=None):
         """One static speculative step: propose -> one target forward ->
         verify -> commit -> observe.  Returns (cache, lengths, verdict,
-        state')."""
+        state').  ``draws`` is the step's noise (None: ``self.draws``
+        from the engine's generator); ``temperature``/``top_p`` override
+        the engine's ``sampling`` and may be per-row [B] tensors."""
         dt = self.dtree
-        cand, _, state = self.proposer.propose(proposer_params, state, base)
+        t, k, p = self._sampling_args(temperature, top_p)
+        cand, q, state = self.proposer.propose(
+            proposer_params, state, base, self.generator, t, k, p,
+            stochastic=self.accept == "sample")
         hidden, spec_cache = self.model.decode(
             params, self.cfg, cache, cand, lengths, dt.mask, dt.depths,
             use_kernel=self.use_kernel)
+        if draws is None:
+            draws = self.draws(cand.shape[0])
         if self.cfg.verify_fusion:
-            verdict = self._verify_fused(params, cand, hidden)
+            verdict = self._verify_fused(params, cand, hidden, q, draws, t)
         else:
             logits = self.model.unembed(params, self.cfg, hidden)  # [B,T,V]
-            verdict = V.greedy_verify(cand, logits, dt)
+            verdict = self._verify(cand, logits, q, draws, t, k, p)
         cache, lengths = self.model.commit(self.cfg, spec_cache, lengths,
                                            verdict.path_slots, verdict.acc)
         rows = torch.arange(hidden.shape[0], device=hidden.device)
@@ -178,16 +276,45 @@ class SpecEngine:
                                       h_last, lengths)
         return cache, lengths, verdict, state
 
-    def _verify_fused(self, params, cand, hidden):
-        """Fused-epilogue greedy acceptance: the ``unembed_verify_stats``
-        kernel streams the lm-head product over vocabulary tiles and hands
-        back Verdict-sized statistics; the [B, T, V] logits are never
-        made.  The Verdict is bit-identical to ``greedy_verify``'s."""
-        tmax = torch.ones((cand.shape[0],), dtype=torch.float32,
-                          device=hidden.device)       # greedy: raw logits
+    def _verify(self, cand, logits, q, draws, temperature, top_k, top_p):
+        """Acceptance-rule dispatch on ``accept``; every verifier returns
+        the same shapes."""
+        dt = self.dtree
+        if self.accept == "typical":
+            return V.typical_verify(cand, logits, dt, draws.g,
+                                    temperature=self.temperature)
+        if self.accept == "sample":
+            return V.sample_verify_tree(cand, logits, q, dt, draws.u, draws.g,
+                                        temperature=temperature,
+                                        top_k=top_k, top_p=top_p)
+        return V.greedy_verify(cand, logits, dt)
+
+    def _verify_fused(self, params, cand, hidden, q, draws, temperature):
+        """Fused-epilogue acceptance: the ``unembed_verify_stats`` kernel
+        streams the lm-head product over vocabulary tiles and hands back
+        Verdict-sized statistics of the logits divided by ``tmax`` (ones
+        for greedy, max(t, 1e-6) per row for sample); the [B, T, V]
+        logits are never made.  The sampled walk rebuilds the residual
+        from ONE [B, V] row unembed at each row's stopping node.  The
+        greedy Verdict is bit-identical to ``greedy_verify``'s."""
+        B = cand.shape[0]
+        dev = hidden.device
+        if self.accept == "sample":
+            tmax = torch.clamp(S.per_row(temperature, B, dev), min=1e-6)
+        else:
+            tmax = torch.ones((B,), dtype=torch.float32, device=dev)
         stats = V.VerifyStats(*KO.verify_stats(hidden, params["lm_head"],
                                                cand, tmax))
-        return V.greedy_verify_stats(cand, stats, self.dtree)
+        if self.accept != "sample":
+            return V.greedy_verify_stats(cand, stats, self.dtree)
+        rows = torch.arange(B, device=dev)
+
+        def row_fn(idx):
+            return self.model.unembed(params, self.cfg, hidden[rows, idx])
+
+        return V.sample_verify_tree_stats(cand, stats, q, self.dtree,
+                                          draws.u, draws.g, row_fn,
+                                          temperature=temperature)
 
     # -- the loop -----------------------------------------------------------
 
@@ -198,13 +325,14 @@ class SpecEngine:
         weights are the same tensors, and built anew (recaptured) when
         they are not.  ``state`` gives the proposer state's shapes."""
         B = _cache_batch(cache)
-        key = ("spec", B, max_new,
+        key = ("spec", B, max_new, self.accept, self.sampling.top_k,
                tuple((k, tuple(t.shape), t.dtype)
                      for k, t in sorted(state.items())))
 
         def make():
             dev = self.device
             i32 = torch.int32
+            f32 = dict(dtype=torch.float32, device=dev)
             c = SpecCarry(
                 cache=cache, lengths=torch.zeros((B,), dtype=i32, device=dev),
                 base=torch.zeros((B,), dtype=i32, device=dev),
@@ -213,10 +341,17 @@ class SpecEngine:
                                 device=dev),
                 n_out=torch.zeros((B,), dtype=i32, device=dev),
                 acc_sum=torch.zeros((), dtype=torch.int64, device=dev),
-                acc_slot=torch.zeros((B,), dtype=i32, device=dev))
+                acc_slot=torch.zeros((B,), dtype=i32, device=dev),
+                temperature=torch.ones((B,), **f32),
+                top_p=torch.ones((B,), **f32))
+            draws_from = () if self.accept == "greedy" else (self.generator,)
+            # the engine holds its graphs, so the step holds the engine
+            # weakly: no cycle, and a dropped engine frees its graphs at
+            # once rather than whenever the cyclic collector runs
+            eng = weakref.ref(self)
             return self.step_graphs.graph(
-                lambda: self._carry_step(params, proposer_params, c,
-                                         max_new)), c
+                lambda: eng()._carry_step(params, proposer_params, c,
+                                          max_new), draws_from), c
 
         return self.step_graphs.get(
             key, binding(params, proposer_params, cache), make)
@@ -226,7 +361,8 @@ class SpecEngine:
         """One step of the loop on the static carry, in place (the body of
         the reference's ``while_loop``)."""
         _, lengths, verdict, state = self.spec_step(
-            params, proposer_params, c.cache, c.lengths, c.base, c.state)
+            params, proposer_params, c.cache, c.lengths, c.base, c.state,
+            temperature=c.temperature, top_p=c.top_p)
         _write_out(c, verdict.path_tokens)
         acc_row = torch.minimum(verdict.acc,
                                 torch.clamp(max_new - c.n_out, min=0))
@@ -239,23 +375,27 @@ class SpecEngine:
             c.state[k].copy_(t)
 
     def generate(self, params, proposer_params, tokens, prompt_lengths, cache,
-                 max_new: int, state=None):
+                 max_new: int, state=None, temperature=None):
         """Full speculative generation loop.
 
         tokens [B, S_p] int32 right-padded prompts, prompt_lengths [B]
         int32, cache from ``init_cache``, all on the engine's device.
-        Returns (out_tokens [B, max_new] int32, n_out [B] int32 true
-        lengths, StepStats)."""
+        ``temperature`` (a scalar or a per-row [B] tensor) overrides the
+        engine's ``sampling.temperature`` for this call; it and
+        ``sampling.top_p`` are carry values, so the captured step replays
+        for any of them.  Returns (out_tokens [B, max_new] int32, n_out
+        [B] int32 true lengths, StepStats)."""
         dt = self.dtree
         B, Sp = tokens.shape
+        t, _, p = self._sampling_args(temperature)
         if state is None:
             state = self.init_proposer_state(B, Sp + max_new + dt.T + 2)
         cache, lengths, base, state = self.prefill(
             params, proposer_params, tokens, prompt_lengths, cache,
-            state=state)
+            state=state, temperature=t, top_p=p)
         step, c = self.loop_step(params, proposer_params, cache, state,
                                  max_new)
-        c.load(lengths, base, state)
+        c.load(lengths, base, state, t, p)
         steps = 0
         # max_new bounds the loop (every step commits >= 1 token per row);
         # the exit test is the one host read per step
@@ -291,8 +431,10 @@ def _cache_batch(cache) -> int:
 
 def build_engine(cfg: ModelConfig, proposer: str = "medusa", *,
                  use_kernel: bool = False, device="cuda",
+                 accept: str = "greedy",
+                 sampling: Optional[SamplingParams] = None,
                  verify_fusion: Optional[bool] = None,
-                 graphs: bool = True) -> SpecEngine:
+                 graphs: bool = True, seed: int = 0) -> SpecEngine:
     """Engine construction shared by the launcher and the tests.  The
     port carries the Medusa proposer only."""
     if proposer != "medusa":
@@ -300,9 +442,10 @@ def build_engine(cfg: ModelConfig, proposer: str = "medusa", *,
                                   "n-gram proposers are ROADMAP queue 1 "
                                   "item 12")
     dev = resolve_device(device)
-    return SpecEngine(cfg, use_kernel=use_kernel,
-                      proposer=MedusaProposer(cfg, dev), device=dev,
-                      verify_fusion=verify_fusion, graphs=graphs)
+    return SpecEngine(cfg, use_kernel=use_kernel, accept=accept,
+                      sampling=sampling, proposer=MedusaProposer(cfg, dev),
+                      device=dev, verify_fusion=verify_fusion, graphs=graphs,
+                      seed=seed)
 
 
 def ar_step(cfg: ModelConfig, params, cache, tok, lengths,
@@ -329,29 +472,51 @@ class ARCarry:
     cache: dict
     lengths: torch.Tensor        # [B] int32
     tok: torch.Tensor            # [B] int32 the token this step writes
-    logits: torch.Tensor         # [B, V] whose argmax is ``tok``
+    logits: torch.Tensor         # [B, V] that ``tok`` was picked from
     out: torch.Tensor            # [B, max_new] int32
     i: torch.Tensor              # [1] int64 the step's output column
+    temperature: torch.Tensor    # [B] f32 per-row warp temperature (sampled)
+    top_p: torch.Tensor          # [B] f32 per-row nucleus mass (sampled)
 
-    def load(self, lengths, logits):
-        """Start a loop from a prefill's lengths and last logits."""
+    def load(self, lengths, logits, temperature=1.0, top_p=1.0):
+        """Start a loop from a prefill's lengths and last logits; the
+        caller sets ``tok`` (``_ar_next``)."""
+        B, dev = lengths.shape[0], self.lengths.device
         self.lengths.copy_(lengths)
         self.logits.copy_(logits)
-        self.tok.copy_(torch.argmax(logits, dim=-1).to(torch.int32))
+        self.temperature.copy_(S.per_row(temperature, B, dev))
+        self.top_p.copy_(S.per_row(top_p, B, dev))
         self.out.zero_()
         self.i.zero_()
 
 
+def _ar_next(c: ARCarry, logits, sampling, generator):
+    """The token after ``logits``: the argmax (greedy AR, ``sampling``
+    None) or a draw from the warped logits at the carry's per-row
+    temperature and top-p, with Gumbel noise from ``generator``."""
+    if sampling is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return S.sample(S.gumbel(tuple(logits.shape), generator), logits,
+                    c.temperature, sampling.top_k, c.top_p)
+
+
 def ar_loop_step(cfg: ModelConfig, params, cache, max_new: int,
-                 use_kernel: bool, graphs: StepGraphs):
+                 use_kernel: bool, graphs: StepGraphs,
+                 sampling: Optional[SamplingParams] = None,
+                 generator: Optional[torch.Generator] = None):
     """-> (StepGraph, ARCarry): ``ar_generate``'s loop body on a static
     carry over ``cache``, kept in ``graphs`` as ``SpecEngine.loop_step``
-    keeps the speculative one."""
+    keeps the speculative one.  With ``sampling`` (and ``generator``) the
+    body is ``ar_generate_sampled``'s: each token drawn from the warped
+    logits, the generator registered with the graph."""
     B = _cache_batch(cache)
-    key = ("ar", cfg, B, max_new, use_kernel)
+    top_k = None if sampling is None else sampling.top_k
+    key = ("ar", cfg, B, max_new, use_kernel, top_k)
+    draws_from = () if sampling is None else (generator,)
 
     def make():
         dev = graphs.device
+        f32 = dict(dtype=torch.float32, device=dev)
         c = ARCarry(
             cache=cache, lengths=torch.zeros((B,), dtype=torch.int32,
                                              device=dev),
@@ -359,14 +524,17 @@ def ar_loop_step(cfg: ModelConfig, params, cache, max_new: int,
             logits=torch.zeros((B, cfg.vocab_size),
                                dtype=torch_dtype(cfg.dtype), device=dev),
             out=torch.zeros((B, max_new), dtype=torch.int32, device=dev),
-            i=torch.zeros((1,), dtype=torch.int64, device=dev))
-        return graphs.graph(lambda: _ar_carry_step(cfg, params, c,
-                                                   use_kernel)), c
+            i=torch.zeros((1,), dtype=torch.int64, device=dev),
+            temperature=torch.ones((B,), **f32),
+            top_p=torch.ones((B,), **f32))
+        return graphs.graph(lambda: _ar_carry_step(
+            cfg, params, c, use_kernel, sampling, generator), draws_from), c
 
-    return graphs.get(key, binding(params, cache), make)
+    return graphs.get(key, binding(params, cache, *draws_from), make)
 
 
-def _ar_carry_step(cfg, params, c: ARCarry, use_kernel):
+def _ar_carry_step(cfg, params, c: ARCarry, use_kernel, sampling=None,
+                   generator=None):
     """One AR step on the static carry, in place (the reference's
     ``fori_loop`` body)."""
     c.out.index_copy_(1, c.i, c.tok[:, None])              # out[:, i] = tok
@@ -375,7 +543,30 @@ def _ar_carry_step(cfg, params, c: ARCarry, use_kernel):
     c.i.add_(1)
     c.lengths.copy_(lengths)
     c.logits.copy_(logits)
-    c.tok.copy_(torch.argmax(logits, dim=-1).to(torch.int32))
+    c.tok.copy_(_ar_next(c, logits, sampling, generator))
+
+
+def _ar_run(cfg, params, tokens, prompt_lengths, cache, max_new, use_kernel,
+            observe, graphs, sampling=None, generator=None):
+    """The AR loop of ``ar_generate`` / ``ar_generate_sampled``."""
+    model = get_model(cfg)
+    last_hidden, cache = model.prefill(params, cfg, tokens, prompt_lengths,
+                                       cache)
+    if not isinstance(graphs, StepGraphs):
+        graphs = StepGraphs(tokens.device, capture=graphs)
+    step, c = ar_loop_step(cfg, params, cache, max_new, use_kernel, graphs,
+                           sampling, generator)
+    logits = model.unembed(params, cfg, last_hidden)
+    if sampling is None:
+        c.load(prompt_lengths, logits)
+    else:
+        c.load(prompt_lengths, logits, sampling.temperature, sampling.top_p)
+    c.tok.copy_(_ar_next(c, c.logits, sampling, generator))
+    for i in range(max_new):
+        if observe is not None:
+            observe(i, c.logits.clone())
+        step()
+    return c.out.clone(), c.lengths.clone()
 
 
 def ar_generate(cfg: ModelConfig, params, tokens, prompt_lengths, cache,
@@ -393,18 +584,29 @@ def ar_generate(cfg: ModelConfig, params, tokens, prompt_lengths, cache,
     eagerly; a ``StepGraphs`` (an engine's ``step_graphs``) keeps the
     graph across calls.  Returns (out [B, max_new] int32, lengths [B]
     final cache lengths)."""
-    model = get_model(cfg)
-    last_hidden, cache = model.prefill(params, cfg, tokens, prompt_lengths,
-                                       cache)
-    if not isinstance(graphs, StepGraphs):
-        graphs = StepGraphs(tokens.device, capture=graphs)
-    step, c = ar_loop_step(cfg, params, cache, max_new, use_kernel, graphs)
-    c.load(prompt_lengths, model.unembed(params, cfg, last_hidden))
-    for i in range(max_new):
-        if observe is not None:
-            observe(i, c.logits.clone())
-        step()
-    return c.out.clone(), c.lengths.clone()
+    return _ar_run(cfg, params, tokens, prompt_lengths, cache, max_new,
+                   use_kernel, observe, graphs)
+
+
+def ar_generate_sampled(cfg: ModelConfig, params, tokens, prompt_lengths,
+                        cache, max_new: int, generator: torch.Generator,
+                        sampling: Optional[SamplingParams] = None,
+                        use_kernel: bool = False,
+                        graphs: Union[bool, StepGraphs] = True):
+    """Stochastic autoregressive baseline on the same cache machinery
+    (T=1): every token is drawn from the warped target logits, with noise
+    from ``generator`` (on the tokens' device).
+
+    The distribution-equality oracle for ``accept="sample"``: lossless
+    stochastic speculative decoding must produce sequences distributed as
+    this loop's.  At ``sampling.temperature <= 0`` it is token-identical
+    to ``ar_generate``.  ``sampling.temperature``/``top_p`` go into the
+    carry as [B] tensors (``top_k`` is part of the graph's key);
+    ``use_kernel`` and ``graphs`` as ``ar_generate``.  Returns (out
+    [B, max_new] int32, lengths [B])."""
+    sp = sampling if sampling is not None else SamplingParams()
+    return _ar_run(cfg, params, tokens, prompt_lengths, cache, max_new,
+                   use_kernel, None, graphs, sp, generator)
 
 
 def _squeeze_spec(spec_cache):

@@ -26,10 +26,12 @@ class Proposer:
     ``init_state`` / ``prime`` / ``propose`` / ``observe``.  Class
     attributes describe the contract to the engine:
 
-    * ``consumes_key``  — propose() draws randomness (no greedy Medusa
-      proposer does; kept for the sampling slice).
+    * ``consumes_key``  — propose() draws randomness from the ``key`` it is
+      given (the engine's ``torch.Generator``).  The Medusa proposer draws
+      nothing.
     * ``q_kind``        — the draft distribution's form, "mprob" (per-node
-      head probabilities) or "logits".
+      head probabilities, verified by ``sample_verify_tree``) or "logits"
+      (per-position draft logits, the chain walk of item 12).
     * ``supports_prefix`` — the proposer can be primed from a prompt
       suffix.
     """
@@ -51,8 +53,13 @@ class Proposer:
         target's last hidden state, base [B] the first emitted token."""
         raise NotImplementedError
 
-    def propose(self, pp, state, base):
-        """-> (candidates [B, T] int32, q, state')."""
+    def propose(self, pp, state, base, key=None, temperature=1.0,
+                top_k: int = 0, top_p=1.0, stochastic: bool = False):
+        """-> (candidates [B, T] int32, q, state').  ``key`` is the
+        generator a proposer that ``consumes_key`` draws from;
+        ``temperature``/``top_k``/``top_p`` the warp its draws use
+        (per-row [B] tensors allowed) and ``stochastic`` whether the
+        engine verifies by sampling."""
         raise NotImplementedError
 
     def observe(self, pp, state, verdict, hidden, lengths):
@@ -95,7 +102,8 @@ class MedusaProposer(Proposer):
     def prime(self, pp, state, tokens, lengths, hidden, base):
         return self._heads(pp, hidden)
 
-    def propose(self, pp, state, base):
+    def propose(self, pp, state, base, key=None, temperature=1.0,
+                top_k: int = 0, top_p=1.0, stochastic: bool = False):
         cand = V.generate_candidates(base, state["mtok"], self.dtree)
         return cand, state["mprob"], state
 

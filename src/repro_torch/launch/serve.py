@@ -1,5 +1,5 @@
-"""Static-batch speculative server for the port: greedy Medusa tree
-decoding through the ``flash_decode`` kernel.
+"""Static-batch speculative server for the port: Medusa tree decoding
+through the ``flash_decode`` kernel, greedy or lossless sampled.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --slots 4 \\
       --max-new 64 --max-len 2048 --min-prompt 64 --max-prompt 257
@@ -24,7 +24,11 @@ and ``--cache-layout paged`` (with ``--page-size``) select the
 reference's other KV-cache layouts, under the same flags: an int8 cache
 with per-head-per-row f32 scales, and a block pool read through per-slot
 block tables (the identity table here; the serving scheduler's allocator
-is a later slice).
+is a later slice).  ``--accept sample`` verifies by lossless rejection
+sampling at ``--temperature`` (0, the default, is exact greedy) and
+``--top-p`` (the reference launcher's flags and defaults; ``--top-p``
+below 1 is refused with ``--verify-fusion``); the draws come from a
+generator seeded with ``--seed``.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SamplingParams
 from repro_torch.configs.registry import ALL_ARCHS, get_config
 from repro_torch.core import medusa as M
 from repro_torch.core.engine import SpecEngine, build_engine
@@ -131,7 +135,7 @@ def main(argv=None, weights=None) -> Served:
     model twice)."""
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
-        description="static-batch greedy Medusa serving on the PyTorch port")
+        description="static-batch Medusa serving on the PyTorch port")
     ap.add_argument("--arch", default="openpangu-7b", choices=ALL_ARCHS)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,
@@ -144,7 +148,8 @@ def main(argv=None, weights=None) -> Served:
     ap.add_argument("--max-prompt", type=int, default=48,
                     help="prompt lengths are drawn below this")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seeds the prompts and the random weights")
+                    help="seeds the prompts, the random weights and the "
+                         "sampling draws")
     ap.add_argument("--reduced", action="store_true",
                     help="the reference's reduced CPU-test config")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -160,6 +165,15 @@ def main(argv=None, weights=None) -> Served:
                          "global block pool with per-slot block tables")
     ap.add_argument("--page-size", type=int, default=64,
                     help="paged layout: logical rows per pool block")
+    ap.add_argument("--accept", default="greedy", choices=("greedy", "sample"),
+                    help="verification mode: greedy argmax match or lossless "
+                         "stochastic rejection sampling")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (accept=sample; 0 is exact "
+                         "greedy)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus truncation (accept=sample; 1.0 with "
+                         "--verify-fusion)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -168,8 +182,11 @@ def main(argv=None, weights=None) -> Served:
         cfg = dataclasses.replace(cfg, cache_dtype=args.cache_dtype,
                                   cache_layout=args.cache_layout,
                                   page_size=args.page_size)
-    engine = build_engine(cfg, "medusa", use_kernel=True, device=dev,
-                          verify_fusion=args.verify_fusion)
+    engine = build_engine(
+        cfg, "medusa", use_kernel=True, device=dev, accept=args.accept,
+        sampling=SamplingParams(temperature=args.temperature,
+                                top_p=args.top_p),
+        verify_fusion=args.verify_fusion, seed=args.seed)
     if weights is None:
         params, mp = build_model(cfg, args.seed, engine.dtree.K, dev)
     else:
@@ -184,6 +201,9 @@ def main(argv=None, weights=None) -> Served:
         print(f"  req {r['rid']}: {r['status']} prompt={r['prompt_len']} "
               f"steps={r['steps']} tokens/step={tps:.2f}")
     fused = " with verify fusion" if engine.cfg.verify_fusion else ""
+    if engine.accept == "sample":
+        fused += (f", sampled at temperature {args.temperature} top-p "
+                  f"{args.top_p}")
     layout = ""
     if cfg.resolved_cache_dtype == "int8" or cfg.paged:
         layout = (f" ({cfg.resolved_cache_dtype} {cfg.cache_layout} cache"

@@ -3,7 +3,8 @@ few speculative steps and a few AR steps of the served model, each run
 eagerly and as the captured CUDA graph the engine replays.
 
   PYTHONPATH=src python -m repro_torch.launch.trace [--steps 4] \
-      [--cache-dtype int8] [--cache-layout paged] [--page-size 64]
+      [--cache-dtype int8] [--cache-layout paged] [--page-size 64] \
+      [--temperature 0.7]
 
 Builds the launcher's model (bf16 openPangu-7B at full width and depth,
 random weights from seed 0), prefills 4 prompts of 64–256 tokens from the
@@ -14,7 +15,11 @@ the AR loop body (``ar_loop_step``) eagerly and as a graph, and the
 verify-fusion engine's loop body (``verify_fusion=True``: the
 ``unembed_verify_stats`` and ``fused_qkv_rope_commit`` kernels in place
 of the [B, T, V] logits and the unfused write side) eagerly and as a
-graph.  Each kind warms up for two steps (a graph: its eager warm-up
+graph; then the same three loop bodies sampled (``accept="sample"`` at
+``--temperature``, the AR body ``ar_generate_sampled``'s): the warp,
+the sort of the nucleus and the rejection-sampling walk in place of the
+greedy rule, the fused kernel at per-row temperatures.  Each kind warms
+up for two steps (a graph: its eager warm-up
 step, then its capture and first replay), then runs ``--steps`` steps
 timed and ``--steps`` under the profiler; the spec kinds end each step
 with the loop's exit test, a host read, as ``generate`` does.  For each
@@ -40,6 +45,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.configs.base import SamplingParams
 from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import ar_loop_step, build_engine
 from repro_torch.launch.serve import build_model, make_prompts
@@ -100,6 +106,8 @@ def main(argv=None):
     ap.add_argument("--cache-layout", default="dense",
                     choices=("dense", "paged"))
     ap.add_argument("--page-size", type=int, default=64)
+    ap.add_argument("--temperature", type=float, default=0.7,
+                    help="the sampled kinds' temperature")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -109,11 +117,13 @@ def main(argv=None):
                               page_size=args.page_size)
     print(f"{cfg.name}: {cfg.resolved_cache_dtype} {cfg.cache_layout} cache"
           + (f", page size {cfg.page_size}" if cfg.paged else ""))
-    engines = {(vf, graphs): build_engine(cfg, "medusa", use_kernel=True,
-                                          device=dev, verify_fusion=vf,
-                                          graphs=graphs)
-               for vf in (False, True) for graphs in (False, True)}
-    eng = engines[False, False]
+    sp = SamplingParams(temperature=args.temperature)
+    engines = {(vf, graphs, accept): build_engine(
+        cfg, "medusa", use_kernel=True, device=dev, verify_fusion=vf,
+        graphs=graphs, accept=accept, sampling=sp)
+        for vf in (False, True) for graphs in (False, True)
+        for accept in ("greedy", "sample")}
+    eng = engines[False, False, "greedy"]
     params, mp = build_model(cfg, 0, eng.dtree.K, dev)
     prompts = make_prompts(cfg.vocab_size, 4, 0, 64, 257)
     S = max(len(p) for p in prompts)
@@ -129,10 +139,11 @@ def main(argv=None):
     pos = {"lengths": lengths, "base": base, "state": state}
     n = 2 + 2 * args.steps                 # steps each kind runs
 
-    def spec(vf, graphs):
-        step, c = engines[vf, graphs].loop_step(params, mp, cache,
-                                                pos["state"], n)
-        c.load(pos["lengths"], pos["base"], pos["state"])
+    def spec(vf, graphs, accept="greedy"):
+        step, c = engines[vf, graphs, accept].loop_step(params, mp, cache,
+                                                        pos["state"], n)
+        c.load(pos["lengths"], pos["base"], pos["state"], sp.temperature,
+               sp.top_p)
 
         def step_and_exit_test():
             step()
@@ -143,12 +154,16 @@ def main(argv=None):
                        state={k: t.clone() for k, t in c.state.items()})
         return step, step_and_exit_test, done
 
-    def ar(graphs):
-        step, c = ar_loop_step(cfg, params, cache, n, True,
-                               engines[False, graphs].step_graphs)
+    def ar(graphs, accept="greedy"):
+        e = engines[False, graphs, accept]
+        sampled = (sp, e.generator) if accept == "sample" else ()
+        step, c = ar_loop_step(cfg, params, cache, n, True, e.step_graphs,
+                               *sampled)
         c.lengths.copy_(pos["lengths"])
         c.tok.copy_(pos["base"])
         c.i.zero_()
+        c.temperature.fill_(sp.temperature)
+        c.top_p.fill_(sp.top_p)
 
         def done():
             pos.update(lengths=c.lengths.clone(), base=c.tok.clone())
@@ -166,7 +181,13 @@ def main(argv=None):
              ("spec graph", lambda: spec(False, True)),
              ("ar", lambda: ar(False)), ("ar graph", lambda: ar(True)),
              ("spec-fused", lambda: spec(True, False)),
-             ("spec-fused graph", lambda: spec(True, True)))
+             ("spec-fused graph", lambda: spec(True, True)),
+             ("spec sampled", lambda: spec(False, False, "sample")),
+             ("spec sampled graph", lambda: spec(False, True, "sample")),
+             ("ar sampled", lambda: ar(False, "sample")),
+             ("ar sampled graph", lambda: ar(True, "sample")),
+             ("spec-fused sampled", lambda: spec(True, False, "sample")),
+             ("spec-fused sampled graph", lambda: spec(True, True, "sample")))
     for name, make in kinds:
         graph, step, done = make()
         for _ in range(2):          # warm up (a graph: warm-up, capture)

@@ -3,6 +3,7 @@ launch counters, and the capture of a decode step as a CUDA graph."""
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 
 import torch
@@ -103,13 +104,31 @@ def _on_side_stream(device):
     cur.wait_stream(side)
 
 
-def _capture_graph(fn, pool, device):
+def _capture_graph(fn, pool, device, generators=()):
     """-> a ``torch.cuda.CUDAGraph`` of the work ``fn()`` issues, captured
     into ``pool``.  The Python of ``fn`` runs; its device work is recorded,
-    not executed."""
+    not executed.  Each of ``generators`` (CUDA ``torch.Generator``s that
+    ``fn`` draws from) is registered with the graph before the capture, so
+    every replay advances its Philox offset and draws fresh numbers, the
+    ones the same work run eagerly from the same state would draw.  A draw
+    from a CUDA generator that is not registered fails the capture.
+
+    Python's cyclic garbage collector is held off during the capture: a
+    dead graph in a reference cycle that the collector destroyed while
+    another graph is capturing would invalidate that capture.  (The
+    engines hold no such cycle: a dropped engine frees its graphs at
+    once.)"""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        fn()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            fn()
+    finally:
+        if collecting:
+            gc.enable()
     torch.cuda.synchronize(device)
     return graph
 
@@ -135,12 +154,19 @@ class StepGraph:
     Launch counts: the kernel wrappers count in Python, which runs only at
     capture.  So a capture adds nothing to their counters, and every
     replay adds the launches (and routes) the capture recorded.
+
+    Randomness: ``generators`` are the ``torch.Generator``s the step draws
+    from.  They are registered with the capture, so each replay draws new
+    numbers (see ``_capture_graph``) and a run replays the draws of the
+    same run made eagerly from the same generator state.
     """
 
-    def __init__(self, step, device, pool=None, capture: bool = True):
+    def __init__(self, step, device, pool=None, capture: bool = True,
+                 generators=()):
         self.step = step
         self.device = torch.device(device)
         self.pool = pool
+        self.generators = tuple(generators)
         self.capture = capture and _capturable(self.device)
         self.graph = None
         self.warm = False
@@ -166,7 +192,8 @@ class StepGraph:
         before = launch_counts()
         t0 = time.perf_counter()
         try:
-            graph = _capture_graph(self.step, self.pool, self.device)
+            graph = _capture_graph(self.step, self.pool, self.device,
+                                   self.generators)
         except Exception as e:
             raise RuntimeError("capturing the decode step as a CUDA graph "
                                "failed; the port has no eager fallback "
@@ -187,8 +214,8 @@ class StepGraphs:
     under ``key`` (a step's shape) while the tensors it was captured on,
     ``binding`` (see ``binding``), are the same; otherwise it drops that
     pair and keeps ``make()`` in its place.  ``make`` builds its
-    ``StepGraph`` with ``graph(step)``.  With ``capture=False`` the steps
-    run eagerly."""
+    ``StepGraph`` with ``graph(step, generators)``.  With ``capture=False``
+    the steps run eagerly."""
 
     def __init__(self, device, capture: bool = True):
         self.device = torch.device(device)
@@ -196,10 +223,11 @@ class StepGraphs:
         self._pool = None
         self._kept = {}
 
-    def graph(self, step) -> StepGraph:
+    def graph(self, step, generators=()) -> StepGraph:
         if self.capture and _capturable(self.device) and self._pool is None:
             self._pool = _graph_pool()
-        return StepGraph(step, self.device, self._pool, self.capture)
+        return StepGraph(step, self.device, self._pool, self.capture,
+                         generators)
 
     def get(self, key, binding, make):
         held = self._kept.get(key)
@@ -219,8 +247,10 @@ class StepGraphs:
 
 
 def binding(*trees) -> tuple:
-    """(address, shape, dtype) of every tensor in nested dicts: a graph
-    captured on these tensors replays right on any others that match."""
+    """(address, shape, dtype) of every tensor in nested dicts, and every
+    ``torch.Generator`` itself (held, and compared by identity): a graph
+    captured on these tensors, drawing from these generators, replays
+    right on any others that match."""
     out = []
 
     def walk(t):
@@ -229,6 +259,8 @@ def binding(*trees) -> tuple:
                 walk(t[k])
         elif isinstance(t, torch.Tensor):
             out.append((t.data_ptr(), tuple(t.shape), t.dtype))
+        elif isinstance(t, torch.Generator):
+            out.append(t)
     for t in trees:
         walk(t)
     return tuple(out)

@@ -22,6 +22,12 @@ has no JAX, so these tests run there from a copy of this file outside
   every layout and fusion mode: graph tokens == eager tokens == AR tokens
   exactly, launch counts exact, and a second ``generate`` on the
   engine's reused cache replays every step with no new capture.
+* The captured sampled step (``accept="sample"``) on the same model,
+  unfused and fused: graph tokens == eager tokens from the same generator
+  seed at temperature 0.7, again at 0.9 on the same graph with no new
+  capture, and the AR tokens at temperature 0; a registered generator
+  draws fresh noise at every replay (the eager draws), and a capture
+  that draws from an unregistered one raises.
 """
 import dataclasses
 
@@ -383,3 +389,77 @@ def test_cuda_graph_step_equals_eager(dev, name):
     for got in (sp, ar, sp2, ar2, want_ar):
         assert torch.equal(got, want)
     assert st.steps == st2.steps == want_st.steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_sampled_graph_step_equals_eager(dev, fused):
+    from repro_torch.configs.base import SamplingParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import ar_generate, build_engine
+    from repro_torch.launch.serve import build_model, make_prompts
+
+    cfg = dataclasses.replace(get_config("openpangu-7b", reduced=True),
+                              head_dim=64, num_layers=2, verify_fusion=fused)
+
+    def engine(t, graphs=True):
+        return build_engine(cfg, use_kernel=True, device=dev, graphs=graphs,
+                            accept="sample", seed=4,
+                            sampling=SamplingParams(temperature=t))
+
+    eng, eager = engine(0.7), engine(0.7, graphs=False)
+    params, mp = build_model(cfg, 3, eng.dtree.K, dev)
+    prompts = make_prompts(cfg.vocab_size, 4, 3, 8, 40)
+    tok = torch.zeros((4, max(len(p) for p in prompts)), dtype=torch.int32)
+    for j, p in enumerate(prompts):
+        tok[j, :len(p)] = torch.from_numpy(p)
+    tok = tok.to(dev)
+    plen = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    max_new, max_len = 24, 256
+
+    def run(e, **kw):
+        out, n_out, st = e.generate(params, mp, tok, plen,
+                                    e.init_cache(4, max_len), max_new, **kw)
+        assert bool((n_out == max_new).all())
+        return out.cpu(), st
+
+    got, st = run(eng)
+    assert torch.equal(got, run(eager)[0])
+    (graph, _), = eng.step_graphs.kept()
+    replays = graph.replays
+    got2, st2 = run(eng, temperature=0.9)
+    assert torch.equal(got2, run(eager, temperature=0.9)[0])
+    assert len(eng.step_graphs.kept()) == 1
+    assert graph.replays == replays + st2.steps
+    zero = run(engine(0.0))[0]
+    ar, _ = ar_generate(cfg, params, tok, plen, eng.init_cache(4, max_len),
+                        max_new, use_kernel=True)
+    assert torch.equal(zero, ar.cpu()) and not torch.equal(got, zero)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_draws_fresh_noise_and_refuses_an_unregistered_generator(
+        dev):
+    from repro_torch import runtime
+    from repro_torch.core import sampling as S
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    buf = torch.empty((4, 1000), device=dev)
+    graph = runtime.StepGraph(lambda: buf.copy_(S.gumbel(buf.shape, gen)),
+                              dev, generators=(gen,))
+    seen = []
+    for _ in range(4):
+        graph()
+        seen.append(buf.clone())
+    gen.manual_seed(0)
+    for got in seen:
+        assert torch.equal(got, S.gumbel(buf.shape, gen))
+    assert not torch.equal(seen[2], seen[3]) and graph.replays == 3
+    other = torch.Generator(device=dev).manual_seed(1)
+    bad = runtime.StepGraph(lambda: buf.copy_(S.uniform(buf.shape, other)),
+                            dev)
+    bad()
+    with pytest.raises(RuntimeError, match="no eager fallback"):
+        bad()
+    assert float(torch.ones(8, device=dev).sum()) == 8

@@ -17,9 +17,13 @@ capture helper's launch bookkeeping, on the CPU.
   a new capture.
 * A failed capture raises, and nothing runs the step eagerly in its
   place.
+* ``_capture_graph`` registers the step's generators before the capture
+  and keeps Python's cyclic collector off during it.
 """
 import contextlib
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -133,7 +137,7 @@ def stub_cuda(monkeypatch):
     captured step functions."""
     captured = []
 
-    def capture(fn, pool, device):
+    def capture(fn, pool, device, generators=()):
         captured.append(fn)
         fn()
         return _FakeGraph(fn)
@@ -216,7 +220,7 @@ def test_failed_capture_raises_and_runs_nothing_in_its_place(monkeypatch,
         ran.append(1)
         CU.commit_rows_stacked.launches += 1
 
-    def capture(fn, pool, device):
+    def capture(fn, pool, device, generators=()):
         fn()
         raise RuntimeError("operation not permitted when stream is "
                            "capturing")
@@ -234,10 +238,50 @@ def test_failed_capture_raises_and_runs_nothing_in_its_place(monkeypatch,
     assert len(ran) == 2 and _counts()["K4"] == 1
 
 
+def test_capture_registers_generators_and_holds_off_the_collector(
+        monkeypatch):
+    """``_capture_graph`` with ``torch.cuda``'s graph calls stubbed: the
+    step's generators are registered before the capture begins, and
+    Python's cyclic collector stays off during it (a dead graph destroyed
+    mid-capture invalidates the capture), also when the capture fails; no
+    collection is forced (it cost more than half a second a capture)."""
+    events = []
+
+    class FakeCUDAGraph:
+        def register_generator_state(self, gen):
+            events.append(("register", gen))
+
+    @contextlib.contextmanager
+    def fake_graph(graph, pool=None):
+        events.append(("begin", gc.isenabled()))
+        yield
+        events.append(("end", gc.isenabled()))
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeCUDAGraph)
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(gc, "collect",
+                        lambda *a: events.append(("collect",)) or 0)
+    gen = torch.Generator()
+    runtime._capture_graph(lambda: events.append(("step", gc.isenabled())),
+                           None, "cuda", (gen,))
+    assert events == [("register", gen), ("begin", False),
+                      ("step", False), ("end", False)]
+    assert gc.isenabled()
+
+    def failing():
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+    with pytest.raises(RuntimeError, match="stream is capturing"):
+        runtime._capture_graph(failing, None, "cuda")
+    assert gc.isenabled()
+
+
 def test_engine_raises_when_its_capture_fails(stack, monkeypatch):
     cfg, tb, _, _, tparams, tmp, tokens, lengths = stack
 
-    def capture(fn, pool, device):
+    def capture(fn, pool, device, generators=()):
         raise RuntimeError("operation not permitted when stream is "
                            "capturing")
 
@@ -366,6 +410,31 @@ def test_a_new_cache_recaptures(stack, stub_cuda, counters):
     second = eng.generate(tparams, tmp, tok, plen, own, MAX_NEW)[0]
     assert len(stub_cuda) == 2 and len(eng.step_graphs.kept()) == 1
     np.testing.assert_array_equal(first.numpy(), second.numpy())
+
+
+@pytest.mark.parametrize("accept", ["greedy", "sample"])
+def test_a_dropped_engine_frees_its_graphs_at_once(stack, stub_cuda, accept):
+    """The engine holds its graphs and their steps hold no strong reference
+    back: dropping the engine frees it and its captured graphs at once,
+    with the cyclic collector off (a cycle would leave them to the
+    collector, which may destroy a graph in the middle of another
+    capture)."""
+    cfg, tb, _, _, tparams, tmp, tokens, lengths = stack
+    eng = SpecEngine(cfg, tb, use_kernel=True, device="cpu", accept=accept)
+    eng.generate(tparams, tmp, _t(tokens), _t(lengths),
+                 eng.init_cache(B, S_MAX), MAX_NEW)
+    (step, _), = eng.step_graphs.kept()
+    assert step.graph is not None and len(stub_cuda) == 1
+    dead = weakref.ref(eng), weakref.ref(step.graph)
+    del step
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del eng
+        assert [r() for r in dead] == [None, None]
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def test_init_cache_hands_back_one_zeroed_cache(stack):
