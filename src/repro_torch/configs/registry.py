@@ -1,5 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launcher.  The first slice lists the paper's own model only."""
+launcher.  It lists the reference registry's dense decoders: the paper's
+own model and the four others of the same family."""
 from __future__ import annotations
 
 import importlib
@@ -8,6 +9,10 @@ from repro_torch.configs.base import ModelConfig
 
 # arch id -> module
 _MODULES = {
+    "gemma-2b": "repro_torch.configs.gemma_2b",
+    "granite-8b": "repro_torch.configs.granite_8b",
+    "qwen1.5-4b": "repro_torch.configs.qwen15_4b",
+    "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
     "openpangu-7b": "repro_torch.configs.openpangu_7b",
 }
 

@@ -303,8 +303,9 @@ class SpecEngine:
             tmax = torch.clamp(S.per_row(temperature, B, dev), min=1e-6)
         else:
             tmax = torch.ones((B,), dtype=torch.float32, device=dev)
-        stats = V.VerifyStats(*KO.verify_stats(hidden, params["lm_head"],
-                                               cand, tmax))
+        w, layout = self.model.unembed_weight(params)
+        stats = V.VerifyStats(*KO.verify_stats(hidden, w, cand, tmax,
+                                               layout))
         if self.accept != "sample":
             return V.greedy_verify_stats(cand, stats, self.dtree)
         rows = torch.arange(B, device=dev)

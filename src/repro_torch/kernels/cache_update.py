@@ -45,7 +45,7 @@ from repro_torch.models import layers as L
 from repro_torch.runtime import counted
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 
 
 def fused_qkv_rope_commit_plain(x, p, lengths, k_cache, v_cache, *, cos=None,
@@ -158,14 +158,40 @@ def qkv_plan(M, d, hd, dtype, aligned=True):
     rows a block, d split over clusters of 2 blocks (96 blocks for 48
     heads); at the AR step (M <= 64) 1 consumer warpgroup, 64 rows a
     block, d split 4 ways (192 blocks, two per SM, streaming the weights).
-    No split gets fewer than one 64-deep stage.  ``"tile"`` otherwise:
-    ``(route, 0, 1)``."""
+    At head_dim 256 a block holds one SM's shared memory and takes 128
+    rows at the spec step, and a few heads (gemma-2b's 8 + 1 + 1) fill few
+    SMs, so d is split 4 ways at the spec step (80 blocks: 2 row tiles x
+    10 heads x 4) and 8 at the AR step (80 blocks).  No split gets fewer
+    than one 64-deep stage.  ``"tile"`` otherwise: ``(route, 0, 1)``."""
     if dtype != torch.bfloat16 or not aligned or d % 8 or hd not in _HEAD_DIMS:
         return "tile", 0, 1
     stages = -(-d // 64)
+    wide = hd == 256
     if M <= 64:
-        return "wgmma", 1, min(4, stages)
-    return "wgmma", 2, min(2, stages)
+        return "wgmma", 1, min(8 if wide else 4, stages)
+    return "wgmma", 2, min(4 if wide else 2, stages)
+
+
+def qkv_smem(hd, consumers) -> int:
+    """Dynamic shared memory of one wgmma-route block (``QkvCfg::SMEM`` in
+    ``csrc/fused_qkv_rope_commit.cu``): a 4-stage ring of (rows x 128
+    bytes of x, hd / 64 boxes of 8 KB of weights), reused as the f32
+    epilogue tile (rows x (hd + 8) x 4 bytes), plus 1024 bytes of
+    alignment and the ring's barriers."""
+    rows = 64 if consumers == 1 else (128 if hd == 256 else 256)
+    ring = 4 * (rows * 128 + hd // 64 * 8192)
+    return max(ring, rows * (hd + 8) * 4) + 1024 + 4 * 2 * 8
+
+
+def qkv_blocks(M, Hq, Hkv, hd, route, consumers, splits):
+    """Blocks of one ``fused_qkv_rope_commit`` launch on the plan's route:
+    the wgmma route's splits x heads x row tiles (``qkv_plan``'s rows a
+    block), the tile route's (64-row tiles) x heads."""
+    heads = Hq + 2 * Hkv
+    if route == "tile":
+        return -(-M // 64) * heads
+    rows = 64 if consumers == 1 else (128 if hd == 256 else 256)
+    return splits * heads * -(-M // rows)
 
 
 def _kernel_fn(dtype, route="tile"):

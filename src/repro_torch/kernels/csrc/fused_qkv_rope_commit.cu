@@ -34,7 +34,10 @@
 // head's cache rows stay in it) and BM rows: at the spec step (M > 64) BM =
 // 256, two consumer warpgroups of 128 rows, so each weight byte leaves HBM
 // once per row tile; at the AR step (M <= 64) BM = 64, one consumer
-// warpgroup whose m64 wgmma tile is mostly padding.  48 heads are too few
+// warpgroup whose m64 wgmma tile is mostly padding.  At head_dim 256
+// (gemma-2b) a head is one m64n256 product a warpgroup and the spec step
+// takes BM = 128 (two warpgroups of 64 rows): a 256-row f32 tile of 264
+// columns would not fit a block's shared memory.  48 heads are too few
 // for 132 SMs, so the depth d is split over a cluster of `splits` blocks
 // (2 at the spec step: 96 blocks; 4 at the AR step: 192 blocks, two per SM,
 // each keeping 4 stages of weight boxes in flight).  Each block writes its
@@ -172,6 +175,10 @@ int dispatch(const void* x, const void* wq, const void* wk, const void* wv, cons
       return launch<T, 128>(x, wq, wk, wv, bq, bk, bv, cos_t, sin_t, lengths, q, k, v, kc,
                             vc, M, T_nodes, d, Hq, Hkv, S, kc_sb, kc_ss, kc_sh, vc_sb,
                             vc_ss, vc_sh, table, ps, mb, stream);
+    case 256:
+      return launch<T, 256>(x, wq, wk, wv, bq, bk, bv, cos_t, sin_t, lengths, q, k, v, kc,
+                            vc, M, T_nodes, d, Hq, Hkv, S, kc_sb, kc_ss, kc_sh, vc_sb,
+                            vc_ss, vc_sh, table, ps, mb, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -186,9 +193,15 @@ using bf16 = __nv_bfloat16;
 
 template <int HD, int NC>
 struct QkvCfg {
-  static constexpr int MB = NC == 2 ? 2 : 1;  // m64 blocks per consumer warpgroup
+  // m64 blocks per consumer warpgroup: at HD 256 one, so the accumulator
+  // stays at 128 registers a thread (one m64n256 tile) and the f32
+  // epilogue tile (BM x (HD + 8) x 4 bytes: 135 KB at BM 128, 270 KB at
+  // BM 256) and the ring fit a block's 227 KB of shared memory
+  static constexpr int MB = NC == 2 && HD <= 128 ? 2 : 1;
   static constexpr int WG_M = 64 * MB;
-  static constexpr int BM = NC * WG_M;        // 256 (spec step) or 64 (AR step)
+  // rows a block: 256 (HD <= 128) or 128 (HD 256) at the spec step, 64 at
+  // the AR step
+  static constexpr int BM = NC * WG_M;
   static constexpr int ST = 4;
   using RG = hopper::Ring<BM, HD, ST>;
   static constexpr int LDC = HD + 8;  // f32 tile row stride: float2 writes spread over banks
@@ -242,8 +255,11 @@ __device__ __forceinline__ void sum_ranks(float (&z)[8], const float* tile, int 
   }
 }
 
+// two AR-step blocks an SM where their registers and shared memory fit (HD
+// <= 128), one at HD 256
 template <int HD, int NC>
-__global__ void __launch_bounds__(QkvCfg<HD, NC>::THREADS, NC == 1 ? 2 : 1) qkv_wgmma_kernel(
+__global__ void __launch_bounds__(QkvCfg<HD, NC>::THREADS,
+                                  NC == 1 && HD <= 128 ? 2 : 1) qkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap wq_map,
     const __grid_constant__ CUtensorMap wk_map, const __grid_constant__ CUtensorMap wv_map,
     const bf16* __restrict__ bq, const bf16* __restrict__ bk, const bf16* __restrict__ bv,
@@ -461,8 +477,8 @@ extern "C" int fused_qkv_rope_commit_bf16(
 }
 
 // The wgmma route, bf16 only; arguments as above, plus `consumers` (2: 256
-// rows a block, the spec step; 1: 64 rows, the AR step, M <= 64) and
-// `splits` (the cluster size along d, 1 to 8).  Every pointer and row
+// rows a block (128 at hd 256), the spec step; 1: 64 rows, the AR step,
+// M <= 64) and `splits` (the cluster size along d, 1 to 8).  Every pointer and row
 // stride must be 16-byte aligned (the wrapper checks; it routes other
 // shapes to the functions above).  Weight maps are cached across calls.
 extern "C" int fused_qkv_rope_commit_bf16_wgmma(
@@ -472,10 +488,11 @@ extern "C" int fused_qkv_rope_commit_bf16_wgmma(
     int d, int Hq, int Hkv, int hd, int S, int64_t kc_sb, int64_t kc_ss, int64_t kc_sh,
     int64_t vc_sb, int64_t vc_ss, int64_t vc_sh, const void* table, int ps, int mb,
     int consumers, int splits, void* stream) {
-  if ((consumers != 1 && consumers != 2) || splits < 1 || splits > 8 || (hd != 64 && hd != 128))
+  if ((consumers != 1 && consumers != 2) || splits < 1 || splits > 8 ||
+      (hd != 64 && hd != 128 && hd != 256))
     return (int)cudaErrorInvalidValue;
   CUtensorMap xm, wqm, wkm, wvm;
-  const uint32_t bm = consumers == 2 ? 256 : 64;
+  const uint32_t bm = consumers == 1 ? 64 : (hd == 256 ? 128 : 256);
   int err = hopper_host::encode_map(&xm, x, d, M, (uint64_t)d * 2, 64, bm);
   if (!err) err = hopper_host::weight_map(&wqm, wq, (uint64_t)Hq * hd, d,
                                           (uint64_t)Hq * hd * 2, 64, 64);
@@ -488,6 +505,8 @@ extern "C" int fused_qkv_rope_commit_bf16_wgmma(
 #define QKV_ARGS                                                                            \
   xm, wqm, wkm, wvm, bq, bk, bv, cos_t, sin_t, lengths, q, k, v, kc, vc, M, T_nodes, d, Hq, \
       Hkv, S, kc_sb, kc_ss, kc_sh, vc_sb, vc_ss, vc_sh, table, ps, mb, splits, s
+  if (hd == 256)
+    return consumers == 2 ? launch_wgmma<256, 2>(QKV_ARGS) : launch_wgmma<256, 1>(QKV_ARGS);
   if (hd == 128)
     return consumers == 2 ? launch_wgmma<128, 2>(QKV_ARGS) : launch_wgmma<128, 1>(QKV_ARGS);
   return consumers == 2 ? launch_wgmma<64, 2>(QKV_ARGS) : launch_wgmma<64, 1>(QKV_ARGS);

@@ -2,15 +2,20 @@
 // kernels, `fused_qkv_rope_commit.cu` (K3) and `verify_stats.cu` (K2).
 //
 // C [BM, N] += A [BM, K] @ B [K, N] with A row-major (K contiguous: the
-// activations) and B row-major (N contiguous: the weights as the model
-// stores them, [d, cols]), bf16 in, f32 sums in registers:
-//   - wgmma.mma_async m64nNk16 (N 64 or 128), A and B both read from
-//     shared memory through descriptors; B is N-major (transposed operand);
+// activations) and B either row-major (N contiguous: the weights as the
+// model stores them, [d, cols]) or, with KMB, K-major (B^T [N, K]
+// row-major: a tied model's embedding table [V, d] read in place as its
+// own transpose), bf16 in, f32 sums in registers:
+//   - wgmma.mma_async m64nNk16 (N 64, 128 or 256), A and B both read from
+//     shared memory through descriptors; B is N-major (the transposed
+//     operand) or, with KMB, K-major like A;
 //   - operands in 128-byte-swizzled shared memory, one stage of depth
-//     BK = 64 (one 128-byte row of A, 64 rows of B) per ring slot;
+//     BK = 64 (one 128-byte row of A, 64 rows of B, or with KMB one
+//     128-byte row per B column) per ring slot;
 //   - a ring of ST stages filled by TMA (cp.async.bulk.tensor.2d with
 //     mbarrier completion) from one thread of a producer warpgroup; A is
-//     one box {64, BM}, B one box {64, 64} per 64 columns;
+//     one box {64, BM}, B one box {64, 64} per 64 columns (with KMB the
+//     box is 64 columns of B^T's rows by 64 deep, the same 8 KB);
 //   - one or two consumer warpgroups, each owning MB x 64 rows of the tile;
 //     a stage is released (its `empty` barrier) once the wgmma group that
 //     read it has retired, so one group stays in flight behind the next;
@@ -152,7 +157,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[0:32] += A (64 x 16, K-major) * B (16 x 64, N-major), bf16 in, f32 sum
+// d[0:32] += A (64 x 16, K-major) * B (16 x 64), bf16 in, f32 sum; TB 1:
+// B N-major (transposed), TB 0: B K-major
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -161,17 +168,18 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
-// d[0:64] += A (64 x 16, K-major) * B (16 x 128, N-major), bf16 in, f32 sum
+// d[0:64] += A (64 x 16, K-major) * B (16 x 128), bf16 in, f32 sum; TB as above
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -184,7 +192,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -196,7 +204,56 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// d[0:128] += A (64 x 16, K-major) * B (16 x 256), bf16 in, f32 sum; TB as
+// above
+template <int TB = 1>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
 
@@ -269,7 +326,10 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 // (rows [slice BM / SH, (slice + 1) BM / SH)) and multicasts it to all of
 // them, so each A byte leaves L2 once per SH blocks.  A's map then has
 // boxes of BM / SH rows.
-template <class RG, int SH = 1>
+//
+// KMB: B is K-major (its map is over B^T [N, K]); the box for columns
+// [b_col0 + 64 c, + 64) is then 64 rows of B^T by 64 deep.
+template <class RG, int SH = 1, bool KMB = false>
 __device__ __forceinline__ void produce(unsigned char* ring, uint64_t* full, uint64_t* empty,
                                         uint32_t& it, const CUtensorMap* a_map, int a_row0,
                                         const CUtensorMap* b_map, int b_col0, int kt0, int kt1,
@@ -287,9 +347,14 @@ __device__ __forceinline__ void produce(unsigned char* ring, uint64_t* full, uin
                             a_row0 + slice * (RG::BM / SH), mask);
     }
 #pragma unroll
-    for (int c = 0; c < RG::N / 64; ++c)
-      tma_load_2d(st + RG::A_BYTES + c * B_CHUNK_BYTES, b_map, &full[s], b_col0 + 64 * c,
-                  kt * BK);
+    for (int c = 0; c < RG::N / 64; ++c) {
+      if constexpr (KMB)
+        tma_load_2d(st + RG::A_BYTES + c * B_CHUNK_BYTES, b_map, &full[s], kt * BK,
+                    b_col0 + 64 * c);
+      else
+        tma_load_2d(st + RG::A_BYTES + c * B_CHUNK_BYTES, b_map, &full[s], b_col0 + 64 * c,
+                    kt * BK);
+    }
   }
 }
 
@@ -314,8 +379,8 @@ __device__ __forceinline__ void release(uint64_t* bar, uint16_t mask) {
 // Consumer: one warpgroup's acc[MB][N / 2] += (rows wg_row0 + 64 mb .. of
 // the A tile) x B over nk stages; a stage is released (see `release`) once
 // the group that read it has retired.  acc must be initialised by the
-// caller.
-template <class RG, int MB, int SH = 1>
+// caller.  KMB: B is K-major (see `produce`).
+template <class RG, int MB, int SH = 1, bool KMB = false>
 __device__ __forceinline__ void consume(float (&acc)[MB][RG::N / 2], unsigned char* ring,
                                         uint64_t* full, uint64_t* empty, uint32_t& it,
                                         int wg_row0, int nk, uint16_t mask = 1) {
@@ -329,13 +394,15 @@ __device__ __forceinline__ void consume(float (&acc)[MB][RG::N / 2], unsigned ch
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      // B: 16 rows of K further on is 2 swizzle atoms (2 x 1024 bytes)
-      const uint64_t db = desc_sw128(b + kk * 2048, B_CHUNK_BYTES, 1024);
+      // B N-major: 16 rows of K further on is 2 swizzle atoms (2 x 1024
+      // bytes); B K-major: 16 bf16 further along each 128-byte row, as A
+      const uint64_t db = KMB ? desc_sw128(b + kk * 32, 16, 1024)
+                              : desc_sw128(b + kk * 2048, B_CHUNK_BYTES, 1024);
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) {
         // A: 16 bf16 further along the 128-byte row is 32 bytes
         const uint64_t da = desc_sw128(a + mb * 64 * A_ROW_BYTES + kk * 32, 16, 1024);
-        wgmma_bf16(acc[mb], da, db);
+        wgmma_bf16<KMB ? 0 : 1>(acc[mb], da, db);
       }
     }
     wgmma_commit();

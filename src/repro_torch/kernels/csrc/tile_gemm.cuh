@@ -1,6 +1,9 @@
 // One output tile of C = A @ B for the port's fused kernels (sm_90a).
 //
-// A [M, K] and B [K, N] are row-major with leading dimensions lda/ldb; a
+// A [M, K] and B [K, N] are row-major with leading dimensions lda/ldb (or,
+// with KM, B is K-major: B^T [N, K] row-major with leading dimension ldb,
+// as a tied model's [V, d] embedding table is its own unembedding
+// weight's transpose); a
 // block of NT = 256 threads computes the f32 tile C[row0 : row0+BM,
 // col0 : col0+BN] into shared memory (row stride LDC = BN + 4), where the
 // calling kernel's epilogue reads it.  Rows past M, columns past N and
@@ -8,7 +11,8 @@
 //
 //   bf16: mma.sync m16n8k16 bf16 -> f32 on the tensor cores, fed by
 //         ldmatrix (B transposed on the load, so it stays [K, N] in shared
-//         memory as it is in device memory); A and B tiles of depth 64 in a
+//         memory as it is in device memory; a K-major B stays [N, K] and
+//         is loaded without the transpose); A and B tiles of depth 64 in a
 //         ring of 3 shared-memory stages filled with cp.async (16-byte
 //         copies) when the rows are 16-byte aligned, element loads
 //         otherwise.  8 warps as 4 x 2, each owning a (BM/4) x (BN/2)
@@ -84,17 +88,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int BM, int BN>
+template <int BM, int BN, bool KM = false>
 struct Bf16Tile {
   // depth 64 and 3 stages: of the depths 32 and 64 with 2 to 4 stages,
   // the fastest over both callers at openPangu-7B's shapes on an H100
   static constexpr int BK = 64;
   static constexpr int STAGES = 3;
   static constexpr int LDA = BK + 8;  // bf16 elements; rows stay 16-byte aligned
-  static constexpr int LDB = BN + 8;
+  // B stage: [BK][BN + 8], or K-major [BN][BK + 8]
+  static constexpr int LDB = KM ? BK + 8 : BN + 8;
   static constexpr int WM = BM / 4, WN = BN / 2;
   static constexpr int FM = WM / 16, FN = WN / 8;  // m16 x n8 products per warp
-  static constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
+  static constexpr int A_ELEMS = BM * LDA, B_ELEMS = (KM ? BN : BK) * LDB;
   static constexpr int LOOP_BYTES = STAGES * (A_ELEMS + B_ELEMS) * 2;
   static_assert(FM >= 1 && WM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0, "tile shape");
 };
@@ -107,24 +112,25 @@ struct F32Tile {
   static constexpr int LOOP_BYTES = (BK * LDA + BK * BN) * 4;
 };
 
-template <int BM, int BN>
+template <int BM, int BN, bool KM = false>
 struct Tile {
   static constexpr int LDC = BN + 4;
   static constexpr int C_BYTES = BM * LDC * 4;
-  static constexpr int MAX_LOOP = Bf16Tile<BM, BN>::LOOP_BYTES > F32Tile<BM, BN>::LOOP_BYTES
-                                      ? Bf16Tile<BM, BN>::LOOP_BYTES
-                                      : F32Tile<BM, BN>::LOOP_BYTES;
+  static constexpr int MAX_LOOP =
+      Bf16Tile<BM, BN, KM>::LOOP_BYTES > F32Tile<BM, BN>::LOOP_BYTES
+          ? Bf16Tile<BM, BN, KM>::LOOP_BYTES
+          : F32Tile<BM, BN>::LOOP_BYTES;
   // the C tile reuses the main loop's buffers once the loop is done
   static constexpr int SMEM_BYTES = C_BYTES > MAX_LOOP ? C_BYTES : MAX_LOOP;
 };
 
 // Load one depth-BK stage of A and B into shared memory.
-template <int BM, int BN>
+template <int BM, int BN, bool KM>
 __device__ __forceinline__ void load_stage_bf16(
     __nv_bfloat16* As, __nv_bfloat16* Bs, const __nv_bfloat16* A, int64_t lda, int M,
     int row0, const __nv_bfloat16* B, int64_t ldb, int N, int col0, int K, int k0,
     bool a_vec, bool b_vec) {
-  using G = Bf16Tile<BM, BN>;
+  using G = Bf16Tile<BM, BN, KM>;
   constexpr int BK = G::BK;
   const int tid = threadIdx.x;
   if (a_vec) {
@@ -141,7 +147,22 @@ __device__ __forceinline__ void load_stage_bf16(
       As[r * G::LDA + k] = ok ? A[(int64_t)(row0 + r) * lda + k0 + k] : __float2bfloat16(0.f);
     }
   }
-  if (b_vec) {
+  if constexpr (KM) {  // B^T [N, K]: rows of BK along K, as A's
+    if (b_vec) {
+      for (int e = tid; e < BN * BK / 8; e += NT) {
+        const int c = e / (BK / 8), k = (e % (BK / 8)) * 8;
+        const bool ok = col0 + c < N && k0 + k < K;
+        const __nv_bfloat16* src = ok ? B + (int64_t)(col0 + c) * ldb + k0 + k : B;
+        cp_async16(Bs + c * G::LDB + k, src, ok);
+      }
+    } else {
+      for (int e = tid; e < BN * BK; e += NT) {
+        const int c = e / BK, k = e % BK;
+        const bool ok = col0 + c < N && k0 + k < K;
+        Bs[c * G::LDB + k] = ok ? B[(int64_t)(col0 + c) * ldb + k0 + k] : __float2bfloat16(0.f);
+      }
+    }
+  } else if (b_vec) {
     for (int e = tid; e < BK * BN / 8; e += NT) {
       const int k = e / (BN / 8), c = (e % (BN / 8)) * 8;
       const bool ok = k0 + k < K && col0 + c < N;
@@ -158,12 +179,13 @@ __device__ __forceinline__ void load_stage_bf16(
 }
 
 // a_vec / b_vec: the rows of A / B may be copied 16 bytes at a time (base
-// pointer 16-byte aligned, leading dimension and K / N multiples of 8).
-template <int BM, int BN>
+// pointer 16-byte aligned, leading dimension and K / N multiples of 8; a
+// K-major B's rows run along K).
+template <int BM, int BN, bool KM = false>
 __device__ void gemm_tile(const __nv_bfloat16* A, int64_t lda, int M, int row0,
                           const __nv_bfloat16* B, int64_t ldb, int N, int col0, int K,
                           bool a_vec, bool b_vec, unsigned char* smem, float* C) {
-  using G = Bf16Tile<BM, BN>;
+  using G = Bf16Tile<BM, BN, KM>;
   constexpr int BK = G::BK;
   constexpr int ST = G::STAGES;
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [ST][BM][LDA]
@@ -184,22 +206,26 @@ __device__ void gemm_tile(const __nv_bfloat16* A, int64_t lda, int M, int row0,
   // newest ST - 2 groups complete" means tile kt has landed
   for (int t = 0; t < ST - 1; ++t) {
     if (t < nk)
-      load_stage_bf16<BM, BN>(As + t * G::A_ELEMS, Bs + t * G::B_ELEMS, A, lda, M, row0, B,
+      load_stage_bf16<BM, BN, KM>(As + t * G::A_ELEMS, Bs + t * G::B_ELEMS, A, lda, M, row0, B,
                               ldb, N, col0, K, t * BK, a_vec, b_vec);
     cp_async_commit();
   }
   // ldmatrix row addresses of this lane: A rows lane % 16 at k offset
   // (lane / 16) * 8; B (transposed load) k rows lane % 8 + 8 * ((lane / 8) % 2)
-  // at n offset (lane / 16) * 8
+  // at n offset (lane / 16) * 8; a K-major B (plain load) n rows
+  // (lane / 16) * 8 + lane % 8 at k offset 8 * ((lane / 8) % 2).  Either way
+  // the four matrices are (n8 block j, k 0-7), (j, k 8-15), (j + 1, k 0-7),
+  // (j + 1, k 8-15): the b0, b1 fragments of blocks j and j + 1.
   const int a_row = wm * G::WM + lane % 16, a_col = (lane / 16) * 8;
   const int b_row = lane % 8 + 8 * ((lane / 8) % 2), b_col = wn * G::WN + (lane / 16) * 8;
+  const int bk_n = wn * G::WN + (lane / 16) * 8 + lane % 8, bk_k = 8 * ((lane / 8) % 2);
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % ST;
     cp_async_wait<(ST >= 2 ? ST - 2 : 0)>();
     __syncthreads();  // tile kt visible to all; everyone is done with tile kt - 1
     const int pf = kt + ST - 1;  // refill the stage tile kt - 1 used
     if (pf < nk)
-      load_stage_bf16<BM, BN>(As + (pf % ST) * G::A_ELEMS, Bs + (pf % ST) * G::B_ELEMS, A,
+      load_stage_bf16<BM, BN, KM>(As + (pf % ST) * G::A_ELEMS, Bs + (pf % ST) * G::B_ELEMS, A,
                               lda, M, row0, B, ldb, N, col0, K, pf * BK, a_vec, b_vec);
     cp_async_commit();
     const __nv_bfloat16* as = As + s * G::A_ELEMS;
@@ -213,7 +239,10 @@ __device__ void gemm_tile(const __nv_bfloat16* A, int64_t lda, int M, int row0,
 #pragma unroll
       for (int j = 0; j < G::FN; j += 2) {
         unsigned b[4];  // n8 blocks j and j + 1, k 0-7 and 8-15 each
-        ldmatrix_x4_trans(b, bs + (kk + b_row) * G::LDB + b_col + j * 8);
+        if constexpr (KM)
+          ldmatrix_x4(b, bs + (bk_n + j * 8) * G::LDB + kk + bk_k);
+        else
+          ldmatrix_x4_trans(b, bs + (kk + b_row) * G::LDB + b_col + j * 8);
 #pragma unroll
         for (int i = 0; i < G::FM; ++i) {
           mma_bf16(acc[i][j], a[i], b[0], b[1]);
@@ -224,7 +253,7 @@ __device__ void gemm_tile(const __nv_bfloat16* A, int64_t lda, int M, int row0,
   }
   cp_async_wait<0>();
   __syncthreads();  // the C tile below reuses the stages
-  constexpr int LDC = Tile<BM, BN>::LDC;
+  constexpr int LDC = Tile<BM, BN, KM>::LDC;
 #pragma unroll
   for (int i = 0; i < G::FM; ++i)
 #pragma unroll
@@ -238,7 +267,7 @@ __device__ void gemm_tile(const __nv_bfloat16* A, int64_t lda, int M, int row0,
   __syncthreads();
 }
 
-template <int BM, int BN>
+template <int BM, int BN, bool KM = false>
 __device__ void gemm_tile(const float* A, int64_t lda, int M, int row0, const float* B,
                           int64_t ldb, int N, int col0, int K, bool, bool,
                           unsigned char* smem, float* C) {
@@ -261,9 +290,11 @@ __device__ void gemm_tile(const float* A, int64_t lda, int M, int row0, const fl
       As[k * G::LDA + r] = ok ? A[(int64_t)(row0 + r) * lda + k0 + k] : 0.f;
     }
     for (int e = tid; e < BK * BN; e += NT) {
-      const int k = e / BN, c = e % BN;
+      // consecutive threads along B's contiguous axis
+      const int k = KM ? e % BK : e / BN, c = KM ? e / BK : e % BN;
       const bool ok = k0 + k < K && col0 + c < N;
-      Bs[k * BN + c] = ok ? B[(int64_t)(k0 + k) * ldb + col0 + c] : 0.f;
+      const int64_t at = KM ? (int64_t)(col0 + c) * ldb + k0 + k : (int64_t)(k0 + k) * ldb + col0 + c;
+      Bs[k * BN + c] = ok ? B[at] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -280,7 +311,7 @@ __device__ void gemm_tile(const float* A, int64_t lda, int M, int row0, const fl
     }
     __syncthreads();
   }
-  constexpr int LDC = Tile<BM, BN>::LDC;
+  constexpr int LDC = Tile<BM, BN, KM>::LDC;
 #pragma unroll
   for (int i = 0; i < G::RM; ++i)
 #pragma unroll

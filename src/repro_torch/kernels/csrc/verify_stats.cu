@@ -49,6 +49,16 @@
 // its tile; N x ceil(V / 128) partials.
 //
 // Either way candidates outside [0, V) have no tile: the merge writes 0.
+//
+// The head's layout (`w_kmajor`): an untied lm head is stored [d, V] (V
+// contiguous; B N-major).  A tied model unembeds with its embedding table
+// [V, d] (d contiguous): w is that table's transpose, and copying it into
+// [d, V] would cost its whole size (gemma-2b's 1.05 GB) every step.  Both
+// routes read the table in place as a K-major B instead: the wgmma route
+// through a tensor map over [V, d] (the same 64-deep swizzled boxes as the
+// hidden tile's) and a K-major descriptor, the tile route through
+// ldmatrix without the transpose.  The sums run in the same order either
+// way.
 #include "hopper_gemm.cuh"
 #include "tile_gemm.cuh"
 
@@ -68,7 +78,8 @@ __device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
   }
 }
 
-template <typename T>
+// KM: w is the [V, d] table (B K-major), else [d, V]
+template <typename T, bool KM>
 __global__ void __launch_bounds__(NT, 2) verify_stats_tile(
     const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ cand,
     const float* __restrict__ tmax, float* __restrict__ cand_w, float* __restrict__ pm,
@@ -79,7 +90,7 @@ __global__ void __launch_bounds__(NT, 2) verify_stats_tile(
   const int row0 = blockIdx.x * BM;
   const int vt = blockIdx.y;
   const int col0 = vt * BN;
-  gemm_tile<BM, BN>(h, d, N, row0, w, V, V, col0, d, a_vec, b_vec, smem, C);
+  gemm_tile<BM, BN, KM>(h, d, N, row0, w, KM ? d : V, V, col0, d, a_vec, b_vec, smem, C);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BM && row0 + r < N; r += NT / 32) {
@@ -178,19 +189,19 @@ __global__ void __launch_bounds__(MT) verify_stats_merge(
   }
 }
 
-template <typename T>
+template <typename T, bool KM>
 int launch(const void* h, const void* w, const void* cand, const void* tmax, void* argm,
            void* m, void* l, void* cand_w, void* pm, void* pi, void* pl, int N,
            int T_nodes, int d, int V, void* stream) {
   const int n_vt = (V + BN - 1) / BN;
-  const int smem = Tile<BM, BN>::SMEM_BYTES;
+  const int smem = Tile<BM, BN, KM>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      verify_stats_tile<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      verify_stats_tile<T, KM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int a_vec = vec16(h, d, d), b_vec = vec16(w, V, V);
+  const int a_vec = vec16(h, d, d), b_vec = KM ? vec16(w, d, d) : vec16(w, V, V);
   const dim3 grid((N + BM - 1) / BM, n_vt);
   cudaStream_t s = (cudaStream_t)stream;
-  verify_stats_tile<T><<<grid, NT, smem, s>>>(
+  verify_stats_tile<T, KM><<<grid, NT, smem, s>>>(
       (const T*)h, (const T*)w, (const int*)cand, (const float*)tmax, (float*)cand_w,
       (float*)pm, (int*)pi, (float*)pl, N, T_nodes, d, V, n_vt, a_vec, b_vec);
   err = cudaGetLastError();
@@ -223,6 +234,7 @@ __device__ __forceinline__ float round_bf(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+template <bool KM>
 __global__ void __launch_bounds__(StatsCfg::THREADS, 1) verify_stats_wgmma(
     const __grid_constant__ CUtensorMap h_map, const __grid_constant__ CUtensorMap w_map,
     const int* __restrict__ cand, const float* __restrict__ tmax, float* __restrict__ cand_w,
@@ -272,8 +284,8 @@ __global__ void __launch_bounds__(StatsCfg::THREADS, 1) verify_stats_wgmma(
       uint32_t it = 0;
       for (int mt = 0; mt < n_mt; ++mt)
         for (int j = 0; j < n_steps; ++j)
-          hopper::produce<RG, CL>(smem, full, empty, it, &h_map, mt * C::BM, &w_map,
-                                  (t0 + CL * j + r) * C::BN, 0, nk, r, mask);
+          hopper::produce<RG, CL, KM>(smem, full, empty, it, &h_map, mt * C::BM, &w_map,
+                                      (t0 + CL * j + r) * C::BN, 0, nk, r, mask);
     }
     __syncwarp();
     hopper::cluster_sync();  // no block leaves while others write into it
@@ -304,7 +316,8 @@ __global__ void __launch_bounds__(StatsCfg::THREADS, 1) verify_stats_wgmma(
         for (int i = 0; i < C::MB; ++i)
 #pragma unroll
           for (int j = 0; j < C::BN / 2; ++j) acc[i][j] = 0.f;
-        hopper::consume<RG, C::MB, CL>(acc, smem, full, empty, it, wg * C::WG_M, nk, mask);
+        hopper::consume<RG, C::MB, CL, KM>(acc, smem, full, empty, it, wg * C::WG_M, nk,
+                                           mask);
         const int tile = t0 + CL * j + r;
         const int col0 = tile * C::BN;
         const int col_end = tile < t1 ? V : 0;  // columns past it are masked
@@ -399,15 +412,20 @@ __global__ void __launch_bounds__(StatsCfg::THREADS, 1) verify_stats_wgmma(
   }
 }
 
+template <bool KM>
 int launch_wgmma(const void* h, const void* w, const void* cand, const void* tmax, void* argm,
                  void* m, void* l, void* cand_w, void* pm, void* pi, void* pl, int N,
                  int T_nodes, int d, int V, int n_parts, void* stream) {
   CUtensorMap hm, wm;
   int e = hopper_host::encode_map(&hm, h, d, N, (uint64_t)d * 2, 64,
                                  StatsCfg::BM / StatsCfg::CL);
-  if (!e) e = hopper_host::weight_map(&wm, w, V, d, (uint64_t)V * 2, 64, 64);
+  // [V, d] (KM): boxes of 64 deep by 64 vocabulary rows; [d, V]: 64
+  // vocabulary columns by 64 deep
+  if (!e)
+    e = KM ? hopper_host::weight_map(&wm, w, d, V, (uint64_t)d * 2, 64, 64)
+           : hopper_host::weight_map(&wm, w, V, d, (uint64_t)V * 2, 64, 64);
   if (e) return e;
-  auto kernel = verify_stats_wgmma;
+  auto kernel = verify_stats_wgmma<KM>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err =
@@ -442,25 +460,27 @@ int launch_wgmma(const void* h, const void* w, const void* cand, const void* tma
 
 }  // namespace
 
-// The tile route.  hidden [N, d] and w [d, V] row-major in the same dtype;
-// candidates [N / T, T] int32; tmax [N / T] f32; argm [N] int32; m, l [N]
-// f32; cand_w [N, T] f32; partials pm, pl [N, n_vt] f32 and pi [N, n_vt]
-// int32 (scratch), n_vt = ceil(V / 128).  Two launches on `stream`;
-// returns cudaGetLastError() (0 on success).
+// The tile route.  hidden [N, d] row-major and w in the same dtype: [d, V]
+// row-major, or with w_kmajor the [V, d] table row-major; candidates
+// [N / T, T] int32; tmax [N / T] f32; argm [N] int32; m, l [N] f32; cand_w
+// [N, T] f32; partials pm, pl [N, n_vt] f32 and pi [N, n_vt] int32
+// (scratch), n_vt = ceil(V / 128).  Two launches on `stream`; returns
+// cudaGetLastError() (0 on success).
+#define STATS_ARGS h, w, cand, tmax, argm, m, l, cand_w, pm, pi, pl, N, T_nodes, d, V
 extern "C" int verify_stats_f32(const void* h, const void* w, const void* cand,
                                 const void* tmax, void* argm, void* m, void* l,
                                 void* cand_w, void* pm, void* pi, void* pl, int N,
-                                int T_nodes, int d, int V, void* stream) {
-  return launch<float>(h, w, cand, tmax, argm, m, l, cand_w, pm, pi, pl, N, T_nodes, d, V,
-                       stream);
+                                int T_nodes, int d, int V, int w_kmajor, void* stream) {
+  return w_kmajor ? launch<float, true>(STATS_ARGS, stream)
+                  : launch<float, false>(STATS_ARGS, stream);
 }
 
 extern "C" int verify_stats_bf16(const void* h, const void* w, const void* cand,
                                  const void* tmax, void* argm, void* m, void* l,
                                  void* cand_w, void* pm, void* pi, void* pl, int N,
-                                 int T_nodes, int d, int V, void* stream) {
-  return launch<__nv_bfloat16>(h, w, cand, tmax, argm, m, l, cand_w, pm, pi, pl, N,
-                               T_nodes, d, V, stream);
+                                 int T_nodes, int d, int V, int w_kmajor, void* stream) {
+  return w_kmajor ? launch<__nv_bfloat16, true>(STATS_ARGS, stream)
+                  : launch<__nv_bfloat16, false>(STATS_ARGS, stream);
 }
 
 // The wgmma route, bf16 only: arguments as above with partials
@@ -471,13 +491,15 @@ extern "C" int verify_stats_bf16(const void* h, const void* w, const void* cand,
 extern "C" int verify_stats_bf16_wgmma(const void* h, const void* w, const void* cand,
                                        const void* tmax, void* argm, void* m, void* l,
                                        void* cand_w, void* pm, void* pi, void* pl, int N,
-                                       int T_nodes, int d, int V, int n_parts, void* stream) {
+                                       int T_nodes, int d, int V, int w_kmajor, int n_parts,
+                                       void* stream) {
   const int n_vt = (V + StatsCfg::BN - 1) / StatsCfg::BN;
   if (n_parts < StatsCfg::CL || n_parts % StatsCfg::CL || n_parts / StatsCfg::CL > n_vt)
     return (int)cudaErrorInvalidValue;
-  return launch_wgmma(h, w, cand, tmax, argm, m, l, cand_w, pm, pi, pl, N, T_nodes, d, V,
-                      n_parts, stream);
+  return w_kmajor ? launch_wgmma<true>(STATS_ARGS, n_parts, stream)
+                  : launch_wgmma<false>(STATS_ARGS, n_parts, stream);
 }
+#undef STATS_ARGS
 
 // Tensor maps encoded for weights since the library was loaded.
 extern "C" long long verify_stats_map_encodings() { return hopper_host::encodings(); }

@@ -22,14 +22,15 @@ from repro_torch.kernels.tree_attention import (flash_decode,
 from repro_torch.models.layers import NEG_INF
 
 
-def verify_stats(hidden, w, candidates, tmax):
+def verify_stats(hidden, w, candidates, tmax, layout=None):
     """Fused unembed + verify-statistics epilogue.
 
-    hidden [B, T, d]; w [d, V] lm-head weight (cast to hidden's dtype like
-    ``models.transformer.unembed``); candidates [B, T] int32; tmax [B] f32
-    warp temperatures.  Returns (argm, m, l, cand_w): see
+    hidden [B, T, d]; w [d, V] unembedding weight (cast to hidden's dtype
+    like ``models.transformer.unembed``) with its ``layout`` (from
+    ``models.transformer.unembed_weight``); candidates [B, T] int32; tmax
+    [B] f32 warp temperatures.  Returns (argm, m, l, cand_w): see
     ``kernels.tree_attention.unembed_verify_stats``."""
-    return unembed_verify_stats(hidden, w, candidates, tmax)
+    return unembed_verify_stats(hidden, w, candidates, tmax, layout)
 
 
 def tree_attention(q, k, v, tree_mask, lengths, scale, *, k_scale=None,

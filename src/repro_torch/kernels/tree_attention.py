@@ -18,7 +18,9 @@ tile arrives by 16-byte ``cp.async`` copies (the design is in the source).
 ``flash_decode_split_plain`` is the same split-and-merge in plain PyTorch.
 
 ``unembed_verify_stats`` replaces ``unembed_verify_stats`` of the same
-reference file (body ``_verify_stats_kernel``) with ``csrc/verify_stats.cu``:
+reference file (body ``_verify_stats_kernel``) with ``csrc/verify_stats.cu``,
+over an lm head stored [d, V] or a tied model's [V, d] embedding table read
+in place (``weight_layout``):
 a first launch leaves per-row partial statistics in vocabulary order and a
 second merges them in that order.  Two routes make the partials, chosen
 per launch by ``stats_plan``: the ``"wgmma"`` route (bf16, 16-byte aligned
@@ -375,21 +377,51 @@ _STATS_TILE_V = 128   # vocabulary columns per tile, both routes of the kernel
 _STATS_CLUSTER = 2    # wgmma route: blocks of a cluster share each hidden tile
 
 
-def stats_plan(N, d, V, dtype, aligned=True, n_sm=132):
+def stats_plan(N, d, V, dtype, aligned=True, n_sm=132, layout="dv"):
     """(route, n_parts) of one ``unembed_verify_stats`` launch on the card,
-    for N rows, depth d and V vocabulary columns; the partials are
-    [N, n_parts] each (max, argmax, sum-exp).
+    for N rows, depth d and V vocabulary columns of a head in ``layout``
+    (``weight_layout``); the partials are [N, n_parts] each (max, argmax,
+    sum-exp).
 
-    ``"wgmma"`` (bf16, d and V multiples of 8 and ``aligned``: TMA takes
-    the rows): a persistent grid of at most one block per SM, in clusters
-    of 2 blocks that share each hidden tile, each cluster owning a run of
-    at least one 128-column vocabulary tile; one partial per row and
-    block.  ``"tile"`` otherwise: one partial per row and vocabulary
-    tile."""
+    ``"wgmma"`` (bf16, ``aligned`` and every row TMA reads a multiple of
+    16 bytes: d, and for a [d, V] head V, multiples of 8): a persistent
+    grid of at most one block per SM, in clusters of 2 blocks that share
+    each hidden tile, each cluster owning a run of at least one 128-column
+    vocabulary tile; one partial per row and block.  ``"tile"`` otherwise:
+    one partial per row and vocabulary tile."""
     n_tiles = -(-V // _STATS_TILE_V)
-    if dtype != torch.bfloat16 or not aligned or d % 8 or V % 8:
+    if dtype != torch.bfloat16 or not aligned or d % 8 \
+            or (layout == "dv" and V % 8):
         return "tile", n_tiles
     return "wgmma", _STATS_CLUSTER * min(n_sm // _STATS_CLUSTER, n_tiles)
+
+
+def weight_layout(w) -> str:
+    """How the [d, V] unembedding weight ``w`` lies in memory: ``"dv"``
+    (row-major, V contiguous: an untied lm head) or ``"vd"`` (the
+    transposed view of a row-major [V, d] table, d contiguous: a tied
+    model's ``embed.T``).  Any other strides raise: the kernel reads the
+    weight where it lies and never copies it."""
+    d, V = w.shape
+    if w.stride(1) == 1 and (w.stride(0) == V or d == 1):
+        return "dv"
+    if w.stride(0) == 1 and (w.stride(1) == d or V == 1):
+        return "vd"
+    raise ValueError(f"unembed_verify_stats: w {tuple(w.shape)} with strides "
+                     f"{w.stride()} is neither [d, V] row-major nor the "
+                     f"transpose of a row-major [V, d] table")
+
+
+def stats_operand(w, layout=None):
+    """(tensor, layout): what the kernel reads for the [d, V] unembedding
+    weight ``w``: w itself under ``"dv"``, the [V, d] table ``w.T`` under
+    ``"vd"``, in both cases the caller's storage (the same ``data_ptr``,
+    no copy).  ``layout`` given must be the one ``w``'s strides show."""
+    found = weight_layout(w)
+    if layout is not None and layout != found:
+        raise ValueError(f"unembed_verify_stats: w is laid out {found!r}, "
+                         f"not {layout!r}")
+    return (w.T if found == "vd" else w), found
 
 
 @functools.lru_cache(maxsize=None)
@@ -404,7 +436,7 @@ def _stats_fn(dtype, route="tile"):
         name += "_wgmma"
     fn = getattr(library("verify_stats"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
             [ctypes.c_int] * (1 if route == "wgmma" else 0) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -438,12 +470,16 @@ def _check_stats_args(hidden, w, candidates, tmax):
                              f"{hidden.device} and {t.device}")
 
 
-def unembed_verify_stats(hidden, w, candidates, tmax):
+def unembed_verify_stats(hidden, w, candidates, tmax, layout=None):
     """Fused unembed + verification statistics.
 
-    hidden [B, T, d] f32/bf16; w [d, V] lm head (cast to hidden's dtype,
-    as ``unembed`` casts it); candidates [B, T] int32 in [0, V); tmax [B]
-    f32 warp temperatures (ones for greedy).  Returns (argm [B, T] int32,
+    hidden [B, T, d] f32/bf16; w [d, V] unembedding weight (cast to
+    hidden's dtype, as ``unembed`` casts it): an lm head stored [d, V], or
+    a tied model's ``embed.T``, the transposed view of its [V, d] table,
+    which the kernel reads in place (``layout``: ``"dv"`` or ``"vd"``, as
+    ``weight_layout`` finds it when None; other strides raise);
+    candidates [B, T] int32 in [0, V); tmax [B] f32 warp temperatures
+    (ones for greedy).  Returns (argm [B, T] int32,
     m [B, T] f32, l [B, T] f32, cand_w [B, T, T] f32): with wv the logits
     rounded through hidden's dtype and divided by ``tmax[b]``, the
     first-wins argmax of wv, its max, sum(exp(wv - m)), and
@@ -457,22 +493,24 @@ def unembed_verify_stats(hidden, w, candidates, tmax):
     ``.launches_by_route``), or raise: there is no fallback.
     """
     if hidden.device.type == "cpu":
+        if layout is not None:
+            stats_operand(w, layout)
         return unembed_verify_stats_plain(hidden, w, candidates, tmax)
     if hidden.device.type != "cuda":
         raise ValueError(f"unembed_verify_stats: unsupported device "
                          f"{hidden.device}")
     _check_stats_args(hidden, w, candidates, tmax)
     hidden = hidden.contiguous()
-    w = w.to(hidden.dtype).contiguous()
+    table, layout = stats_operand(w.to(hidden.dtype), layout)
     candidates, tmax = candidates.contiguous(), tmax.contiguous()
     B, T, d = hidden.shape
     V = w.shape[1]
     dev = hidden.device
     route, n_parts = stats_plan(
         B * T, d, V, hidden.dtype, aligned16((hidden.data_ptr(),
-                                              w.data_ptr())),
+                                              table.data_ptr())),
         _n_sm(dev.index if dev.index is not None
-              else torch.cuda.current_device()))
+              else torch.cuda.current_device()), layout)
     f32 = torch.float32
     argm = torch.empty((B, T), dtype=torch.int32, device=dev)
     m = torch.empty((B, T), dtype=f32, device=dev)
@@ -483,10 +521,11 @@ def unembed_verify_stats(hidden, w, candidates, tmax):
     pl = torch.empty((B * T, n_parts), dtype=f32, device=dev)
     extra = (n_parts,) if route == "wgmma" else ()
     err = _stats_fn(hidden.dtype, route)(
-        hidden.data_ptr(), w.data_ptr(), candidates.data_ptr(),
+        hidden.data_ptr(), table.data_ptr(), candidates.data_ptr(),
         tmax.data_ptr(), argm.data_ptr(), m.data_ptr(), l.data_ptr(),
         cand_w.data_ptr(), pm.data_ptr(), pi.data_ptr(), pl.data_ptr(),
-        B * T, T, d, V, *extra, torch.cuda.current_stream(dev).cuda_stream)
+        B * T, T, d, V, 1 if layout == "vd" else 0, *extra,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"unembed_verify_stats: CUDA launch ({route} "
                            f"route) failed with error {err}")

@@ -8,7 +8,9 @@ Counterpart of the reference launcher's static-batch path
 (``repro/launch/serve.py::serve_tp`` without tensor parallelism): seeded
 numpy prompts, each group of ``--slots`` requests answered by one
 ``SpecEngine.generate``.  It serves openPangu-7B at full width on the card
-by default (random weights from ``--seed``, in the config's bf16);
+by default, or with ``--arch`` any dense decoder of the registry
+(granite-8b, qwen1.5-0.5b, qwen1.5-4b, gemma-2b) (random weights from
+``--seed``, in the config's bf16);
 ``--reduced`` takes the reference's reduced CPU-test config and
 ``--device cpu`` the plain PyTorch versions of the kernels.  On the card
 the decode step is a CUDA graph, captured in the first group's second
@@ -73,12 +75,16 @@ def make_prompts(vocab: int, n: int, seed: int, lo: int, hi: int):
 
 def build_model(cfg, seed: int, K: int, device):
     """Random backbone weights in ``cfg.dtype`` drawn on ``device`` from
-    ``seed``, and Medusa heads seeded from the backbone's lm head (Medusa's
-    init recipe: with the zero-initialised residual block every head
-    starts as a copy of the lm head)."""
+    ``seed``, and Medusa heads seeded from the backbone's unembedding
+    weight, the lm head or a tied model's embedding table (Medusa's init
+    recipe: with the zero-initialised residual block every head starts as
+    a copy of it)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = get_model(cfg).init_params(gen, cfg, dtype=cfg.dtype)
-    mp = M.init_medusa(gen, cfg, K, base_lm_head=params["lm_head"],
+    model = get_model(cfg)
+    params = model.init_params(gen, cfg, dtype=cfg.dtype)
+    # a tied model's embed.T, copied once into the heads' own [K, d, V]
+    mp = M.init_medusa(gen, cfg, K,
+                       base_lm_head=model.unembed_weight(params)[0],
                        dtype=cfg.dtype)
     return params, mp
 

@@ -2,13 +2,13 @@
 few speculative steps and a few AR steps of the served model, each run
 eagerly and as the captured CUDA graph the engine replays.
 
-  PYTHONPATH=src python -m repro_torch.launch.trace [--steps 4] \
-      [--cache-dtype int8] [--cache-layout paged] [--page-size 64] \
-      [--temperature 0.7]
+  PYTHONPATH=src python -m repro_torch.launch.trace [--arch openpangu-7b] \
+      [--steps 4] [--cache-dtype int8] [--cache-layout paged] \
+      [--page-size 64] [--temperature 0.7]
 
-Builds the launcher's model (bf16 openPangu-7B at full width and depth,
-random weights from seed 0), prefills 4 prompts of 64–256 tokens from the
-same seed, then runs six kinds of step in turn on the one cache, each
+Builds the launcher's model (bf16 ``--arch``, by default openPangu-7B,
+at full width and depth, random weights from seed 0), prefills 4 prompts
+of 64–256 tokens from the same seed, then runs six kinds of step in turn on the one cache, each
 from where the last left off: the speculative loop body
 (``SpecEngine.loop_step``) eagerly (``graphs=False``) and as a graph,
 the AR loop body (``ar_loop_step``) eagerly and as a graph, and the
@@ -46,7 +46,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.base import SamplingParams
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import ALL_ARCHS, get_config
 from repro_torch.core.engine import ar_loop_step, build_engine
 from repro_torch.launch.serve import build_model, make_prompts
 from repro_torch.runtime import resolve_device
@@ -101,6 +101,7 @@ def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="repro_torch.launch.trace")
+    ap.add_argument("--arch", default="openpangu-7b", choices=ALL_ARCHS)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--cache-dtype", default="", choices=("", "int8"))
     ap.add_argument("--cache-layout", default="dense",
@@ -111,7 +112,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
-    cfg = dataclasses.replace(get_config("openpangu-7b"),
+    cfg = dataclasses.replace(get_config(args.arch),
                               cache_dtype=args.cache_dtype,
                               cache_layout=args.cache_layout,
                               page_size=args.page_size)

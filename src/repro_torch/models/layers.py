@@ -48,16 +48,17 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, stack: int = 0):
     d, hq, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.resolved_head_dim)
     dt = torch_dtype(cfg.param_dtype)
-    if cfg.qkv_bias:
-        raise NotImplementedError(
-            "qkv_bias: the port's first slice carries openPangu-7B, which "
-            "has none (other architectures are ROADMAP queue 1 item 14)")
-    return {
+    p = {
         "wq": dense_init(gen, (d, hq, hd), dt, stack=stack),
         "wk": dense_init(gen, (d, hkv, hd), dt, stack=stack),
         "wv": dense_init(gen, (d, hkv, hd), dt, stack=stack),
         "wo": dense_init(gen, (hq, hd, d), dt, stack=stack),
     }
+    if cfg.qkv_bias:
+        lead = (stack,) if stack else ()
+        for name, h in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            p[name] = torch.zeros(lead + (h, hd), dtype=dt, device=gen.device)
+    return p
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, stack: int = 0):
@@ -121,6 +122,10 @@ def _project_qkv(p, x, cfg: ModelConfig):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
     return q, k, v
 
 

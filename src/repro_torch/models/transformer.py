@@ -75,9 +75,8 @@ def check_supported(cfg: ModelConfig):
         later.append(f"family {cfg.family!r} (ROADMAP queue 1 item 14)")
     if cfg.tp_axis:
         later.append("tensor parallelism (ROADMAP queue 1 item 16)")
-    if cfg.frontend or cfg.num_experts or cfg.tie_embeddings:
-        later.append("frontends, MoE and tied embeddings (ROADMAP queue 1 "
-                     "item 14)")
+    if cfg.frontend or cfg.num_experts:
+        later.append("frontends and MoE (ROADMAP queue 1 item 14)")
     if later:
         raise NotImplementedError(f"{cfg.name}: " + "; ".join(later))
 
@@ -111,8 +110,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=None):
                            "norm2": L.init_norm(cfg, dev, stack=nu),
                            "ffn": L.init_mlp(gen, cfg, stack=nu)}},
         "final_norm": L.init_norm(cfg, dev),
-        "lm_head": L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                         dt)
     return params
 
 
@@ -120,14 +121,41 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=None):
 # embedding / unembedding
 # ---------------------------------------------------------------------------
 
+def embed_scale(cfg: ModelConfig, dtype) -> float:
+    """gemma's embedding scale sqrt(d_model), rounded to the activation
+    dtype as the reference's ``jnp.asarray(d ** 0.5, dtype)`` rounds it
+    (45.25 in bf16 at d 2048), as a Python scalar, which stream capture
+    takes (a tensor made on the card would be a copy from the host).
+    The tensor is a CPU constant built from the config, never a value of
+    the step, so reading it syncs nothing."""
+    scale = torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+    return scale.item()  # speclint: disable=trace-safety
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    if cfg.tie_embeddings:
+        x = x * embed_scale(cfg, x.dtype)      # gemma's convention
+    return x
+
+
+def unembed_weight(params):
+    """(w, layout): the unembedding weight as a [d, V] tensor and how its
+    storage lies.  ``"dv"``: the untied ``lm_head`` [d, V], V contiguous.
+    ``"vd"``: a tied model's ``embed.T``, a view of the [V, d] table with
+    d contiguous (no copy is made: the verify kernel reads the table in
+    place).  Every reader of the unembedding weight takes it from here."""
+    w = params.get("lm_head")
+    if w is None:
+        return params["embed"].T, "vd"
+    return w, "dv"
 
 
 def unembed_local(params, cfg: ModelConfig, hidden):
     """Logits [..., V] (without tensor parallelism the local vocab slice is
     the whole vocabulary)."""
-    return torch.matmul(hidden, params["lm_head"].to(hidden.dtype))
+    w, _ = unembed_weight(params)
+    return torch.matmul(hidden, w.to(hidden.dtype))
 
 
 def unembed(params, cfg: ModelConfig, hidden):

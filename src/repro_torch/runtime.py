@@ -16,7 +16,9 @@ def resolve_device(device="cuda") -> torch.device:
     port never falls back to the CPU on its own, only when the caller asks
     for ``device="cpu"`` (the tests do).  Float32 matrix products and
     convolutions are pinned to full float32 here, so no entry point runs
-    in TF32 by accident.
+    in TF32 by accident, and bf16 products to f32 reductions: cuBLAS may
+    otherwise reduce a split-K product's partial sums in bf16, where the
+    reference (XLA) and the port's kernels sum in f32.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -26,6 +28,7 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
 
 

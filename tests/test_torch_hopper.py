@@ -323,3 +323,88 @@ def test_cuda_qkv_wgmma_matches_plain_and_paged_is_dense(B, T, hd):
                                      sin=sin, table=table)
     for a, b in zip(got, paged):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_cuda_stats_reads_a_tied_table_in_place(dtype):
+    """K2 over a tied model's [V, d] table passed as ``embed.T`` (gemma-2b's
+    d 2048, a vocabulary of 2000 tiles): the route ``stats_plan`` gives the
+    layout, the call allocates far less than the table (no copy), and the
+    statistics match the plain version (f32 exactly on argm)."""
+    dev = _cuda()
+    d, v, B, T = 2048, 256000, 4, 64
+    gen = torch.Generator(device=dev).manual_seed(7)
+    embed = (torch.randn((v, d), generator=gen, device=dev)
+             * d ** -0.5).to(dtype)
+    h = torch.randn((B, T, d), generator=gen, device=dev).to(dtype)
+    cand = torch.randint(0, v, (B, T), generator=gen, device=dev,
+                         dtype=torch.int32)
+    tmax = torch.ones((B,), device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(TA.unembed_verify_stats.launches_by_route)
+    argm, m, l, cw = TA.unembed_verify_stats(h, embed.T, cand, tmax,
+                                             layout="vd")
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - held < embed.numel() // 8
+    route = "wgmma" if dtype == BF16 else "tile"
+    assert TA.unembed_verify_stats.launches_by_route[route] \
+        == before[route] + 1
+    rargm, rm, rl, rcw = TA.unembed_verify_stats_plain(h, embed.T, cand, tmax)
+    tol = 2e-2 if dtype == BF16 else 3e-5
+    assert ((m - rm).abs() / rm.abs().clamp(min=1.0)).max().item() < tol
+    assert ((l / rl) - 1).abs().max().item() < tol
+    assert ((cw - rcw).abs() / rcw.abs().clamp(min=1.0)).max().item() < tol
+    if dtype == F32:
+        assert torch.equal(argm, rargm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [64, 1])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_cuda_qkv_head_dim_256_matches_plain(T, dtype):
+    """K3 at gemma-2b's widths (d 2048, 8 + 1 + 1 heads of 256), with
+    biases, against its plain version, and the paged run bitwise equal to
+    the dense one."""
+    from repro_torch.kernels.paging import identity_table
+    from repro_torch.models.layers import rope_cos_sin
+
+    dev = _cuda()
+    B, d, Hq, Hkv, hd, S, ps = 4, 2048, 8, 1, 256, 256, 16
+    gen = torch.Generator(device=dev).manual_seed(T)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    x = rnd(B, T, d)
+    p = {n: rnd(d, H, hd, scale=d ** -0.5)
+         for n, H in (("wq", Hq), ("wk", Hkv), ("wv", Hkv))}
+    p |= {"b" + n: rnd(H, hd, scale=0.1)
+          for n, H in (("q", Hq), ("k", Hkv), ("v", Hkv))}
+    lens = torch.tensor([3 + 40 * b for b in range(B)], dtype=torch.int32,
+                        device=dev)
+    cos, sin = rope_cos_sin(lens[:, None] + torch.arange(T, device=dev), hd,
+                            1e4)
+    kc, vc = rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd)
+    kr, vr = kc.clone(), vc.clone()
+    route = "wgmma" if dtype == BF16 else "tile"
+    before = dict(CU.fused_qkv_rope_commit.launches_by_route)
+    got = CU.fused_qkv_rope_commit(x, p, lens, kc, vc, cos=cos, sin=sin)
+    assert CU.fused_qkv_rope_commit.launches_by_route[route] \
+        == before[route] + 1
+    ref = CU.fused_qkv_rope_commit_plain(x, p, lens, kr, vr, cos=cos,
+                                         sin=sin)
+    tol = 2e-2 if dtype == BF16 else 3e-5
+    for g, r in zip((*got, kc, vc), (*ref, kr, vr)):
+        err = ((g.float() - r.float()).abs()
+               / r.float().abs().clamp(min=1.0)).max().item()
+        assert err < tol
+    table = identity_table(B, S // ps).to(dev)
+    pk = torch.zeros((1 + B * S // ps, ps, Hkv, hd), dtype=dtype, device=dev)
+    paged = CU.fused_qkv_rope_commit(x, p, lens, pk, pk.clone(), cos=cos,
+                                     sin=sin, table=table)
+    for a, b in zip(got, paged):
+        assert torch.equal(a, b)
