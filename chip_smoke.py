@@ -44,7 +44,15 @@ non-zero exit:
    (``commit_rows_stacked``) and K5 (``commit_rows_paged_stacked``), over
    three units and over one, for int8, bf16 and f32 rows and f32 scales,
    rows past the end included: the copies exact, the rest of the cache
-   (block 0 of a pool excepted) unchanged bit for bit.  Then K2 over
+   (block 0 of a pool excepted) unchanged bit for bit; then the
+   one-launch commit of a spec step (``commit_path_stacked``, counted
+   under K4 dense and K5 paged), reading 34 units' in-flight k and v
+   where decode leaves them, bitwise its plain version (the gather,
+   ``quantize_rows``, the rows-given writes) in bf16, f32 and int8 (bf16
+   and f32 rows), dense and paged, with casts, stacked sources, and at
+   the dense family's widths (gemma-2b's one kv head of 256,
+   qwen1.5-0.5b's 16 of 64, qwen1.5-4b's 40 units of 20); and
+   ``quantize_rows`` on the card bitwise its CPU run.  Then K2 over
    gemma-2b's tied [256000, 2048] embedding table passed as ``embed.T``
    (read in place: the call must allocate less than the table), on both
    routes, at tmax 1 and at ``TMAX_ROWS``; K3 at gemma-2b's head_dim 256
@@ -85,7 +93,7 @@ non-zero exit:
    (one eager warm-up step, then replays of one graph for both groups,
    the capture's seconds logged); every request must finish, the kernels
    launch exactly as expected (K1 per layer and step, on its "single"
-   route in phases 5-7, K4 per cache leaf and step), and each answer
+   route in phases 5-7, K4 once per spec step), and each answer
    matches ``ar_generate`` (its step captured too) up to its
    first divergence, where AR's logit for the token the speculative path
    emitted must lie within ``MARGIN_BOUND`` of AR's top logit;
@@ -132,13 +140,17 @@ non-zero exit:
    dense bf16 view the cache holds: gathered from the pool for K1-paged,
    dequantized to bf16 for K1-int8, neither step timed; for K2 and K3 one
    ``torch.matmul`` of the same product, which does only the product;
-   ``index_put_`` of the same rows for K4 and K5) at the main path's
-   shapes: for K1, K2 and K3, whose wrappers' host cost is near or above
-   the kernel's time, CUDA events around launches queued behind a spin
-   kernel so the card runs them back to back (the unqueued reading
-   logged beside it); for K4 and K5 the kernels' device time from
+   ``index_put_`` of the pre-gathered rows into each leaf for K4 and K5)
+   at the main path's shapes: for K1, K2 and K3, whose wrappers' host
+   cost is near or above the kernel's time, CUDA events around launches
+   queued behind a spin kernel so the card runs them back to back (the
+   unqueued reading logged beside it); for the commit (K4 dense, K5
+   paged, each in bf16 and int8) the one launch's device time from
    ``torch.profiler``, beside an empty kernel's (``torch.cuda._sleep(0)``:
-   a launch's fixed device cost).  K1's rows carry the AR step's (R 8)
+   a launch's fixed device cost), the old per-step sequence it replaced
+   (the stacks of the in-flight rows, the gathers, ``quantize_rows``
+   under int8, one rows-given launch per leaf) and one rows-given launch
+   of one leaf (what earlier slices timed).  K1's rows carry the AR step's (R 8)
    numbers beside the spec step's, K3's the AR step's (T 1); K1's, K2's
    and K3's rows carry the wrapper's host ms per call, and K2's its time
    at ``TMAX_ROWS`` (``tmax_ms``).  Then the same for the dense family's
@@ -375,14 +387,17 @@ def read_counts():
 
 
 def uncounted(fn, *args, **kwargs):
-    """Call a kernel wrapper without counting the launch: comparison and
-    timing launches are not main-path launches."""
-    saved = fn.launches
-    routes = dict(getattr(fn, "launches_by_route", {}))
+    """Call a kernel wrapper without counting its launches (every
+    kernel's counters are restored after it; ``commit_path_stacked``
+    counts in K4's or K5's): comparison and timing launches are not
+    main-path launches."""
+    saved = {f: (f.launches, dict(getattr(f, "launches_by_route", {})))
+             for f in _wrappers().values()}
     out = fn(*args, **kwargs)
-    fn.launches = saved
-    if routes:
-        fn.launches_by_route.update(routes)
+    for f, (n, routes) in saved.items():
+        f.launches = n
+        if routes:
+            f.launches_by_route.update(routes)
     return out
 
 
@@ -1020,9 +1035,108 @@ def phase_fusion_kernels(dev):
     return errs
 
 
+def path_inputs(dev, nu, H, D, src_dt, quantized=False, ps=0,
+                cache_dt=None, B=4, T=64, K1=5, S=2048, stacked=False,
+                seed=13):
+    """The commit's inputs at one step: nu units' in-flight k and v
+    [B, T, H, D] of ``src_dt`` (a tuple of per-unit tensors, as decode
+    hands them, or one stacked tensor), best paths [B, K1] int64 over the T
+    rows, lengths [0, 517, S - 2, S] (rows in range, straddling and past
+    the end), and the leaves: a dense cache [nu, B, S, H, D] or, with
+    ``ps``, a pool [nu, 1 + B * S / ps, ps, H, D] through a shuffled
+    table, of ``cache_dt`` (default ``src_dt``) or int8 values with f32
+    scales.  Returns (leaves, sources, path, lengths, table)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = {n: tuple(torch.randn((B, T, H, D), generator=gen,
+                                device=dev).to(src_dt) for _ in range(nu))
+           for n in "kv"}
+    if stacked:
+        src = {n: torch.stack(t) for n, t in src.items()}
+    path = torch.randint(0, T, (B, K1), generator=gen, device=dev)
+    lens = torch.tensor([0, S // 4 + 5, S - 2, S][:B], dtype=torch.int32,
+                        device=dev)
+    table = shuffled_table(B, S // ps, dev, seed) if ps else None
+    lead = (nu, 1 + B * S // ps, ps) if ps else (nu, B, S)
+    leaves = {}
+    for n in "kv":
+        if quantized:
+            leaves[n] = torch.randint(-127, 128, lead + (H, D),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int8)
+            leaves[n + "_scale"] = torch.rand(lead + (H, 1), generator=gen,
+                                              device=dev)
+        else:
+            leaves[n] = torch.randn(lead + (H, D), generator=gen,
+                                    device=dev).to(cache_dt or src_dt)
+    return leaves, src, path, lens, table
+
+
+def path_case(dev, name, nu, H, D, src_dt, quantized=False, ps=0, **kw):
+    """The one-launch commit (``commit_path_stacked``: K4 dense, K5 paged)
+    against its plain version (the gather, ``quantize_rows`` under int8
+    and the rows-given plain writes) on the same inputs (``path_inputs``):
+    every leaf after the launch must be bitwise the plain version's (pools
+    without trash block 0), the rows past S dropped and the rest of the
+    cache unchanged.  Returns the max abs difference (0.0)."""
+    from repro_torch.kernels import cache_update as CU
+
+    leaves, src, path, lens, table = path_inputs(dev, nu, H, D, src_dt,
+                                                 quantized, ps, **kw)
+    got = {n: t.clone() for n, t in leaves.items()}
+    ref = {n: t.clone() for n, t in leaves.items()}
+    wrapper = CU.commit_rows_paged_stacked if ps else CU.commit_rows_stacked
+    before = wrapper.launches
+    uncounted(CU.commit_path_stacked, got, src, path, lens, table)
+    CU.commit_path_stacked_plain(ref, src, path, lens, table)
+    torch.cuda.synchronize()
+    err = 0.0
+    for n in leaves:
+        g, r = (t[:, 1:] if ps else t for t in (got[n], ref[n]))
+        if not torch.equal(g, r):
+            fail(f"commit_path_stacked {name}: leaf {n} differs from the "
+                 f"plain version")
+        err = max(err, (g.float() - r.float()).abs().max().item())
+    if wrapper.launches != before:
+        fail(f"commit_path_stacked {name}: an uncounted call counted")
+    cache = "int8 + f32 scales" if quantized else \
+        str(kw.get("cache_dt") or src_dt)
+    log(f"  commit_path_stacked {name}: nu={nu} B=4 T=64 K1=5 rows "
+        f"[{H}, {D}] {src_dt} -> {cache}"
+        + (f", page size {ps}" if ps else "")
+        + (", stacked sources" if kw.get("stacked") else "")
+        + f": bitwise the plain version (max abs err {err})")
+    return err
+
+
+def quant_case(dev):
+    """``quantize_rows`` on the card against its CPU run (the reference's
+    rounding): values and scales bitwise equal over 8192 rows of 8 heads
+    of 128.  Logs how many scales a division by the Python float 127.0
+    on the card (a product with its reciprocal) would change."""
+    from repro_torch.kernels.quant import _EPS, INT8_MAX, quantize_rows
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((8192, 8, 128), generator=gen, device=dev) * 3
+    q, s = quantize_rows(x)
+    q_cpu, s_cpu = quantize_rows(x.cpu())
+    if not (torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)):
+        fail("quantize_rows on the card differs from its CPU run")
+    amax = torch.amax(x.abs(), dim=-1, keepdim=True).clamp(min=_EPS)
+    off = ((amax / INT8_MAX).cpu() != s_cpu).sum().item()
+    log(f"  quantize_rows: card == CPU bitwise over {s.numel()} scales; a "
+        f"division by the Python float {INT8_MAX} on the card would change "
+        f"{off} of them")
+
+
 def phase_commit_kernels(dev):
     """K4 and K5 for int8 values, bf16 and f32 rows and the int8 layout's
-    f32 scales, with rows past the end."""
+    f32 scales, with rows past the end (the rows-given wrappers); then
+    the one-launch commit of a spec step at openPangu-7B's widths (34
+    units) in bf16, f32 and int8, dense and paged, and at the dense
+    family's (gemma-2b's one kv head of 256, qwen1.5-0.5b's 16 of 64,
+    qwen1.5-4b's 40 units of 20 heads).  Returns the one-launch commit's
+    max abs errors {"dense", "paged", "int8", "int8+paged"} (bf16 rows at
+    openPangu-7B's widths)."""
     for paged in (False, True):
         for dtype, width in ((torch.int8, 128), (torch.bfloat16, 128),
                              (torch.float32, 128), (torch.float32, 1)):
@@ -1030,6 +1144,25 @@ def phase_commit_kernels(dev):
         if paged:
             commit_case(dev, "page size 16, bf16", torch.bfloat16, 128, paged,
                         ps=16)
+    quant_case(dev)
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = {"dense": path_case(dev, "bf16", 34, 8, 128, bf),
+            "paged": path_case(dev, "bf16 paged", 34, 8, 128, bf, ps=64),
+            "int8": path_case(dev, "int8", 34, 8, 128, bf, True),
+            "int8+paged": path_case(dev, "int8 paged", 34, 8, 128, bf, True,
+                                    ps=16)}
+    path_case(dev, "stacked", 34, 8, 128, bf, stacked=True)
+    path_case(dev, "f32", 34, 8, 128, f32)
+    path_case(dev, "f32 int8 paged", 34, 8, 128, f32, True, ps=64)
+    path_case(dev, "f32 rows, bf16 cache", 34, 8, 128, f32, cache_dt=bf)
+    path_case(dev, "bf16 rows, f32 cache", 34, 8, 128, bf, cache_dt=f32,
+              ps=16)
+    path_case(dev, "gemma-2b", 18, 1, 256, bf, S=512)
+    path_case(dev, "gemma-2b int8 paged", 18, 1, 256, bf, True, ps=64, S=512)
+    path_case(dev, "qwen1.5-0.5b int8", 24, 16, 64, bf, True, S=512)
+    path_case(dev, "qwen1.5-4b paged", 40, 20, 128, bf, ps=64, S=512)
+    path_case(dev, "qwen1.5-4b int8", 40, 20, 128, bf, True, S=512)
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1040,12 +1173,12 @@ def expected_counts(cfg, steps: int, ar_steps: int = 0):
     """Launches of each kernel for ``steps`` spec steps and ``ar_steps`` AR
     steps on ``cfg``: K1 once per layer and step; with verify fusion K2
     once per spec step and, on an fp cache, K3 once per layer and step;
-    the commit once per cache leaf (k and v, and their scales under int8)
-    and spec step, through K4 on the dense cache and K5 on the paged
+    the commit once per spec step (every unit and cache leaf in one
+    launch, int8 too), through K4 on the dense cache and K5 on the paged
     pool."""
     per_layer = cfg.num_layers * (steps + ar_steps)
     quantized = cfg.resolved_cache_dtype == "int8"
-    commits = (4 if quantized else 2) * steps
+    commits = steps
     fused = cfg.verify_fusion
     return {"K1": per_layer, "K2": steps if fused else 0,
             "K3": per_layer if fused and not quantized else 0,
@@ -2112,72 +2245,130 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
                if k != "bound_by"}}
 
 
-def time_commit(dev, launches, paged, ps=64):
-    """K4 (or K5 with ``paged``) at the main path's commit: 5 bf16 rows of
-    [8, 128] per slot of 4 slots into all 34 units of a 2048-row cache (a
-    pool through a shuffled table), one launch.  The yardstick is one
-    ``index_put_`` of the same rows at the same (precomputed) positions.
-    Times are device times from the profiler (``device_ms``)."""
+def time_commit(dev, launches, max_err, paged=False, quantized=False,
+                ps=64):
+    """The one-launch commit (K4 dense, K5 paged) at the main path's:
+    openPangu-7B's 34 units' in-flight k and v [4, 64, 8, 128] bf16 (one
+    tensor per unit, as decode leaves them), a best path of K1 5 rows per
+    slot (int64, as the verdict holds it), into a 2048-row bf16 cache or
+    int8 values with f32 scales, dense or a pool of page size ``ps``
+    through a shuffled table.  Device times from the profiler
+    (``device_ms``): the kernel; its plain version; the old per-step
+    sequence (the two stacks of the in-flight rows, the gathers,
+    ``quantize_rows`` under int8, and one rows-given launch of the same
+    kernel per leaf: 2, or 4 under int8); one rows-given launch of one
+    leaf's pre-gathered rows (what the K4/K5 rows of earlier slices
+    timed); the yardstick, ``index_put_`` of the pre-gathered (under int8
+    pre-quantized) rows into each leaf; and an empty kernel.  The bound
+    counts the accepted rows read once and written once (the scales
+    under int8), the lengths, the path and the table entries they use."""
     from repro_torch.kernels import cache_update as CU
     from repro_torch.kernels import paging as P
+    from repro_torch.kernels.quant import quantize_rows
 
-    nu, B, S, K1, H, D = 34, 4, 2048, 5, 8, 128
+    nu, B, T, K1, H, D, S = 34, 4, 64, 5, 8, 128, 2048
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(11)
-    rows = torch.randn((nu, B, K1, H, D), generator=gen, device=dev).to(bf)
+    src = {n: tuple(torch.randn((B, T, H, D), generator=gen,
+                                device=dev).to(bf) for _ in range(nu))
+           for n in "kv"}
+    path = torch.randint(0, T, (B, K1), generator=gen, device=dev)
     lengths = torch.tensor([300, 517, 1300, 2000], dtype=torch.int32,
                            device=dev)
+    table = shuffled_table(B, S // ps, dev, 12) if paged else None
+    lead = (nu, 1 + B * S // ps, ps) if paged else (nu, B, S)
+    leaves = {}
+    for n in "kv":
+        leaves[n] = torch.zeros(lead + (H, D), device=dev,
+                                dtype=torch.int8 if quantized else bf)
+        if quantized:
+            leaves[n + "_scale"] = torch.zeros(lead + (H, 1), device=dev)
+    rows_given = CU.commit_rows_paged_stacked if paged else \
+        CU.commit_rows_stacked
+    extra = (table,) if paged else ()
+    # the old sequence's inputs, made once: the rows each leaf takes
+    bidx = torch.arange(B, device=dev)[:, None]
+    pre = {}
+    for n in "kv":
+        r = torch.stack(src[n])[:, bidx, path]
+        if quantized:
+            pre[n], pre[n + "_scale"] = quantize_rows(r)
+        else:
+            pre[n] = r
     if paged:
-        table = shuffled_table(B, S // ps, dev, 12)
-        cache = torch.zeros((nu, 1 + B * S // ps, ps, H, D), dtype=bf,
-                            device=dev)
-        fn, plain = CU.commit_rows_paged_stacked, \
-            CU.commit_rows_paged_stacked_plain
-        extra = (table,)
-        flat = cache.view(nu, -1, H, D)
+        flat = {n: t.view(nu, -1, *t.shape[3:]) for n, t in leaves.items()}
         phys = P.phys_rows(table, lengths, K1, ps).reshape(-1)
-        rows2 = rows.reshape(nu, B * K1, H, D)
-
-        def lib():
-            flat.index_put_((torch.arange(nu, device=dev)[:, None],
-                             phys[None, :]), rows2)
+        at = (torch.arange(nu, device=dev)[:, None], phys[None, :])
     else:
-        cache = torch.zeros((nu, B, S, H, D), dtype=bf, device=dev)
-        fn, plain = CU.commit_rows_stacked, CU.commit_rows_stacked_plain
-        extra = ()
+        flat = leaves
         pos = (lengths.long()[:, None]
                + torch.arange(K1, device=dev)).reshape(-1)
         slot = torch.arange(B, device=dev).repeat_interleave(K1)
-        rows2 = rows.reshape(nu, B * K1, H, D)
+        at = (torch.arange(nu, device=dev)[:, None], slot[None, :],
+              pos[None, :])
+    flat_rows = {n: r.reshape(nu, B * K1, *r.shape[3:])
+                 for n, r in pre.items()}
 
-        def lib():
-            cache.index_put_((torch.arange(nu, device=dev)[:, None],
-                              slot[None, :], pos[None, :]), rows2)
+    def kernel():
+        uncounted(CU.commit_path_stacked, leaves, src, path, lengths, table)
+
+    def old():
+        rows_b = torch.arange(B, device=dev)[:, None]
+        for n in "kv":
+            r = torch.stack(src[n])[:, rows_b, path]
+            rows = dict(zip((n, n + "_scale"), quantize_rows(r))) \
+                if quantized else {n: r}
+            for leaf, x in rows.items():
+                uncounted(rows_given, leaves[leaf], *extra, x, lengths)
+
+    def lib():
+        for n, t in flat.items():
+            t.index_put_(at, flat_rows[n])
+
     # each call is shorter than the host's cost of issuing it: device
     # times from the profiler, and the host's rate beside them
-    issue_ms = cuda_ms(lambda: uncounted(fn, cache, *extra, rows, lengths),
-                      200)
-    ms = device_ms(lambda: uncounted(fn, cache, *extra, rows, lengths), 50)
-    plain_ms = device_ms(lambda: plain(cache, *extra, rows, lengths), 50)
+    issue_ms = cuda_ms(kernel, 200)
+    ms = device_ms(kernel, 50)
+    plain_ms = device_ms(lambda: CU.commit_path_stacked_plain(
+        leaves, src, path, lengths, table), 50)
+    old_ms = device_ms(old, 50)
+    given_ms = device_ms(lambda: uncounted(rows_given, leaves["k"], *extra,
+                                           pre["k"], lengths), 50)
     lib_ms = device_ms(lib, 50)
-    empty_ms = device_ms(lambda: torch.cuda._sleep(0), 50)
-    nbytes = 2 * rows.numel() * 2 + B * 4 + (B * 2 * 4 if paged else 0)
+    # a window in which the profiler caught no kernel reads 0: read again
+    empty_ms = device_ms(lambda: torch.cuda._sleep(0), 50) \
+        or device_ms(lambda: torch.cuda._sleep(0), 50)
+    moved = sum(r.numel() * r.element_size() for r in pre.values())
+    read = 2 * nu * B * K1 * H * D * 2
+    blocks = len({(b, (n + j) // ps) for b, n in enumerate(lengths.tolist())
+                  for j in range(K1)}) if paged else 0
+    nbytes = read + moved + B * 4 + path.numel() * 8 + blocks * 4
     b_ms, b_by = bound(nbytes, 0)
-    name = "commit_rows_paged" if paged else "commit_rows"
-    log(f"  {name} (via {fn.__name__}: nu={nu} B={B} K1={K1} rows [{H}, {D}] "
-        f"bf16{f', page size {ps}' if paged else ''}), device time per call: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_put_ of the same "
-        f"rows {lib_ms:.4f} ms, an empty kernel {empty_ms:.4f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by}: {nbytes} bytes); back to back on CUDA "
-        f"events the kernel's wrapper issues one call per {issue_ms:.4f} "
-        f"ms")
+    name = ("commit_rows_paged" if paged else "commit_rows") \
+        + ("[int8]" if quantized else "")
+    log(f"  {name} (commit_path_stacked: nu={nu} B={B} T={T} K1={K1} rows "
+        f"[{H}, {D}] bf16 -> {'int8 + f32 scales' if quantized else 'bf16'}"
+        f"{f', page size {ps}' if paged else ''}, one launch), device time "
+        f"per step: kernel {ms:.4f} ms ({b_ms / ms:.0%} of its bound), plain "
+        f"{plain_ms:.4f} ms, the old sequence (stacks, gathers"
+        f"{', quantize_rows' if quantized else ''}, "
+        f"{len(pre)} rows-given launches) {old_ms:.4f} ms, one rows-given "
+        f"launch of one leaf {given_ms:.4f} ms, index_put_ of the "
+        f"pre-gathered rows into {len(pre)} leaves {lib_ms:.4f} ms, an "
+        f"empty kernel {empty_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+        f"{nbytes} bytes); back to back on CUDA events the wrapper issues "
+        f"one call per {issue_ms:.4f} ms")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/commit_rows.cu",
-            "replaces": ("src/repro/kernels/cache_update.py:86" if paged else
-                         "src/repro/kernels/cache_update.py:32"),
-            "launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "replaces": "src/repro/kernels/cache_update.py:"
+                        + {(False, False): "32", (True, False): "86",
+                           (False, True): "301",
+                           (True, True): "317"}[paged, quantized],
+            "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "empty_kernel_ms": empty_ms}
+            "library_ms": lib_ms, "empty_kernel_ms": empty_ms,
+            "old_sequence_ms": old_ms, "rows_given_ms": given_ms,
+            "host_issue_ms": issue_ms}
 
 
 def main() -> int:
@@ -2217,7 +2408,7 @@ def main() -> int:
         "paged) and commit_rows (dense and paged) kernels vs plain versions "
         "on the card")
     errs = phase_fusion_kernels(dev)
-    phase_commit_kernels(dev)
+    commit_errs = phase_commit_kernels(dev)
     torch.cuda.empty_cache()
 
     log("phase 4: float32, full width, 2 layers: speculative == AR on every "
@@ -2282,8 +2473,14 @@ def main() -> int:
             time_fused_qkv(dev, cfg, mid, fused["K3"], errs["K3"]),
             time_fused_qkv(dev, cfg, mid, paged_fused["K3"],
                            errs["K3-paged"], ps=64),
-            time_commit(dev, fused["K4"], paged=False),
-            time_commit(dev, paged_fused["K5"], paged=True)]
+            time_commit(dev, fused["K4"], commit_errs["dense"]),
+            time_commit(dev, paged_fused["K5"], commit_errs["paged"],
+                        paged=True),
+            time_commit(dev, layout_counts["int8"]["K4"],
+                        commit_errs["int8"], quantized=True),
+            time_commit(dev, layout_counts["int8 paged"]["K5"],
+                        commit_errs["int8+paged"], paged=True,
+                        quantized=True, ps=16)]
     # the dense family's new shapes: K1 at gemma-2b's and qwen1.5-0.5b's,
     # K2 over gemma-2b's tied table, K3 at its head_dim 256
     for shape in FAMILY_K1:

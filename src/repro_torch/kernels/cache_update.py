@@ -15,14 +15,17 @@ the main path) runs the product on ``csrc/hopper_gemm.cuh``'s TMA +
 ``"tile"`` route (f32, or anything TMA cannot take) keeps the
 ``csrc/tile_gemm.cuh`` product (the design of both is in the source).
 
-``commit_rows_stacked`` and ``commit_rows_paged_stacked`` replace
-``commit_rows`` (body ``_kernel``) and ``commit_rows_paged`` (body
-``_kernel_paged``) of the same reference file with ``csrc/commit_rows.cu``:
-one launch writes K1 rows per slot of every unit in place, at
-[lengths[b], lengths[b] + K1), with one block per row.  The reference's
-one-cache form is the unit view ``cache[None]``; its ``*_quantized``
-wrappers are ``quant.quantize_rows`` followed by one launch for the
-values and one for the scales, which the model's commit does itself.
+``commit_path_stacked`` replaces ``commit_rows`` (body ``_kernel``) and
+``commit_rows_paged`` (body ``_kernel_paged``) of the same reference file,
+with their ``*_quantized`` wrappers and the gather of the best path's rows
+around them (``repro/models/transformer.py::_commit_attn_entry``), by one
+launch of ``csrc/commit_rows.cu`` a spec step: every unit's accepted rows
+of every cache leaf, read from the in-flight rows where decode left them
+(a table of per-unit pointers: nothing is stacked or gathered), quantized
+on the way under int8, written in place at [lengths[b], lengths[b] + K1).
+``commit_rows_stacked`` and ``commit_rows_paged_stacked`` keep the
+reference's interface, the rows given, over the same kernel (path row j
+is row j); the reference's one-cache form is the unit view ``cache[None]``.
 
 Write rules.  Dense: rows that would land at or past the cache's end are
 dropped, the rule of the port's and the unfused reference's
@@ -41,6 +44,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import paging as P
+from repro_torch.kernels import quant as Q
 from repro_torch.models import layers as L
 from repro_torch.runtime import counted
 
@@ -292,6 +296,12 @@ counted(fused_qkv_rope_commit, ("wgmma", "tile"))
 # in-place commit of the accepted rows (K4 dense, K5 paged)
 # ---------------------------------------------------------------------------
 
+# units the kernel's per-unit source table holds (``kMaxUnits`` in
+# ``csrc/commit_rows.cu``); the registry's deepest model has 40
+COMMIT_MAX_UNITS = 128
+_CAST = (torch.float32, torch.bfloat16)
+
+
 def commit_rows_plain(cache, rows, lengths):
     """Per-row write, in place: cache [..., B, S, H, D] gets rows
     [..., B, K1, H, D] (cast to the cache's dtype) at
@@ -332,68 +342,182 @@ def commit_rows_paged_stacked_plain(pool, block_tables, rows, lengths):
                                   pool.shape[2])
 
 
-def _check_commit_args(name, cache, rows, lengths, table):
-    """Shapes, devices and layout for the commit kernel: cache
-    [nu, B, S, H, D] or pool [nu, n_blocks, ps, H, D], rows
-    [nu, B, K1, H, D]."""
-    if cache.dim() != 5 or rows.dim() != 5:
-        raise ValueError(f"{name}: cache {tuple(cache.shape)} and rows "
-                         f"{tuple(rows.shape)} have the wrong rank")
-    nu, B = rows.shape[0], rows.shape[1]
-    if cache.shape[0] != nu or cache.shape[-2:] != rows.shape[-2:]:
-        raise ValueError(f"{name}: rows {tuple(rows.shape)} do not fit the "
-                         f"cache {tuple(cache.shape)}")
-    if table is None and cache.shape[1] != B:
-        raise ValueError(f"{name}: cache {tuple(cache.shape)} for {B} slots")
-    H, D = cache.shape[-2:]
-    if cache.stride(-1) != 1 or cache.stride(-2) != D:
-        raise ValueError(f"{name}: cache rows [H, D] must be contiguous")
-    if table is not None:
-        if cache.stride(1) != cache.shape[2] * cache.stride(2):
-            raise ValueError(f"{name}: pool block stride is not page_size "
-                             f"times its row stride")
-        if table.dim() != 2 or table.shape[0] != B \
-                or table.dtype != torch.int32:
-            raise ValueError(f"{name}: block_tables must be [B={B}, "
-                             f"max_blocks] int32")
-    if lengths.shape != (B,) or lengths.dtype != torch.int32:
-        raise ValueError(f"{name}: lengths must be [B] int32")
-    for t in (rows, lengths, table):
-        if t is not None and t.device != cache.device:
-            raise ValueError(f"{name}: tensors on {cache.device} and "
-                             f"{t.device}")
+def _gather_path(src, path_slots):
+    """The best path's in-flight rows [nu, B, K1, H, D]: row
+    ``path_slots[b, j]`` of slot b of every unit.  ``src`` is a stacked
+    [nu, B, T, H, D] tensor or a sequence of nu [B, T, H, D] tensors."""
+    bidx = torch.arange(path_slots.shape[0],
+                        device=path_slots.device)[:, None]
+    path = path_slots.long()
+    if isinstance(src, torch.Tensor):
+        return src[:, bidx, path]
+    return torch.stack([s[bidx, path] for s in src])
+
+
+def commit_path_stacked_plain(leaves, sources, path_slots, lengths,
+                              table=None):
+    """``commit_path_stacked`` in plain PyTorch: per source, the gather of
+    the path's rows (``_gather_path``), ``quant.quantize_rows`` where the
+    leaf has scales, and ``commit_rows_stacked_plain`` (dense) or
+    ``commit_rows_paged_stacked_plain`` (paged) per cache leaf.  Returns
+    ``leaves``."""
+    for name, src in sources.items():
+        picked = _gather_path(src, path_slots)
+        rows = {name: picked}
+        if name + "_scale" in leaves:
+            q, s = Q.quantize_rows(picked)
+            rows = {name: q, name + "_scale": s}
+        for leaf, r in rows.items():
+            if table is None:
+                commit_rows_stacked_plain(leaves[leaf], r, lengths)
+            else:
+                commit_rows_paged_stacked_plain(leaves[leaf], table, r,
+                                                lengths)
+    return leaves
 
 
 def _commit_fn():
     from repro_torch.kernels.build import library
-    fn = library("commit_rows").commit_rows
+    fn = library("commit_rows").commit_path
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
-            [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + \
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] + \
+            [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_commit(name, cache, rows, lengths, table):
-    """One launch of ``csrc/commit_rows.cu``: cache [nu, B, S, H, D] or,
-    with ``table``, pool [nu, n_blocks, ps, H, D]; rows [nu, B, K1, H, D]
-    (cast to the cache's dtype)."""
-    _check_commit_args(name, cache, rows, lengths, table)
-    rows = rows.to(cache.dtype).contiguous()
-    nu, B, K1 = rows.shape[:3]
-    es = cache.element_size()
-    row_bytes = rows.shape[-2] * rows.shape[-1] * es
+def _extent(t):
+    """[first, past the last) byte address of ``t``'s elements."""
+    span = sum((n - 1) * s for n, s in zip(t.shape, t.stride())) + 1
+    return t.data_ptr(), t.data_ptr() + span * t.element_size()
+
+
+def _rows_ok(t, H, D):
+    return t.stride(-1) == 1 and t.stride(-2) == D and t.shape[-2:] == (H, D)
+
+
+def _check_leaf(name, t, lead, H, D, table):
+    """A cache leaf [nu, B, S, H, D] (or a pool [nu, n_blocks, ps, H, D];
+    D 1 for the scales) with contiguous [H, D] rows."""
+    if t.dim() != 5 or tuple(t.shape[:3]) != lead or not _rows_ok(t, H, D):
+        raise ValueError(f"{name}: cache leaf {tuple(t.shape)} is not "
+                         f"{lead + (H, D)} with contiguous [H, D] rows")
+    if table is not None and t.stride(1) != t.shape[2] * t.stride(2):
+        raise ValueError(f"{name}: pool block stride is not page_size "
+                         f"times its row stride")
+
+
+def _launch_commit(name, pairs, path_slots, lengths, table):
+    """One launch of ``csrc/commit_rows.cu``.  ``pairs``: one or two
+    (unit sources, values leaf, scales leaf or None); unit u's source
+    [B, T, H, D] lands in leaf [nu, B, S, H, D] (a pool [nu, n_blocks, ps,
+    H, D] through ``table``): row ``path_slots[b, j]`` (row j when
+    ``path_slots`` is None) at lengths[b] + j.  Copies where the dtypes
+    agree, casts f32 <-> bf16, quantizes into an int8 leaf with scales."""
+    units0, cache, _ = pairs[0]
+    nu, B = cache.shape[0], lengths.shape[0]
+    H, D = cache.shape[-2:]
+    if not units0 or units0[0].dim() != 4:
+        raise ValueError(f"{name}: sources must be [B, T, H, D] per unit")
+    T = units0[0].shape[1]
+    K1 = T if path_slots is None else path_slots.shape[-1]
+    if nu > COMMIT_MAX_UNITS:
+        raise ValueError(f"{name}: {nu} units; the kernel's source table "
+                         f"holds {COMMIT_MAX_UNITS}")
+    if lengths.shape != (B,) or lengths.dtype != torch.int32:
+        raise ValueError(f"{name}: lengths must be [B] int32")
+    if path_slots is not None and (
+            path_slots.shape != (B, K1)
+            or path_slots.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(f"{name}: path_slots must be [B={B}, K1] int32 or "
+                         f"int64")
+    if table is not None:
+        if table.dim() != 2 or table.shape[0] != B \
+                or table.dtype != torch.int32:
+            raise ValueError(f"{name}: block_tables must be [B={B}, "
+                             f"max_blocks] int32")
+        lead = tuple(cache.shape[:3])
+    else:
+        lead = (nu, B, cache.shape[2])
+        if cache.shape[2] < K1:
+            raise ValueError(f"cache of {cache.shape[2]} rows cannot take "
+                             f"{K1} rows per step")
+    src_dt, src_stride = units0[0].dtype, units0[0].stride()
+    if units0[0].shape != (B, T, H, D) or not _rows_ok(units0[0], H, D):
+        raise ValueError(f"{name}: sources must be [B={B}, T, H={H}, D={D}] "
+                         f"with contiguous [H, D] rows")
+    mode = None
+    ptrs = []
+    for units, leaf, scale in pairs:
+        _check_leaf(name, leaf, lead, H, D, table)
+        if len(units) != nu:
+            raise ValueError(f"{name}: {len(units)} source units for a "
+                             f"cache of {nu}")
+        for t in units:
+            if t.shape != units0[0].shape or t.dtype != src_dt \
+                    or t.stride() != src_stride or t.device != cache.device:
+                raise ValueError(f"{name}: sources differ in shape, dtype, "
+                                 f"layout or device")
+            ptrs.append(t.data_ptr())
+        if scale is not None:
+            _check_leaf(name, scale, lead, H, 1, table)
+            if leaf.dtype != torch.int8 or scale.dtype != torch.float32 \
+                    or src_dt not in _CAST:
+                raise TypeError(f"{name}: int8 values with f32 scales take "
+                                f"f32 or bf16 rows, not {src_dt}")
+            if D % 8 or 32 % (D // 8):
+                raise ValueError(f"{name}: quantizing takes head_dim 8, "
+                                 f"16, 32, 64, 128 or 256, not {D}")
+            m = 2
+        elif leaf.dtype == src_dt:
+            m = 0
+        elif leaf.dtype in _CAST and src_dt in _CAST and (H * D) % 8 == 0:
+            m = 1
+        else:
+            raise TypeError(f"{name}: rows of {src_dt} for a {leaf.dtype} "
+                            f"leaf")
+        if mode not in (None, m) or leaf.dtype != cache.dtype:
+            raise TypeError(f"{name}: the leaves differ in dtype")
+        mode = m
+    outs = [t for _, leaf, scale in pairs for t in (leaf, scale)
+            if t is not None]
+    for t in [lengths, path_slots, table] + outs:
+        if t is not None and t.device != cache.device:
+            raise ValueError(f"{name}: tensors on {cache.device} and "
+                             f"{t.device}")
+    # the in-flight rows are never the cache: no source may overlap a leaf
+    span = _extent(units0[0])[1] - ptrs[0]
+    for lo, hi in map(_extent, outs):
+        if any(lo - span < q < hi for q in ptrs):
+            raise ValueError(f"{name}: a source overlaps a cache leaf")
+    lengths = lengths.contiguous()
+    if path_slots is not None:
+        path_slots = path_slots.contiguous()
     if table is not None:
         table = table.contiguous()
         S, ps, mb = 0, cache.shape[2], table.shape[1]
-        s_b = 0
     else:
         S, ps, mb = cache.shape[2], 0, 0
-        s_b = cache.stride(1) * es
+    n = len(pairs)
+    src = (ctypes.c_void_p * (n * nu))(*ptrs)
+    dst = (ctypes.c_void_p * (2 * n))(
+        *(p for _, leaf, scale in pairs
+          for p in (leaf.data_ptr(), scale.data_ptr() if scale is not None
+                    else None)))
+    ses, es = units0[0].element_size(), cache.element_size()
+    strides = (ctypes.c_int64 * (8 * n))(
+        *(v for units, leaf, scale in pairs for v in (
+            units[0].stride(0) * ses, units[0].stride(1) * ses,
+            leaf.stride(0) * es, leaf.stride(1) * es, leaf.stride(2) * es,
+            *((scale.stride(0) * 4, scale.stride(1) * 4, scale.stride(2) * 4)
+              if scale is not None else (0, 0, 0)))))
     err = _commit_fn()(
-        rows.data_ptr(), cache.data_ptr(), lengths.data_ptr(),
-        None if table is None else table.data_ptr(), nu, B, K1, row_bytes, S,
-        ps, mb, cache.stride(0) * es, s_b, cache.stride(2) * es,
+        src, dst, strides, n, nu, B, K1, H, D, mode,
+        1 if src_dt == torch.bfloat16 else 0, es, lengths.data_ptr(),
+        None if path_slots is None else path_slots.data_ptr(),
+        0 if path_slots is None else path_slots.element_size(),
+        None if table is None else table.data_ptr(), S, ps, mb,
         torch.cuda.current_stream(cache.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
@@ -406,6 +530,20 @@ def _device_of(name, cache):
     return cache.device.type
 
 
+def _rows_given(name, cache, rows, lengths, table):
+    """The rows-given commit: rows [nu, B, K1, H, D] land at [lengths[b],
+    lengths[b] + K1), one launch (path row j is in-flight row j)."""
+    if cache.dim() != 5 or rows.dim() != 5:
+        raise ValueError(f"{name}: cache {tuple(cache.shape)} and rows "
+                         f"{tuple(rows.shape)} have the wrong rank")
+    if rows.dtype != cache.dtype and not (
+            rows.dtype in _CAST and cache.dtype in _CAST
+            and rows.shape[-2] * rows.shape[-1] % 8 == 0):
+        rows = rows.to(cache.dtype)
+    _launch_commit(name, [(list(rows.contiguous().unbind(0)), cache, None)],
+                   None, lengths, table)
+
+
 def commit_rows_stacked(cache, rows, lengths):
     """In-place commit of K1 rows per slot into every unit of a dense cache.
 
@@ -415,11 +553,13 @@ def commit_rows_stacked(cache, rows, lengths):
     past S are dropped.  Returns the cache.  One launch for every unit.
 
     CPU tensors take ``commit_rows_stacked_plain``; CUDA tensors launch
-    ``csrc/commit_rows.cu`` or raise (the cache's [H, D] rows must be
-    contiguous)."""
+    ``csrc/commit_rows.cu`` (the kernel of ``commit_path_stacked``, each
+    path row its own in-flight row) or raise (the cache's [H, D] rows must
+    be contiguous).  ``.launches`` also counts ``commit_path_stacked``'s
+    dense launches."""
     if _device_of("commit_rows_stacked", cache) == "cpu":
         return commit_rows_stacked_plain(cache, rows, lengths)
-    _launch_commit("commit_rows_stacked", cache, rows, lengths, None)
+    _rows_given("commit_rows_stacked", cache, rows, lengths, None)
     commit_rows_stacked.launches += 1
     return cache
 
@@ -435,14 +575,51 @@ def commit_rows_paged_stacked(pool, block_tables, rows, lengths):
     Returns the pool.  One launch for every unit.
 
     CPU tensors take ``commit_rows_paged_stacked_plain``; CUDA tensors
-    launch ``csrc/commit_rows.cu`` or raise."""
+    launch ``csrc/commit_rows.cu`` or raise.  ``.launches`` also counts
+    ``commit_path_stacked``'s paged launches."""
     if _device_of("commit_rows_paged_stacked", pool) == "cpu":
         return commit_rows_paged_stacked_plain(pool, block_tables, rows,
                                                lengths)
-    _launch_commit("commit_rows_paged_stacked", pool, rows, lengths,
-                   block_tables)
+    _rows_given("commit_rows_paged_stacked", pool, rows, lengths,
+                block_tables)
     commit_rows_paged_stacked.launches += 1
     return pool
+
+
+def commit_path_stacked(leaves, sources, path_slots, lengths, table=None):
+    """One launch commits a spec step's accepted rows into every unit and
+    every cache leaf, straight from the in-flight rows.
+
+    leaves: the cache entry's leaves, ``"k"``/``"v"`` [nu, B, S, H, D]
+    (pools [nu, n_blocks, page_size, H, D] with ``table`` [B, max_blocks]
+    int32), and under int8 ``"k_scale"``/``"v_scale"`` [..., H, 1] f32;
+    sources: ``{"k": ..., "v": ...}``, each a sequence of nu [B, T, H, D]
+    tensors (decode's in-flight rows, unit by unit) or one stacked
+    [nu, B, T, H, D] tensor; path_slots [B, K1] int32 or int64 (the best
+    path's in-flight rows); lengths [B] int32.  Row ``path_slots[b, j]``
+    of slot b of unit u lands at logical position lengths[b] + j of unit u
+    of its leaf: cast to the leaf's dtype, or quantized into the values and
+    the scales (``quant.quantize_rows``, bitwise); dense rows at or past S
+    are dropped, paged rows past the table go to trash block 0.  All K1
+    rows are written.  Returns ``leaves``.
+
+    CPU tensors take ``commit_path_stacked_plain``.  CUDA tensors launch
+    ``csrc/commit_rows.cu`` once, counted in ``commit_rows_stacked``'s
+    ``.launches`` (dense: K4) or ``commit_rows_paged_stacked``'s (paged:
+    K5), or raise: there is no fallback to the gather.  At most
+    ``COMMIT_MAX_UNITS`` units; no source may overlap a leaf."""
+    if _device_of("commit_path_stacked", leaves["k"]) == "cpu":
+        return commit_path_stacked_plain(leaves, sources, path_slots,
+                                         lengths, table)
+    pairs = [(list(src.unbind(0)) if isinstance(src, torch.Tensor)
+              else list(src), leaves[name], leaves.get(name + "_scale"))
+             for name, src in sources.items()]
+    _launch_commit("commit_path_stacked", pairs, path_slots, lengths, table)
+    if table is None:
+        commit_rows_stacked.launches += 1
+    else:
+        commit_rows_paged_stacked.launches += 1
+    return leaves
 
 
 counted(commit_rows_stacked)

@@ -414,13 +414,9 @@ int launch_wgmma(const CUtensorMap& xm, const CUtensorMap& wqm, const CUtensorMa
                  cudaStream_t stream) {
   using C = QkvCfg<HD, NC>;
   auto kernel = qkv_wgmma_kernel<HD, NC>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  static bool smem_done[hopper_host::kMaxDevices] = {};
+  const int smem_err = hopper_host::allow_smem(kernel, C::SMEM, smem_done);
+  if (smem_err) return smem_err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, Hq + 2 * Hkv, (M + C::BM - 1) / C::BM);
   cfg.blockDim = dim3(C::THREADS);

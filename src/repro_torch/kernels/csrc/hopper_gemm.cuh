@@ -431,7 +431,7 @@ __device__ __forceinline__ int frag_col(int t) { return 2 * (t % 4); }
 }  // namespace hopper
 
 // --------------------------------------------------------------------------
-// host side: tensor maps
+// host side: tensor maps, and the shared-memory limit per device
 // --------------------------------------------------------------------------
 
 // Each library that includes this header gets its own map cache and count
@@ -504,6 +504,26 @@ inline int weight_map(CUtensorMap* m, const void* ptr, uint64_t inner, uint64_t 
   if (err) return err;
   ++encodings();
   cache.emplace(key, *m);
+  return 0;
+}
+
+constexpr int kMaxDevices = 64;
+
+// Raise one kernel instance's dynamic shared-memory limit to `bytes`, once
+// per device: `done` is that instance's flags (a static of its launcher), so
+// a process that drives several cards sets it on each.  Returns 0 or the
+// CUDA error.
+template <typename K>
+inline int allow_smem(K kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    done[dev] = true;
+  }
   return 0;
 }
 

@@ -426,13 +426,9 @@ int launch_wgmma(const void* h, const void* w, const void* cand, const void* tma
            : hopper_host::weight_map(&wm, w, V, d, (uint64_t)V * 2, 64, 64);
   if (e) return e;
   auto kernel = verify_stats_wgmma<KM>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, StatsCfg::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  static bool smem_done[hopper_host::kMaxDevices] = {};
+  const int smem_err = hopper_host::allow_smem(kernel, StatsCfg::SMEM, smem_done);
+  if (smem_err) return smem_err;
   cudaStream_t s = (cudaStream_t)stream;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_parts);

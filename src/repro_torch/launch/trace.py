@@ -4,7 +4,7 @@ eagerly and as the captured CUDA graph the engine replays.
 
   PYTHONPATH=src python -m repro_torch.launch.trace [--arch openpangu-7b] \
       [--steps 4] [--cache-dtype int8] [--cache-layout paged] \
-      [--page-size 64] [--temperature 0.7]
+      [--page-size 64] [--temperature 0.7] [--only KIND,KIND]
 
 Builds the launcher's model (bf16 ``--arch``, by default openPangu-7B,
 at full width and depth, random weights from seed 0), prefills 4 prompts
@@ -31,25 +31,35 @@ without the profiler), the kernel launches per step as the profiler sees
 them (inside the graph, for a graph kind), the graph replays per step
 and the capture's seconds, the kernels that take the most device time
 and every one of the port's own kernels, with their time per launch.
-``--cache-dtype``, ``--cache-layout`` and ``--page-size`` (the
+For the eager kinds it also prints the commit's row: the device ms and
+launches per step of the kernels issued inside the model's ``commit``
+and of ``decode``'s stacks of its in-flight rows (``aten::stack`` inside
+``decode``), each kernel by name.  The script wraps the model module's
+``decode`` and ``commit`` in ``record_function`` ranges itself (a
+replayed graph carries no ranges), so it reads any tree of the port the
+same way.  ``--cache-dtype``, ``--cache-layout`` and ``--page-size`` (the
 launcher's flags, names and defaults) trace the same steps on the int8
 cache and on the paged pool.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import re
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs.base import SamplingParams
 from repro_torch.configs.registry import ALL_ARCHS, get_config
 from repro_torch.core.engine import ar_loop_step, build_engine
 from repro_torch.launch.serve import build_model, make_prompts
+from repro_torch.models import transformer
 from repro_torch.runtime import resolve_device
+
+DECODE_RANGE, COMMIT_RANGE = "model.decode", "model.commit"
 
 
 def _port_kernels() -> set:
@@ -73,12 +83,81 @@ def _device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
+def _ranged(name: str, fn):
+    def call(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return call
+
+
+def range_model(model):
+    """Wrap ``model.decode`` and ``model.commit`` (the model module every
+    engine and the AR loop call through) in profiler ranges."""
+    model.decode = _ranged(DECODE_RANGE, model.decode)
+    model.commit = _ranged(COMMIT_RANGE, model.commit)
+
+
+def _within(evt, ranges) -> bool:
+    t = evt.time_range
+    return any(r.start <= t.start and t.end <= r.end for r in ranges)
+
+
+def _inside(evt, name: str) -> bool:
+    while evt.cpu_parent is not None:
+        evt = evt.cpu_parent
+        if evt.name == name:
+            return True
+    return False
+
+
+def commit_row(prof, steps: int):
+    """Print the commit's device ms and launches per step: the kernels
+    launched inside the model's ``commit``, and those of ``decode``'s
+    stacks of its in-flight rows, each kernel by name and launches per
+    step.  A kernel is matched to its launch (a CUDA runtime call, by
+    correlation id) and the launch to the range by its host time: the
+    port's kernels launch through ctypes, outside any PyTorch op, so only
+    the runtime call ties them to the range."""
+    cpu, cuda = (torch.autograd.DeviceType.CPU,
+                 torch.autograd.DeviceType.CUDA)
+    events = prof.events()
+    kernels = collections.defaultdict(list)   # correlation id -> kernels
+    for e in events:
+        if e.device_type == cuda and not getattr(e, "is_user_annotation",
+                                                 False):
+            kernels[e.id].append(e)
+    calls = [e for e in events if e.device_type == cpu
+             and e.name.startswith("cu") and e.id in kernels]
+    ranges = {"commit": [e.time_range for e in events
+                         if e.device_type == cpu and e.name == COMMIT_RANGE],
+              "decode's stacks": [e.time_range for e in events
+                                  if e.device_type == cpu
+                                  and e.name == "aten::stack"
+                                  and _inside(e, DECODE_RANGE)]}
+    parts = {label: [k for c in calls if _within(c, rs) for k in kernels[c.id]]
+             for label, rs in ranges.items()}
+    every = [k for ks in parts.values() for k in ks]
+
+    def ms(ks):
+        return sum(k.time_range.elapsed_us() for k in ks) / 1e3 / steps
+
+    print(f"  commit row: {ms(every):.4f} ms/step device, "
+          f"{len(every) / steps:.0f} launches/step")
+    for label, ks in parts.items():
+        names = collections.Counter(_kernel_name(k.name) for k in ks)
+        print(f"    {label}: {ms(ks):.4f} ms/step, {len(ks) / steps:.0f} "
+              f"launches/step: " + ", ".join(
+                  f"{n} {c / steps:.0f}x" for n, c in names.most_common()))
+
+
 def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
            replays: int, capture_s: float, top: int = 12):
     """Print one traced phase's per-step breakdown, with the graph
     replays under the profiler and the graph's capture seconds."""
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in (DECODE_RANGE, COMMIT_RANGE)]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels)
     wall_ms = wall_s * 1e3 / steps
@@ -109,9 +188,13 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=64)
     ap.add_argument("--temperature", type=float, default=0.7,
                     help="the sampled kinds' temperature")
+    ap.add_argument("--only", default="",
+                    help="comma-separated kinds to trace (e.g. "
+                         "'spec-fused,spec-fused graph'); default: all")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
+    range_model(transformer)
     cfg = dataclasses.replace(get_config(args.arch),
                               cache_dtype=args.cache_dtype,
                               cache_layout=args.cache_layout,
@@ -189,7 +272,12 @@ def main(argv=None):
              ("ar sampled graph", lambda: ar(True, "sample")),
              ("spec-fused sampled", lambda: spec(True, False, "sample")),
              ("spec-fused sampled graph", lambda: spec(True, True, "sample")))
+    only = set(filter(None, args.only.split(",")))
+    if only - {name for name, _ in kinds}:
+        ap.error(f"--only: no kind {sorted(only - {n for n, _ in kinds})}")
     for name, make in kinds:
+        if only and name not in only:
+            continue
         graph, step, done = make()
         for _ in range(2):          # warm up (a graph: warm-up, capture)
             step()
@@ -201,6 +289,8 @@ def main(argv=None):
         done()
         report(name, prof, wall, traced, args.steps, graph.replays - replays,
                graph.capture_s)
+        if not graph.capture:
+            commit_row(prof, args.steps)
 
 
 if __name__ == "__main__":

@@ -28,8 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paging as P
 from repro_torch.kernels import quant as Q
-from repro_torch.kernels.cache_update import (commit_rows_paged_stacked,
-                                              commit_rows_stacked,
+from repro_torch.kernels.cache_update import (commit_path_stacked,
                                               fused_qkv_rope_commit)
 # the decode step's in-place tree-row write (the reference's _update_rows)
 from repro_torch.kernels.cache_update import commit_rows_plain as _update_rows
@@ -301,7 +300,8 @@ def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
     Writes the T tree rows into the cache at [lengths, lengths+T) in place.
     Returns (hidden [B, T, d], spec_cache), where spec_cache holds the
     cache tensors (and ``_pages``) plus the in-flight rows
-    ``k_new``/``v_new`` [nu, B, T, Hkv, D] that ``commit`` gathers from.
+    ``k_new``/``v_new``, tuples of nu [B, T, Hkv, D] tensors, one per unit
+    where its layer left them (never stacked), that ``commit`` reads.
     """
     layers, pages = split_pages(cache)
     table = None if pages is None else pages["table"]
@@ -327,8 +327,8 @@ def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
         hh = L.apply_norm(p["norm2"], x, cfg)
         x = x + L.mlp(p["ffn"], hh, cfg)
     x = L.apply_norm(params["final_norm"], x, cfg)
-    spec_cache = {"pos0": dict(entry, k_new=torch.stack(k_new),
-                               v_new=torch.stack(v_new))}
+    spec_cache = {"pos0": dict(entry, k_new=tuple(k_new),
+                               v_new=tuple(v_new))}
     if pages is not None:
         spec_cache[PAGES_KEY] = pages
     return x, spec_cache
@@ -400,32 +400,21 @@ def attention_decode_batched(p, x, cfg, entry, lengths, masks, tree_mask,
 
 
 def _commit_attn_entry(entry, lengths, path_slots, table=None):
-    """Commit one attention layer: gather the best path's rows from the
-    small in-flight tensors and write them at [len, len+K1) of every unit,
-    in place, with one ``commit_rows_stacked`` (dense) or
-    ``commit_rows_paged_stacked`` (paged, through ``table``) launch per
-    cache leaf on the card (their plain versions on the CPU).  Under int8
-    the gathered rows are re-quantized: quantization is deterministic and
-    idempotent on fake-quantized values, so the committed bytes are the
-    values verification attended over.  entry: k/v [nu, B, S, Hkv, D] (or
-    pools) + k_new/v_new [nu, B, T, Hkv, D] (+ scales); path_slots
-    [B, K1]."""
-    B = path_slots.shape[0]
-    rows = torch.arange(B, device=path_slots.device)[:, None]
-    out = {}
-    for name in ("k", "v"):
-        picked = entry[name + "_new"][:, rows, path_slots.long()]  # [nu,B,K1,H,D]
-        leaves = {name: picked}
-        if name + "_scale" in entry:
-            qrows, srows = Q.quantize_rows(picked)
-            leaves = {name: qrows, name + "_scale": srows}
-        for leaf, r in leaves.items():
-            if table is not None:
-                commit_rows_paged_stacked(entry[leaf], table, r, lengths)
-            else:
-                commit_rows_stacked(entry[leaf], r, lengths)
-            out[leaf] = entry[leaf]
-    return out
+    """Commit one attention layer: the best path's rows, read from the
+    in-flight rows, land at [len, len+K1) of every unit, in place, through
+    one ``commit_path_stacked`` launch for every unit and cache leaf on the
+    card (dense: K4, paged through ``table``: K5; its plain version on the
+    CPU).  Under int8 the rows are re-quantized on the way: quantization is
+    deterministic and idempotent on fake-quantized values, so the committed
+    bytes are the values verification attended over.  entry: k/v
+    [nu, B, S, Hkv, D] (or pools) (+ scales) and k_new/v_new, decode's
+    tuples of nu [B, T, Hkv, D] (or a stacked [nu, B, T, Hkv, D]);
+    path_slots [B, K1]."""
+    leaves = {n: entry[n] for n in ("k", "v", "k_scale", "v_scale")
+              if n in entry}
+    return commit_path_stacked(
+        leaves, {"k": entry["k_new"], "v": entry["v_new"]}, path_slots,
+        lengths, table=table)
 
 
 def commit(cfg: ModelConfig, spec_cache, lengths, path_slots, acc):

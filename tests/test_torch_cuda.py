@@ -17,6 +17,14 @@ has no JAX, so these tests run there from a copy of this file outside
 * The K1-K5 checks that sat in the JAX parity files: K1 at the main shape,
   K2 and K3 in f32, K1's int8 / paged / int8 + paged variants on a small
   cache, K4 and K5.
+* The one-launch commit (``commit_path_stacked``, counted under K4 and
+  K5) bitwise equal to its plain version: f32, bf16 and int8 values and
+  scales, casts, head_dim 64 / 128 / 256, 1 / 8 / 16 / 20 kv heads, up to
+  40 units, rows the widest vector does not fit, 128 units in one launch
+  and 129 refused; ``quantize_rows`` on the card bitwise its CPU run; and
+  the cache after one bf16 spec step bitwise the old sequence's (stacks,
+  gathers, ``quantize_rows``, rows-given launches) on the dense, int8,
+  paged, int8 + paged and fused paged layouts.
 * The captured decode step (``runtime.StepGraph``) on openPangu-7B cut to
   2 layers of width 64 (head_dim 64, which the kernels take), f32, in
   every layout and fusion mode: graph tokens == eager tokens == AR tokens
@@ -311,6 +319,212 @@ def test_cuda_paged_kernels_match_plain(dev):
 
 
 # ---------------------------------------------------------------------------
+# the one-launch commit (K4 dense, K5 paged)
+# ---------------------------------------------------------------------------
+
+def _path_inputs(dev, nu, H, D, src_dt, leaf_dt, ps=0, S=256, seed=0):
+    """nu units' in-flight k/v [4, 64, H, D] (a tuple of per-unit tensors),
+    best paths [4, 5] int64, lengths in range, straddling and past the end,
+    and the leaves: dense [nu, 4, S, H, D] or a pool of page size ``ps``
+    through a shuffled table; ``leaf_dt`` int8 adds f32 scales."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, T, K1 = 4, 64, 5
+    src = {n: tuple(torch.randn((B, T, H, D), generator=gen,
+                                device=dev).to(src_dt) for _ in range(nu))
+           for n in "kv"}
+    path = torch.randint(0, T, (B, K1), generator=gen, device=dev)
+    lens = torch.tensor([0, S // 3, S - 2, S], dtype=torch.int32, device=dev)
+    table = _shuffled_table(B, S // ps, dev, seed) if ps else None
+    lead = (nu, 1 + B * S // ps, ps) if ps else (nu, B, S)
+    leaves = {}
+    for n in "kv":
+        if leaf_dt == torch.int8:
+            leaves[n] = torch.randint(-127, 128, lead + (H, D), generator=gen,
+                                      device=dev, dtype=torch.int8)
+            leaves[n + "_scale"] = torch.rand(lead + (H, 1), generator=gen,
+                                              device=dev)
+        else:
+            leaves[n] = torch.randn(lead + (H, D), generator=gen,
+                                    device=dev).to(leaf_dt)
+    return leaves, src, path, lens, table
+
+
+def _commit_both(leaves, src, path, lens, table):
+    """(kernel's leaves, plain version's leaves) after one commit each; the
+    kernel counts one launch under K4 (dense) or K5 (paged)."""
+    wrapper = CU.commit_rows_paged_stacked if table is not None \
+        else CU.commit_rows_stacked
+    got = {n: t.clone() for n, t in leaves.items()}
+    ref = {n: t.clone() for n, t in leaves.items()}
+    before = wrapper.launches
+    CU.commit_path_stacked(got, src, path, lens, table)
+    assert wrapper.launches == before + 1
+    CU.commit_path_stacked_plain(ref, src, path, lens, table)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+def _assert_leaves_equal(got, ref, paged):
+    for n in ref:
+        g, r = (t[:, 1:] if paged else t for t in (got[n], ref[n]))
+        assert torch.equal(g, r), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nu, H, D, src_dt, leaf_dt, ps", [
+    (34, 8, 128, torch.bfloat16, torch.bfloat16, 0),     # the main path
+    (34, 8, 128, torch.bfloat16, torch.bfloat16, 64),
+    (34, 8, 128, torch.bfloat16, torch.int8, 0),
+    (34, 8, 128, torch.bfloat16, torch.int8, 16),
+    (34, 8, 64, torch.float32, torch.float32, 0),
+    (34, 8, 128, torch.float32, torch.int8, 64),
+    (18, 1, 256, torch.bfloat16, torch.bfloat16, 64),    # gemma-2b
+    (18, 1, 256, torch.bfloat16, torch.int8, 0),
+    (24, 16, 64, torch.bfloat16, torch.int8, 16),        # qwen1.5-0.5b
+    (40, 20, 128, torch.bfloat16, torch.bfloat16, 0),    # qwen1.5-4b
+    (40, 20, 128, torch.bfloat16, torch.int8, 64),
+    (4, 8, 64, torch.bfloat16, torch.float32, 0),        # casts
+    (4, 1, 128, torch.float32, torch.bfloat16, 16)])
+def test_cuda_commit_path_matches_plain(dev, nu, H, D, src_dt, leaf_dt, ps):
+    """The one-launch commit against its plain version (the gather,
+    ``quantize_rows``, the rows-given plain writes): every leaf bitwise
+    equal (a pool except block 0), f32 / bf16 / int8 values and scales,
+    head_dim 64 / 128 / 256, 1 / 8 / 16 / 20 kv heads, up to 40 units."""
+    inputs = _path_inputs(dev, nu, H, D, src_dt, leaf_dt, ps)
+    got, ref = _commit_both(*inputs)
+    _assert_leaves_equal(got, ref, bool(ps))
+
+
+@pytest.mark.cuda
+def test_cuda_commit_path_unaligned_rows(dev):
+    """Rows the widest vector does not fit: 8-byte int8 rows (one head of
+    8) from bf16 sources that start 2 bytes into their storage, a cast of
+    such rows, and the rows-given commit of 4-byte f32 scale rows (one
+    head): each bitwise its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, T, nu = 4, 64, 3
+    base = torch.randn((nu, B * T * 8 + 1), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    src = {n: tuple(base[u, 1:].view(B, T, 1, 8) for u in range(nu))
+           for n in "kv"}
+    path = torch.randint(0, T, (B, 5), generator=gen, device=dev)
+    lens = torch.tensor([0, 7, 62, 64], dtype=torch.int32, device=dev)
+    for leaf_dt in (torch.int8, torch.float32):
+        leaves = {n: torch.zeros((nu, B, 64, 1, 8), dtype=leaf_dt,
+                                 device=dev) for n in "kv"}
+        if leaf_dt == torch.int8:
+            leaves |= {n + "_scale": torch.zeros((nu, B, 64, 1, 1),
+                                                 device=dev) for n in "kv"}
+        got, ref = _commit_both(leaves, src, path, lens, None)
+        _assert_leaves_equal(got, ref, False)
+    scales = torch.rand((nu, B, 64, 1, 1), generator=gen, device=dev)
+    rows = torch.rand((nu, B, 5, 1, 1), generator=gen, device=dev)
+    a, b = scales.clone(), scales.clone()
+    CU.commit_rows_stacked(a, rows, lens)
+    CU.commit_rows_stacked_plain(b, rows, lens)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_commit_path_capacity(dev):
+    """128 units (the kernel's source table) commit in one launch; 129
+    raise before any launch, and the leaves stay as they were."""
+    inputs = _path_inputs(dev, 128, 1, 64, torch.bfloat16, torch.bfloat16,
+                          S=64)
+    got, ref = _commit_both(*inputs)
+    _assert_leaves_equal(got, ref, False)
+    leaves, src, path, lens, _ = _path_inputs(dev, 129, 1, 64,
+                                              torch.bfloat16, torch.bfloat16,
+                                              S=64)
+    kept = {n: t.clone() for n, t in leaves.items()}
+    before = CU.commit_rows_stacked.launches
+    with pytest.raises(ValueError, match="source table holds 128"):
+        CU.commit_path_stacked(leaves, src, path, lens)
+    torch.cuda.synchronize()
+    assert CU.commit_rows_stacked.launches == before
+    _assert_leaves_equal(leaves, kept, False)
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_rows_divides_truly(dev):
+    """``quantize_rows`` on the card is bitwise its CPU run (and so the
+    reference's): the scale's division by 127 is a true division there too
+    (PyTorch's CUDA division by a Python scalar multiplies by the
+    reciprocal, which differs in ~4 % of scales)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((8192, 8, 128), generator=gen, device=dev) * 3
+    q, s = quantize_rows(x)
+    q_cpu, s_cpu = quantize_rows(x.cpu())
+    assert torch.equal(s.cpu(), s_cpu) and torch.equal(q.cpu(), q_cpu)
+
+
+COMMIT_LAYOUTS = {
+    "dense": {}, "int8": dict(cache_dtype="int8"),
+    "paged": dict(cache_layout="paged", page_size=16),
+    "int8+paged": dict(cache_dtype="int8", cache_layout="paged",
+                       page_size=16),
+    "paged+fusion": dict(cache_layout="paged", page_size=16,
+                         verify_fusion=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(COMMIT_LAYOUTS))
+def test_cuda_spec_step_commit_equals_old_path(dev, name):
+    """One bf16 spec step of openPangu-7B cut to 2 layers of head_dim 64:
+    decode, then the commit of a best path with accepted lengths below K1,
+    once through the model's commit (one launch) and once through the
+    sequence it replaced (the stacks of decode's in-flight rows, the
+    gathers, ``quantize_rows`` under int8, one rows-given launch per
+    leaf): the committed caches are bitwise equal (pools except block
+    0)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import build_engine
+    from repro_torch.launch.serve import build_model, make_prompts
+    from repro_torch.models import transformer as TT
+
+    cfg = dataclasses.replace(get_config("openpangu-7b", reduced=True),
+                              head_dim=64, num_layers=2, dtype="bfloat16",
+                              **COMMIT_LAYOUTS[name])
+    eng = build_engine(cfg, use_kernel=True, device=dev, graphs=False)
+    params, _ = build_model(cfg, 3, eng.dtree.K, dev)
+    prompts = make_prompts(cfg.vocab_size, 4, 3, 8, 40)
+    tok = torch.zeros((4, max(len(p) for p in prompts)), dtype=torch.int32)
+    for j, p in enumerate(prompts):
+        tok[j, :len(p)] = torch.from_numpy(p)
+    plen = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    cache = eng.init_cache(4, 256)
+    _, cache = TT.prefill(params, cfg, tok.to(dev), plen, cache)
+    dt = eng.dtree
+    cand = torch.randint(0, cfg.vocab_size, (4, dt.T), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         dtype=torch.int32)
+    _, spec = TT.decode(params, cfg, cache, cand, plen, dt.mask, dt.depths,
+                        use_kernel=True)
+    path = dt.retrieve[torch.tensor([0, 5, 17, 40], device=dev) % dt.P]
+    acc = torch.tensor([1, 2, 4, 5], dtype=torch.int32, device=dev)
+    layers, pages = TT.split_pages(spec)
+    entry = layers["pos0"]
+    table = None if pages is None else pages["table"]
+    leaves = [n for n in ("k", "v", "k_scale", "v_scale") if n in entry]
+    old = {n: entry[n].clone() for n in leaves}
+    got, lengths = TT.commit(cfg, spec, plen, path, acc)
+    assert torch.equal(lengths, plen + acc)
+    bidx = torch.arange(4, device=dev)[:, None]
+    for n in ("k", "v"):
+        rows = torch.stack(entry[n + "_new"])[:, bidx, path]
+        parts = dict(zip((n, n + "_scale"), quantize_rows(rows))) \
+            if n + "_scale" in old else {n: rows}
+        for leaf, r in parts.items():
+            if table is None:
+                CU.commit_rows_stacked(old[leaf], r, plen)
+            else:
+                CU.commit_rows_paged_stacked(old[leaf], table, r, plen)
+    torch.cuda.synchronize()
+    _assert_leaves_equal(got["pos0"], old, table is not None)
+
+
+# ---------------------------------------------------------------------------
 # the captured decode step
 # ---------------------------------------------------------------------------
 
@@ -330,10 +544,11 @@ GRAPH_WRAPPERS = {"K1": flash_decode, "K2": unembed_verify_stats,
 
 
 def _expected_counts(cfg, steps, ar_steps):
-    """``chip_smoke.py``'s ``expected_counts``."""
+    """``chip_smoke.py``'s ``expected_counts``: the commit launches once a
+    spec step, whatever the cache dtype."""
     per_layer = cfg.num_layers * (steps + ar_steps)
     quantized = cfg.resolved_cache_dtype == "int8"
-    commits = (4 if quantized else 2) * steps
+    commits = steps
     fused = cfg.verify_fusion
     return {"K1": per_layer, "K2": steps if fused else 0,
             "K3": per_layer if fused and not quantized else 0,

@@ -177,8 +177,9 @@ def _routes():
 def test_capture_adds_nothing_and_each_replay_adds_its_counts(stub_cuda,
                                                               counters):
     """A step that 'launches' K1 on the split route (with its merge), K2 on
-    the tile route and K4 twice: the warm-up step counts once, the capture
-    adds 0, and each of k replays adds the recorded counts and routes."""
+    the tile route and K4 once (the spec step's one commit): the warm-up
+    step counts once, the capture adds 0, and each of k replays adds the
+    recorded counts and routes."""
     ran = []
 
     def step():
@@ -188,10 +189,10 @@ def test_capture_adds_nothing_and_each_replay_adds_its_counts(stub_cuda,
         TA.flash_decode.launches_by_route["merge"] += 1
         TA.unembed_verify_stats.launches += 1
         TA.unembed_verify_stats.launches_by_route["tile"] += 1
-        CU.commit_rows_stacked.launches += 2
+        CU.commit_rows_stacked.launches += 1
 
     graph = runtime.StepGraph(step, "cuda")
-    per_step = {"K1": 1, "K2": 1, "K3": 0, "K4": 2, "K5": 0}
+    per_step = {"K1": 1, "K2": 1, "K3": 0, "K4": 1, "K5": 0}
     graph()                                     # warm-up: eager, counted
     assert graph.graph is None and _counts() == per_step and len(ran) == 1
     graph()                                     # capture (+0), one replay
@@ -302,8 +303,7 @@ def _count_on_cpu(monkeypatch):
     plain = {n: getattr(TA, n) for n in ("flash_decode_plain",
                                          "unembed_verify_stats_plain")}
     plain |= {n: getattr(CU, n) for n in ("fused_qkv_rope_commit_plain",
-                                          "commit_rows_stacked_plain",
-                                          "commit_rows_paged_stacked_plain")}
+                                          "commit_path_stacked_plain")}
 
     def k1(q, k, v, lengths, **kw):
         Bq, Hkv, R, _ = q.shape
@@ -330,21 +330,17 @@ def _count_on_cpu(monkeypatch):
         CU.fused_qkv_rope_commit.launches_by_route[route] += 1
         return plain["fused_qkv_rope_commit_plain"](x, p, *args, **kw)
 
-    def commit(wrapper, name):
-        def fn(*args):
-            wrapper.launches += 1
-            return plain[name](*args)
-        return fn
+    def commit(leaves, sources, path_slots, lengths, table=None):
+        wrapper = CU.commit_rows_stacked if table is None \
+            else CU.commit_rows_paged_stacked
+        wrapper.launches += 1
+        return plain["commit_path_stacked_plain"](leaves, sources,
+                                                  path_slots, lengths, table)
 
     monkeypatch.setattr(TA, "flash_decode_plain", k1)
     monkeypatch.setattr(TA, "unembed_verify_stats_plain", k2)
     monkeypatch.setattr(CU, "fused_qkv_rope_commit_plain", k3)
-    monkeypatch.setattr(CU, "commit_rows_stacked_plain",
-                        commit(CU.commit_rows_stacked,
-                               "commit_rows_stacked_plain"))
-    monkeypatch.setattr(CU, "commit_rows_paged_stacked_plain",
-                        commit(CU.commit_rows_paged_stacked,
-                               "commit_rows_paged_stacked_plain"))
+    monkeypatch.setattr(CU, "commit_path_stacked_plain", commit)
 
 
 @pytest.mark.parametrize("name", ["dense", "fusion", "paged", "int8"])

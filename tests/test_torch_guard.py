@@ -118,6 +118,16 @@ def test_kernel_wrapper_launches_nothing_on_the_cpu():
                                  lengths)
     CU.commit_rows_paged_stacked(pool[None].to(torch.int8), table,
                                  rows8[None], lengths)
+    # the one-launch commit counts under K4 / K5, and not on the CPU
+    path = torch.zeros((1, 5), dtype=torch.int64)
+    src = {n: (torch.randn(1, 8, 2, 64),) for n in "kv"}
+    CU.commit_path_stacked({"k": k[None].clone(), "v": k[None].clone()},
+                           src, path, lengths)
+    CU.commit_path_stacked({"k": k8[None].clone(), "v": k8[None].clone(),
+                            "k_scale": ks[None].clone(),
+                            "v_scale": ks[None].clone()}, src, path, lengths)
+    CU.commit_path_stacked({"k": pool[None].clone(), "v": pool[None].clone()},
+                           src, path, lengths, table=table)
     assert [f.launches for f in wrappers] == before
     meta = {n: t.to("meta") for n, t in
             (("k", k), ("pool", pool), ("rows", rows), ("lengths", lengths),
@@ -136,6 +146,11 @@ def test_kernel_wrapper_launches_nothing_on_the_cpu():
                      meta["k8"][None], meta["rows"][None], meta["lengths"]),
                  lambda: CU.commit_rows_paged_stacked(
                      meta["pool"][None], meta["table"], meta["rows"][None],
+                     meta["lengths"]),
+                 lambda: CU.commit_path_stacked(
+                     {"k": meta["k"][None], "v": meta["k"][None]},
+                     {"k": (meta["k"],), "v": (meta["k"],)},
+                     torch.zeros((1, 5), dtype=torch.int64, device="meta"),
                      meta["lengths"]),
                  lambda: flash_decode(q.to("meta"), meta["k"], meta["k"],
                                       meta["lengths"]),

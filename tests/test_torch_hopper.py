@@ -17,7 +17,9 @@ held on the CPU.
   ``lengths``).
 
 The kernels themselves run only on the card: the last tests hold them to
-their plain versions at the new edge shapes there and skip here.
+their plain versions at the new edge shapes there and skip here, and
+launch K2 and K3 on a second card where one is present (their
+shared-memory limit is raised once per device).
 """
 import ast
 import inspect
@@ -408,3 +410,47 @@ def test_cuda_qkv_head_dim_256_matches_plain(T, dtype):
                                      sin=sin, table=table)
     for a, b in zip(got, paged):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_stats_and_qkv_launch_on_a_second_device():
+    """K2 and K3 raise their wgmma kernels' dynamic shared-memory limit
+    once per device (``hopper_host::allow_smem``), not once per process:
+    after launching on card 0 they launch on card 1 too, on their wgmma
+    routes, and match their plain versions there.  Skips with one card."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (the shared-memory limit per device)")
+    for index in (0, 1):
+        dev = torch.device("cuda", index)
+        with torch.cuda.device(dev):
+            gen = torch.Generator(device=dev).manual_seed(index)
+            h = torch.randn((2, 64, 512), generator=gen, device=dev).to(BF16)
+            w = (torch.randn((512, 4096), generator=gen, device=dev)
+                 * 512 ** -0.5).to(BF16)
+            cand = torch.randint(0, 4096, (2, 64), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            tmax = torch.ones((2,), device=dev)
+            before = TA.unembed_verify_stats.launches_by_route["wgmma"]
+            got = TA.unembed_verify_stats(h, w, cand, tmax)
+            assert TA.unembed_verify_stats.launches_by_route["wgmma"] \
+                == before + 1
+            ref = TA.unembed_verify_stats_plain(h, w, cand, tmax)
+            for g, r in zip(got[1:], ref[1:]):
+                assert ((g - r).abs() / r.abs().clamp(min=1.0)).max() < 2e-2
+            p = {n: (torch.randn((512, H, 128), generator=gen, device=dev)
+                     * 512 ** -0.5).to(BF16)
+                 for n, H in (("wq", 8), ("wk", 2), ("wv", 2))}
+            lens = torch.tensor([3, 40], dtype=torch.int32, device=dev)
+            kc = torch.zeros((2, 256, 2, 128), dtype=BF16, device=dev)
+            kr = kc.clone()
+            before = CU.fused_qkv_rope_commit.launches_by_route["wgmma"]
+            got = CU.fused_qkv_rope_commit(h, p, lens, kc, kc.clone())
+            assert CU.fused_qkv_rope_commit.launches_by_route["wgmma"] \
+                == before + 1
+            ref = CU.fused_qkv_rope_commit_plain(h, p, lens, kr, kr.clone())
+            torch.cuda.synchronize(dev)
+            for g, r in zip((*got, kc), (*ref, kr)):
+                err = ((g.float() - r.float()).abs()
+                       / r.float().abs().clamp(min=1.0)).max().item()
+                assert err < 2e-2

@@ -293,9 +293,12 @@ def stack():
 
 
 def _close_cache(t_entry, j_entry, atol=3e-5):
-    """int8 values equal, scales (and fp leaves) within ``atol``."""
+    """int8 values equal, scales (and fp leaves) within ``atol``; decode's
+    in-flight rows (a tuple, one tensor per unit) stacked."""
     for name, j in j_entry.items():
         t = t_entry[name]
+        if isinstance(t, tuple):
+            t = torch.stack(t)
         if t.dtype == torch.int8:
             np.testing.assert_array_equal(t.numpy(), np.asarray(j))
         else:

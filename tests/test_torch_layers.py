@@ -171,8 +171,14 @@ def test_prefill_decode_commit_match_reference(stack, use_kernel):
                           torch.from_numpy(tb.mask),
                           torch.from_numpy(tb.depths), use_kernel=use_kernel)
     _close(th, jh)
-    for name in ("k", "v", "k_new", "v_new"):
+    for name in ("k", "v"):
         _close(tspec["pos0"][name], jspec["pos0"][name])
+    # decode hands commit each unit's in-flight rows unstacked, where its
+    # layer left them; stacked, they are the reference's
+    for name in ("k_new", "v_new"):
+        rows = tspec["pos0"][name]
+        assert isinstance(rows, tuple) and len(rows) == cfg.num_layers
+        _close(torch.stack(rows), jspec["pos0"][name])
     _close(tm.unembed(tparams, cfg, th), jm.unembed(params, cfg, jh))
 
     path = np.stack([tb.retrieve[3], tb.retrieve[0]]).astype(np.int32)

@@ -421,10 +421,13 @@ def _layout(cfg, dtype, layout="paged"):
 
 def _close_cache(t_cache, j_cache):
     """Every leaf, pools without block 0: int8 values equal, the rest
-    within 3e-5."""
+    within 3e-5; decode's in-flight rows (a tuple, one tensor per unit)
+    stacked."""
     for pos, j_entry in j_cache.items():
         for name, j in j_entry.items():
             t, j = t_cache[pos][name], np.asarray(j)
+            if isinstance(t, tuple):
+                t = torch.stack(t)
             if pos != TT.PAGES_KEY:
                 t, j = t[:, 1:], j[:, 1:]
             if t.dtype in (torch.int8, torch.int32):
