@@ -78,6 +78,13 @@ non-zero exit:
    captured sampled step gives the eager step's tokens from the same
    seed, and a second run at 0.9 replays the same graph (no new capture)
    and again gives the eager tokens;
+4d. the deferred tree-row write (``deferred=True``: decode writes no
+   tree row, commit is the only cache write) on phase 4's weights and its
+   seven layout / fusion combinations: deferred spec == phase 4's spec
+   (== AR) token for token, through the captured step, a second run
+   replayed with no new capture, and the eager step; launches exact: K1
+   once a layer and step, K2 once a fused step, the commit once a step,
+   K3 never;
 4b. the sampled distribution gate: float32 at full width, 2 layers, a
    16-token vocabulary, untrained heads on a cartesian (2, 2) tree, 1024
    rows of one prompt, 5 tokens at temperature 0.9: sampled speculative
@@ -133,6 +140,27 @@ non-zero exit:
    0 with verify fusion, 8 of 8 answers equal to fused greedy's; each
    run's tokens/s, steps, accepted length, capture seconds and peak
    memory logged;
+10. (run after 7) the launcher with ``--deferred`` on phase 5's weights
+   and requests: unfused (all 8 answers phase 5's), ``--verify-fusion``
+   (K3 never launched; held to ``ar_generate`` under ``MARGIN_BOUND``)
+   and ``--cache-dtype int8`` (all 8 answers 7b's), launches exact; each
+   run's tokens/s, capture seconds and replayed step's wall and device ms
+   beside the non-deferred run's;
+11. training: (ii, run before 9) at full width, self-distillation of 8
+   synthetic-corpus prompts (64 + 64 tokens) with ``ar_generate`` on
+   phase 5's bf16 openPangu-7B, 20 ``medusa_train_step``s of K 4 float32
+   heads on that set (loss finite and lower at the end), the heads
+   through ``checkpoint.save`` / ``restore`` bit for bit, 10
+   ``lm_train_step``s of qwen1.5-0.5b on one batch of 8 x 512 (the loss
+   falls), ms per step and peak memory of each; (i) one ``lm_train_step``
+   and one ``medusa_train_step`` on reduced float32 openPangu-7B on the
+   card and on the CPU: loss, gradients and updated parameters within
+   ``TRAIN_TOL`` (see ``phase_train_parity``); (iii) the reference's
+   ``trained_stack`` (150 LM steps, self-distillation of 256 x 32, 120
+   head steps, K 3) and ``bench_fig34_speedup.py`` on reduced
+   openPangu-7B: head top-1 accuracy, mean accepted length, spec/AR step
+   ratio and speedup at its four cache lengths, trained heads against the
+   untrained ones (which must accept fewer), greedy spec == AR;
 8. time every kernel and variant, its plain version, and one PyTorch call
    as a yardstick the port never calls where one computes the same
    function (``scaled_dot_product_attention`` for K1, its backend pinned
@@ -1169,19 +1197,20 @@ def phase_commit_kernels(dev):
 # phase 4: float32, full width, 2 layers: spec == AR exactly, fused too
 # ---------------------------------------------------------------------------
 
-def expected_counts(cfg, steps: int, ar_steps: int = 0):
+def expected_counts(cfg, steps: int, ar_steps: int = 0,
+                    deferred: bool = False):
     """Launches of each kernel for ``steps`` spec steps and ``ar_steps`` AR
     steps on ``cfg``: K1 once per layer and step; with verify fusion K2
-    once per spec step and, on an fp cache, K3 once per layer and step;
-    the commit once per spec step (every unit and cache leaf in one
-    launch, int8 too), through K4 on the dense cache and K5 on the paged
-    pool."""
+    once per spec step and, on an fp cache, K3 once per layer and step
+    (never under ``deferred``, which writes no tree row); the commit once
+    per spec step (every unit and cache leaf in one launch, int8 too),
+    through K4 on the dense cache and K5 on the paged pool."""
     per_layer = cfg.num_layers * (steps + ar_steps)
     quantized = cfg.resolved_cache_dtype == "int8"
     commits = steps
     fused = cfg.verify_fusion
     return {"K1": per_layer, "K2": steps if fused else 0,
-            "K3": per_layer if fused and not quantized else 0,
+            "K3": per_layer if fused and not (quantized or deferred) else 0,
             "K4": 0 if cfg.paged else commits,
             "K5": commits if cfg.paged else 0}
 
@@ -1234,6 +1263,17 @@ def phase_graph_rng(dev):
              "did not raise")
     if bad.graph is not None or float(torch.ones(8, device=dev).sum()) != 8:
         fail("the card did not work on after the refused capture")
+
+
+# the seven layout / fusion combinations of phase 4:
+# (label, verify_fusion, cache_dtype, cache_layout, page_size)
+F32_LAYOUTS = [("dense", False, "", "dense", 64),
+               ("verify fusion", True, "", "dense", 64),
+               ("paged (page size 64)", False, "", "paged", 64),
+               ("paged, verify fusion (page size 16)", True, "", "paged", 16),
+               ("int8", False, "int8", "dense", 64),
+               ("int8 paged (page size 64)", False, "int8", "paged", 64),
+               ("int8, verify fusion", True, "int8", "dense", 64)]
 
 
 def phase_f32(dev):
@@ -1375,34 +1415,80 @@ def phase_f32(dev):
             sampled_hot(label, cfg, verify_fusion, sp)
         return sp
 
-    sp = run("dense", hot=True)
-    others = {"verify fusion": run("verify fusion", verify_fusion=True,
-                                   hot=True),
-              "paged (page size 64)": run("paged (page size 64)",
-                                          cache_layout="paged",
-                                          page_size=64),
-              "paged, verify fusion (page size 16)": run(
-                  "paged, verify fusion (page size 16)", verify_fusion=True,
-                  cache_layout="paged", page_size=16)}
-    for label, out in others.items():
-        if not torch.equal(out, sp):
-            fail(f"float32 {label} spec != dense spec:\n{out.tolist()}\n"
-                 f"{sp.tolist()}")
-    int8 = run("int8", cache_dtype="int8")
-    int8_others = {
-        "int8 paged (page size 64)": run("int8 paged (page size 64)",
-                                         cache_dtype="int8",
-                                         cache_layout="paged", page_size=64),
-        "int8, verify fusion": run("int8, verify fusion", verify_fusion=True,
-                                   cache_dtype="int8")}
-    for label, out in int8_others.items():
-        if not torch.equal(out, int8):
-            fail(f"float32 {label} spec != int8 dense spec:\n"
-                 f"{out.tolist()}\n{int8.tolist()}")
+    # sampled at 0.7 too on the fp dense cache, unfused and fused
+    outs = {label: run(label, verify_fusion=vf,
+                       hot=not dtype and layout == "dense",
+                       cache_dtype=dtype, cache_layout=layout, page_size=ps)
+            for label, vf, dtype, layout, ps in F32_LAYOUTS}
+    want = {"": outs["dense"], "int8": outs["int8"]}
+    sp, int8 = want[""], want["int8"]
+    for label, vf, dtype, layout, ps in F32_LAYOUTS:
+        if not torch.equal(outs[label], want[dtype]):
+            fail(f"float32 {label} spec != {dtype or 'fp'} dense spec:\n"
+                 f"{outs[label].tolist()}\n{want[dtype].tolist()}")
     log(f"  f32: fused, paged and fused paged spec == dense spec; int8 "
         f"paged and int8 fused spec == int8 spec "
         f"({int(torch.sum(int8 == sp))} of {sp.numel()} int8 tokens equal "
         f"to the fp ones)")
+    return dict(base=base, params=params, mp=mp, tok=tok, plen=plen,
+                max_new=max_new, max_len=max_len, want=want)
+
+
+def phase_f32_deferred(dev, f32):
+    """Phase 4d: the deferred engine (``deferred=True``: no tree-row cache
+    write; commit the only one) on phase 4's weights and prompts, on its
+    seven layout / fusion combinations: deferred spec == the non-deferred
+    spec of phase 4 (== AR there) token for token, through the captured
+    step, a second run on the reused cache (every step replayed, no new
+    capture) and the eager step; launches exact on every run: K1 once a
+    layer and step, K2 once a fused step, the commit once a step, K3
+    never."""
+    from repro_torch.core.engine import build_engine
+
+    params, mp, tok, plen = (f32[k] for k in ("params", "mp", "tok", "plen"))
+    max_new, max_len = f32["max_new"], f32["max_len"]
+
+    def counted_run(label, eng):
+        reset_counts()
+        sp, _, st = eng.generate(params, mp, tok, plen,
+                                 eng.init_cache(4, max_len), max_new)
+        counts = read_counts()
+        want = expected_counts(eng.cfg, st.steps, deferred=True)
+        if counts != want or counts["K3"]:
+            fail(f"f32 deferred {label}: launches {counts}, expected {want}")
+        ps = eng.cfg.page_size if eng.cfg.paged else 1
+        check_routes(f"f32 deferred {label}", None,
+                     k1_routes(eng.cfg, 4, -(-max_len // ps) * ps, st.steps,
+                               T=eng.tb.T))
+        return sp.cpu(), st, counts
+
+    for label, vf, dtype, layout, ps in F32_LAYOUTS:
+        cfg = dataclasses.replace(f32["base"], cache_dtype=dtype,
+                                  cache_layout=layout, page_size=ps)
+        eng, eager = (build_engine(cfg, "medusa", use_kernel=True, device=dev,
+                                   verify_fusion=vf, graphs=g, deferred=True)
+                      for g in (True, False))
+        sp, st, counts = counted_run(label, eng)
+        (_, graph), = kept_graphs(eng)
+        replays = graph.replays
+        sp2, st2, _ = counted_run(label + " (second run)", eng)
+        again = graph.replays - replays
+        if again != st2.steps or len(kept_graphs(eng)) != 1 \
+                or graph.graph is None:
+            fail(f"f32 deferred {label}: the second run replayed {again} "
+                 f"steps, expected {st2.steps} and no new capture")
+        spe, _, _ = counted_run(label + " (eager)", eager)
+        want = f32["want"][dtype]
+        for what, out in (("non-deferred spec (phase 4, == AR)", want),
+                          ("second run", sp2), ("eager", spe)):
+            if not torch.equal(sp, out):
+                fail(f"float32 deferred {label}: spec != {what}:\n"
+                     f"{sp.tolist()}\n{out.tolist()}")
+        log(f"  f32 deferred, {label}: graph == second run == eager == "
+            f"phase 4's spec and AR for 4 x {max_new} tokens; {st.steps} "
+            f"steps, launches {counts} (exact, K3 0); the second run "
+            f"replayed {again} steps with no new capture; capture "
+            f"{eng.step_graphs.capture_s:.3f}s")
 
 
 def phase_tvd(dev):
@@ -1624,7 +1710,7 @@ def check_served(srv, counts):
     steps = sum(res[g]["steps"] for g in range(0, REQUESTS, SLOTS))
     mean_acc = (sum(r["accepted"] for r in res)
                 / sum(r["steps"] for r in res))
-    want = expected_counts(srv.cfg, steps)
+    want = expected_counts(srv.cfg, steps, deferred=srv.engine.deferred)
     graphs = kept_graphs(srv.engine)
     replays = sum(g.replays for _, g in graphs)
     log(f"  served {REQUESTS} requests: {srv.tokens} tokens in "
@@ -1959,6 +2045,457 @@ def phase_serve_sampled(dev, srv, fsrv):
              f"to greedy's")
     return runs
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the deferred tree-row write at full width and depth
+# ---------------------------------------------------------------------------
+
+def phase_serve_deferred(dev, srv, fsrv, int8):
+    """The launcher with ``--deferred`` (no tree-row cache write; commit
+    the only one) on phase 5's weights and requests: (a) unfused, whose
+    arithmetic is phase 5's, so all 8 answers must be phase 5's; (b) with
+    ``--verify-fusion`` (the unfused projection and RoPE in place of K3,
+    whose launches must be 0), held to ``ar_generate`` under
+    ``MARGIN_BOUND``; (c) ``--cache-dtype int8``, all 8 answers those of
+    the non-deferred int8 run (phase 7b).  Each run's tokens/s, capture
+    seconds and its replayed step's wall and device ms are logged beside
+    the non-deferred run's."""
+    weights = (srv.params, srv.medusa_params)
+    runs = {}
+    for label, flags, twin in (("unfused", [], srv),
+                               ("verify fusion", ["--verify-fusion"], fsrv),
+                               ("int8", ["--cache-dtype", "int8"], int8)):
+        log(f"  ({label}) --deferred {' '.join(flags)}")
+        run, counts = serve_counted(SERVE_ARGV + ["--deferred"] + flags,
+                                    weights)
+        if counts["K3"]:
+            fail(f"deferred {label}: K3 launched {counts['K3']} times")
+        same = same_answers(run, twin)
+        log(f"  {same} of {REQUESTS} answers token-identical to the "
+            f"non-deferred run's")
+        if label == "verify fusion":
+            log(f"  {same_answers(run, srv)} of {REQUESTS} answers "
+                f"token-identical to the unfused launcher's (phase 5)")
+            check_against_ar(run, dev)
+        elif same != REQUESTS:
+            fail(f"deferred {label}: {same} of {REQUESTS} answers equal to "
+                 f"the non-deferred run's")
+        for what, r in (("deferred", run), ("non-deferred", twin)):
+            wall, dev_ms = step_times(r.engine)
+            log(f"  {label} {what}: {r.tokens / r.seconds:.1f} tok/s, "
+                f"capture {r.capture_s:.3f}s; replayed step wall "
+                f"{wall:.3f} ms, device {dev_ms:.3f} ms (idle "
+                f"{1 - dev_ms / wall:.3f})")
+        runs[label] = counts
+    return runs
+
+# ---------------------------------------------------------------------------
+# phase 11: training (dense family)
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-4          # card against CPU, in units of a leaf's largest
+
+
+def leaf_gap(got, ref) -> float:
+    """max |got - ref| over ref's largest magnitude."""
+    g, r = got.detach().float().cpu(), ref.detach().float().cpu()
+    return ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+
+
+def tree_gap(got, ref) -> dict:
+    """{leaf path: leaf_gap} of two nested dicts of tensors."""
+    from repro_torch.training.checkpoint import _flatten
+    return {k: leaf_gap(g, r) for (k, g), (_, r) in
+            zip(_flatten(got), _flatten(ref))}
+
+
+def phase_train_parity(dev):
+    """(i) One ``lm_train_step`` and one ``medusa_train_step`` on reduced
+    float32 openPangu-7B, the same weights and batch on the card and on
+    the CPU: the loss, every gradient leaf (``steps.value_and_grad``) and
+    the updated parameters and moments within ``TRAIN_TOL`` of each leaf's
+    largest magnitude: the whole step's parameters against the CPU's
+    step, and, beside it, the card's parameters and moments against the
+    CPU's optimizer (clip + AdamW) run on the card's gradients, which
+    holds the optimizer apart from the gradients.  Deterministic
+    algorithms are on for the card's work, so the step's gradients are the
+    ones ``value_and_grad`` returns."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import medusa as M
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import steps as ST
+
+    cfg = get_config("openpangu-7b", reduced=True)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(5)
+    params = TT.init_params(gen, cfg)
+    mp = M.init_medusa(gen, cfg, 3, base_lm_head=params["lm_head"])
+    # a residual block away from its zero init, so w1's path is exercised
+    for name in ("w1", "b1"):
+        mp[name].normal_(generator=gen).mul_(0.05)
+    corpus = D.synthetic_chat(D.SyntheticChatConfig(
+        vocab_size=cfg.vocab_size, seq_len=65, n_samples=16, noise=0.05))
+    pad = D.special_id(cfg.vocab_size, D.PAD)
+
+    def on(tree, d):
+        return O.tree_map(lambda t: t.to(d, copy=True), tree)
+
+    cases = {
+        "lm_train_step": (
+            lambda p, x, bb: ST.value_and_grad(ST.lm_loss, p, cfg, x[:, :-1],
+                                               x[:, 1:]),
+            lambda p, o, x, bb: ST.lm_train_step(p, o, cfg, x[:, :-1],
+                                                 x[:, 1:]),
+            params, dict(lr=3e-4, weight_decay=0.1)),
+        "medusa_train_step": (
+            lambda p, x, bb: ST.value_and_grad(ST.medusa_loss, p, bb, cfg, x,
+                                               3, pad_id=pad),
+            lambda p, o, x, bb: ST.medusa_train_step(p, o, bb, cfg, x, 3,
+                                                     pad_id=pad),
+            mp, dict(lr=1e-3))}
+    batch = torch.from_numpy(corpus)
+    for label, (vg, step, tree, opt_kw) in cases.items():
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            (loss_d, _), g_d = vg(on(tree, dev), batch.to(dev),
+                                  on(params, dev))
+            p_d, o_d, met = step(on(tree, dev), O.adamw_init(on(tree, dev)),
+                                 batch.to(dev), on(params, dev))
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (loss_c, _), g_c = vg(on(tree, cpu), batch, params)
+        p_c, o_c, _ = step(on(tree, cpu), O.adamw_init(on(tree, cpu)), batch,
+                           params)
+        # the CPU's optimizer on the card's gradients
+        g_ref, _ = O.clip_by_global_norm(on(g_d, cpu), 1.0)
+        p_r, o_r = O.adamw_update(g_ref, O.adamw_init(tree), on(tree, cpu),
+                                  **opt_kw)
+        loss_gap = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+        gaps = {"gradients": tree_gap(g_d, g_c),
+                "the step's parameters": tree_gap(p_d, p_c),
+                "parameters (CPU optimizer, card gradients)":
+                    tree_gap(p_d, p_r),
+                "first moments": tree_gap(o_d.mu, o_r.mu),
+                "second moments": tree_gap(o_d.nu, o_r.nu)}
+        log(f"  {label}, card against CPU: loss {float(loss_d):.6f} vs "
+            f"{float(loss_c):.6f} (relative gap {loss_gap:.2e}, metrics "
+            f"loss {float(met['loss']):.6f}); largest gaps in units of each "
+            f"leaf's largest magnitude: "
+            + ", ".join(f"{k} {max(v.values()):.2e}" for k, v in gaps.items()))
+        bad = {k: {n: x for n, x in v.items() if not x <= TRAIN_TOL}
+               for k, v in gaps.items()}
+        if not loss_gap <= TRAIN_TOL or any(bad.values()):
+            fail(f"{label}: card against CPU beyond {TRAIN_TOL}: loss gap "
+                 f"{loss_gap}, leaves {bad}")
+
+
+def timed_steps(n, fn):
+    """Run ``fn()`` ``n`` times, each timed on the host around synchronised
+    work; returns (the per-step losses fn returns, ms per step from the
+    second step on)."""
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(fn()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, float(np.median(ms[1:]))
+
+
+def phase_train_full(dev, params):
+    """(ii) At full width: self-distil 8 prompts of the synthetic corpus
+    (64 tokens each, 64 new) with ``ar_generate`` on ``params``, the bf16
+    openPangu-7B of phase 5; 20 ``medusa_train_step``s of K 4 float32
+    heads on that set (the loss finite and lower at the end); the heads
+    through ``checkpoint.save`` / ``restore`` bit for bit; then 10
+    ``lm_train_step``s of qwen1.5-0.5b (float32 master weights, bf16
+    products) on one repeated batch of 8 x 512 (the loss must fall).  ms
+    per step and peak memory of each."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import medusa as M
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import checkpoint as C
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import steps as ST
+
+    cfg = get_config("openpangu-7b")
+    backbone_gib = sum(t.numel() * t.element_size()
+                       for t in O.tree_leaves(params)) / 2**30
+    prompts = D.synthetic_chat(D.SyntheticChatConfig(
+        vocab_size=cfg.vocab_size, seq_len=128, n_samples=8))
+    t0 = time.perf_counter()
+    distilled = D.self_distill(params, TT, cfg, prompts, 64, batch=8,
+                               device=dev)
+    log(f"  self-distilled {distilled.shape[0]} x {distilled.shape[1]} "
+        f"tokens through ar_generate in {time.perf_counter() - t0:.3f}s")
+    if distilled.shape != (8, 128) or not np.array_equal(distilled[:, :64],
+                                                         prompts[:, :64]):
+        fail(f"self_distill returned {distilled.shape}, or not the prompts")
+    K = 4
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    mp = M.init_medusa(gen, cfg, K, base_lm_head=params["lm_head"],
+                       dtype="float32")
+    state = {"mp": mp, "opt": O.adamw_init(mp)}
+    batch = torch.from_numpy(distilled).to(dev)
+    pad = D.special_id(cfg.vocab_size, D.PAD)
+    n_heads = sum(t.numel() for t in O.tree_leaves(mp))
+
+    def head_step():
+        state["mp"], state["opt"], met = ST.medusa_train_step(
+            state["mp"], state["opt"], params, cfg, batch, K, pad_id=pad)
+        state["acc"] = met["head_acc"]
+        return met["loss"]
+
+    losses, ms = timed_steps(20, head_step)
+    dev_ms = device_ms(head_step, 2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  medusa_train_step, K {K} float32 heads ({n_heads / 1e9:.3f} B "
+        f"parameters) over the bf16 backbone, batch 8 x 128: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, head top-1 "
+        f"{[round(a, 3) for a in state['acc'].tolist()]}; {ms:.1f} ms/step "
+        f"(median of steps 2-20), device {dev_ms:.1f} ms/step (steps 21-22, "
+        f"profiler); peak memory {peak:.2f} GiB")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"full-width head training: losses {losses}")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = C.save(d, 20, state["mp"], meta={"K": K})
+        step, back, meta = C.restore(path, state["mp"])
+        same = all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(C._flatten(back), C._flatten(state["mp"])))
+        log(f"  the heads through checkpoint.save / restore: bitwise "
+            f"{same} (step {step}, meta {meta}) in "
+            f"{time.perf_counter() - t0:.1f}s")
+        if not same or step != 20:
+            fail("the heads did not round-trip through the checkpoint")
+    del state, mp, back
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qcfg = get_config("qwen1.5-0.5b")
+    qp = TT.init_params(torch.Generator(device=dev).manual_seed(8), qcfg)
+    qstate = {"p": qp, "opt": O.adamw_init(qp)}
+    data = D.synthetic_chat(D.SyntheticChatConfig(
+        vocab_size=qcfg.vocab_size, seq_len=513, n_samples=8))
+    x = torch.from_numpy(data).to(dev)
+
+    def lm_step():
+        qstate["p"], qstate["opt"], met = ST.lm_train_step(
+            qstate["p"], qstate["opt"], qcfg, x[:, :-1], x[:, 1:])
+        return met["loss"]
+
+    losses, ms = timed_steps(10, lm_step)
+    dev_ms = device_ms(lm_step, 2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = sum(t.numel() for t in O.tree_leaves(qp))
+    log(f"  lm_train_step, qwen1.5-0.5b at full width ({n / 1e9:.3f} B "
+        f"float32 parameters, bf16 products, remat), one batch of 8 x 512 "
+        f"ten times: loss {losses[0]:.4f} -> {losses[-1]:.4f}; {ms:.1f} "
+        f"ms/step (median of steps 2-10), device {dev_ms:.1f} ms/step "
+        f"(steps 11-12, profiler); peak memory {peak:.2f} GiB, the bf16 "
+        f"openPangu-7B backbone's {backbone_gib:.2f} GiB included")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"qwen1.5-0.5b training: losses {losses}")
+
+
+# the reference's benchmarks/bench_fig34_speedup.py: its lengths, batch,
+# prompt and new tokens, and its tree
+FIG34_LENGTHS, FIG34_B, FIG34_PROMPT, FIG34_NEW = (128, 256, 512, 1024), 4, \
+    16, 32
+
+
+def phase_trained_stack(dev, params=None):
+    """(iii) The counterpart of ``benchmarks/common.py::trained_stack`` and
+    ``bench_fig34_speedup.py`` on reduced openPangu-7B (float32), with the
+    reference's steps and sizes: 150 ``lm_train_step``s (batch 16, lr
+    1e-3) on the synthetic corpus (512 x 64, noise 0.05); self-distil 256
+    prompts x 32 tokens; 120 ``medusa_train_step``s of K 3 heads (batch
+    16, lr 1e-3).  Logs each head's top-1 accuracy (the Table 2 metric);
+    then, on the reference's cartesian (4, 2, 1) tree and its cache
+    lengths, the mean accepted length, the spec/AR step ratio and the
+    speedup of ``SpecEngine.generate`` against ``ar_generate`` (both on
+    the plain attention path, as the reference's bench runs them: K1 has
+    no head_dim-16 instance), for the trained heads and for the same
+    heads before training (the Medusa init: copies of the lm head).
+    Gates: greedy spec == AR everywhere, and on 16 held-out corpus prompts
+    of the bench's 16 tokens the trained heads accept more tokens a step
+    than the untrained ones, both in one batch (whose steps are its
+    slowest row's) and as the mean of each row run alone (the bench's
+    contexts are whole corpus rows, whose continuations run past EOS into
+    PAD, which the untrained heads predict as well as the trained).
+    ``params``: the backbone's initial weights (default: drawn from seed
+    0 on ``dev``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import medusa as M
+    from repro_torch.core.engine import SpecEngine, ar_generate
+    from repro_torch.core.tree import cartesian_tree
+    from repro_torch.models import transformer as TT
+    from repro_torch.runtime import StepGraphs
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import steps as ST
+
+    cfg = get_config("openpangu-7b", reduced=True)
+    if params is None:
+        params = TT.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg)
+    corpus = D.synthetic_chat(D.SyntheticChatConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, n_samples=512, noise=0.05))
+    st = {"p": params, "opt": O.adamw_init(params)}
+    it = D.batches(corpus, 16, seed=1)
+
+    def lm_step():
+        b = torch.from_numpy(next(it)).to(dev)
+        st["p"], st["opt"], met = ST.lm_train_step(st["p"], st["opt"], cfg,
+                                                   b[:, :-1], b[:, 1:],
+                                                   lr=1e-3)
+        return met["loss"]
+
+    t0 = time.perf_counter()
+    lm_losses, lm_ms = timed_steps(150, lm_step)
+    params = st["p"]
+    distilled = D.self_distill(params, TT, cfg, corpus[:256], 32,
+                               device=dev)
+    K = 3
+    mp = M.init_medusa(torch.Generator(device=dev).manual_seed(2), cfg, K,
+                       base_lm_head=params["lm_head"])
+    untrained = O.tree_map(torch.clone, mp)
+    hs = {"mp": mp, "opt": O.adamw_init(mp)}
+    hit = D.batches(distilled, 16, seed=3)
+    pad = D.special_id(cfg.vocab_size, D.PAD)
+
+    def head_step():
+        b = torch.from_numpy(next(hit)).to(dev)
+        hs["mp"], hs["opt"], met = ST.medusa_train_step(
+            hs["mp"], hs["opt"], params, cfg, b, K, lr=1e-3, pad_id=pad)
+        hs["acc"] = met["head_acc"]
+        return met["loss"]
+
+    head_losses, head_ms = timed_steps(120, head_step)
+    acc = [round(a, 3) for a in hs["acc"].tolist()]
+    log(f"  trained stack in {time.perf_counter() - t0:.1f}s: LM loss "
+        f"{lm_losses[0]:.4f} -> {lm_losses[-1]:.4f} ({lm_ms:.2f} ms/step); "
+        f"self-distilled {distilled.shape[0]} x {distilled.shape[1]}; head "
+        f"loss {head_losses[0]:.4f} -> {head_losses[-1]:.4f} "
+        f"({head_ms:.2f} ms/step); head top-1 accuracy (Table 2's metric) "
+        f"{acc}")
+
+    tb = cartesian_tree((4, 2, 1))
+    B, P, NEW = FIG34_B, FIG34_PROMPT, FIG34_NEW
+    rows = []
+    for L in FIG34_LENGTHS:
+        S_max = L + tb.T + 8
+        pad_ctx = max(L - NEW - P, 0)
+        # the reference's context: the prompt, then up to pad_ctx more
+        # corpus tokens (its rows hold 64, so 64 tokens at every L; what
+        # grows with L is the cache)
+        ctx = np.concatenate([corpus[:B, :P],
+                              corpus[:B, P:P + pad_ctx] % cfg.vocab_size],
+                             axis=1).astype(np.int32)
+        tok = torch.from_numpy(ctx).to(dev)
+        ctx_len = torch.full((B,), ctx.shape[1], dtype=torch.int32,
+                             device=dev)
+        ar_graphs = StepGraphs(dev)
+        ar_cache = TT.init_cache(cfg, B, S_max, device=dev)
+
+        def ar_run():
+            return ar_generate(cfg, params, tok, ctx_len, ar_cache, NEW,
+                               graphs=ar_graphs)[0]
+
+        row = {"L": L}
+        t_ar, ar = median_s(ar_run)
+        for heads, weights in (("trained", hs["mp"]), ("untrained",
+                                                       untrained)):
+            eng = SpecEngine(cfg, tb, device=dev)
+            cache = eng.init_cache(B, S_max)
+
+            def sp_run():
+                return eng.generate(params, weights, tok, ctx_len, cache,
+                                    NEW)
+
+            t_sp, (out, n_out, stats) = median_s(sp_run)
+            if not torch.equal(out, ar):
+                fail(f"trained stack, L {L}, {heads} heads: spec != AR:\n"
+                     f"{out.tolist()}\n{ar.tolist()}")
+            steps = max(stats.steps, 1)
+            ac = float(n_out.float().mean()) / steps
+            overhead = (t_sp / steps) / (t_ar / NEW)
+            row[heads] = dict(accept=ac, steps=steps, overhead=overhead,
+                              speedup=t_ar / t_sp, ms=t_sp * 1e3)
+        row["ar_ms"] = t_ar * 1e3
+        rows.append(row)
+        tr, un = row["trained"], row["untrained"]
+        log(f"  L {L}: spec == AR; trained heads: accepted {tr['accept']:.3f}"
+            f" tokens/step ({tr['steps']} steps), spec/AR step ratio "
+            f"{tr['overhead']:.3f}, speedup {tr['speedup']:.3f} ({tr['ms']:.1f}"
+            f" ms against AR's {row['ar_ms']:.1f} ms for {B} x {NEW}); "
+            f"untrained: accepted {un['accept']:.3f}, step ratio "
+            f"{un['overhead']:.3f}, speedup {un['speedup']:.3f}")
+    # the gate: held-out corpus rows cut to the bench's 16-token prompt,
+    # whose continuation is the grammar's text (each context above is a
+    # whole 64-token row, whose continuation runs past its EOS into PAD,
+    # where the untrained heads, copies of the lm head, already agree)
+    tok = torch.from_numpy(np.ascontiguousarray(corpus[256:272, :P])).to(dev)
+    plen = torch.full((16,), P, dtype=torch.int32, device=dev)
+    ar = ar_generate(cfg, params, tok, plen,
+                     TT.init_cache(cfg, 16, P + NEW + tb.T + 8, device=dev),
+                     NEW)[0]
+    held, per_row = {}, {}
+    for heads, weights in (("trained", hs["mp"]), ("untrained", untrained)):
+        eng = SpecEngine(cfg, tb, device=dev)
+        out, n_out, stats = eng.generate(params, weights, tok, plen,
+                                         eng.init_cache(16, P + NEW + tb.T + 8),
+                                         NEW)
+        if not torch.equal(out, ar):
+            fail(f"trained stack, held-out prompts, {heads} heads: spec != "
+                 f"AR:\n{out.tolist()}\n{ar.tolist()}")
+        held[heads] = float(n_out.float().mean()) / max(stats.steps, 1)
+        # each row alone: the batch's steps are its slowest row's
+        cache = eng.init_cache(1, P + NEW + tb.T + 8)
+        per_row[heads] = []
+        for b in range(16):
+            out, n_out, stats = eng.generate(params, weights, tok[b:b + 1],
+                                             plen[:1], cache, NEW)
+            if not torch.equal(out[0], ar[b]):
+                fail(f"trained stack, held-out prompt {b} alone, {heads} "
+                     f"heads: spec != AR")
+            per_row[heads].append(float(n_out[0]) / max(stats.steps, 1))
+    row_mean = {h: float(np.mean(v)) for h, v in per_row.items()}
+    log(f"  16 held-out prompts of {P} tokens, {NEW} new: spec == AR; "
+        f"accepted {held['trained']:.3f} tokens/step with the trained heads, "
+        f"{held['untrained']:.3f} with the untrained (the batch's steps); "
+        f"each row alone: mean {row_mean['trained']:.3f} trained, "
+        f"{row_mean['untrained']:.3f} untrained; per row trained "
+        f"{[round(a, 3) for a in per_row['trained']]}, untrained "
+        f"{[round(a, 3) for a in per_row['untrained']]}")
+    if not (held["trained"] > held["untrained"]
+            and row_mean["trained"] > row_mean["untrained"]):
+        fail(f"the trained heads accept {held['trained']} tokens a step on "
+             f"held-out prompts ({row_mean['trained']} a row alone), no more "
+             f"than the untrained heads' {held['untrained']} "
+             f"({row_mean['untrained']})")
+    return acc, rows
+
+
+def median_s(fn, iters: int = 3):
+    """(median seconds of ``iters`` synchronised calls after one warm-up,
+    the last call's result)."""
+    out = fn()
+    ts = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)), out
 
 # ---------------------------------------------------------------------------
 # phase 8: timing at the main path's shapes
@@ -2385,8 +2922,11 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     t_start = time.perf_counter()
+
+    def phase(msg: str):
+        log(f"{msg} [at {time.perf_counter() - t_start:.1f}s]")
     smi = smi_line()
-    log(f"phase 1: {smi}; torch {torch.__version__} cuda "
+    phase(f"phase 1: {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -2398,63 +2938,84 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
 
-    log("phase 2: flash_decode kernel (dense, int8, paged, int8 + paged) vs "
+    phase("phase 2: flash_decode kernel (dense, int8, paged, int8 + paged) vs "
         "plain version on the card")
     k1_errs_dense = phase_kernels(dev)
     k1_err = k1_errs_dense["main"]
     k1_errs = phase_kernel_variants(dev)
 
-    log("phase 3: unembed_verify_stats, fused_qkv_rope_commit (dense and "
+    phase("phase 3: unembed_verify_stats, fused_qkv_rope_commit (dense and "
         "paged) and commit_rows (dense and paged) kernels vs plain versions "
         "on the card")
     errs = phase_fusion_kernels(dev)
     commit_errs = phase_commit_kernels(dev)
     torch.cuda.empty_cache()
 
-    log("phase 4: float32, full width, 2 layers: speculative == AR on every "
+    phase("phase 4: float32, full width, 2 layers: speculative == AR on every "
         "cache layout, fused too; sampled at temperature 0 == AR, and "
         "sampled graph == eager")
     phase_graph_rng(dev)
-    phase_f32(dev)
+    f32 = phase_f32(dev)
+    phase("phase 4d: the deferred tree-row write, float32, full width, 2 "
+        "layers: deferred spec == phase 4's spec and AR on its seven "
+        "layouts, graph and eager, K3 never launched")
+    phase_f32_deferred(dev, f32)
+    del f32
     torch.cuda.empty_cache()
-    log("phase 4b: the sampled distribution gate (tiny vocabulary, 1024 "
+    phase("phase 4b: the sampled distribution gate (tiny vocabulary, 1024 "
         "rows), unfused and fused")
     phase_tvd(dev)
     torch.cuda.empty_cache()
-    log("phase 4c: the dense family (granite-8b, qwen1.5-0.5b, qwen1.5-4b, "
+    phase("phase 4c: the dense family (granite-8b, qwen1.5-0.5b, qwen1.5-4b, "
         "gemma-2b), float32, full width, 2 layers: speculative == AR, "
         "unfused and fused, every layout for qwen1.5-0.5b and gemma-2b")
     phase_family_f32(dev)
 
-    log("phase 5: the launcher on bf16 openPangu-7B, full width and depth, "
+    phase("phase 5: the launcher on bf16 openPangu-7B, full width and depth, "
         "through the captured step")
     torch.cuda.reset_peak_memory_stats()
     srv, _ = phase_serve(dev)
 
-    log("phase 6: the launcher with --verify-fusion on the same weights")
+    phase("phase 6: the launcher with --verify-fusion on the same weights")
     fsrv, fused = phase_serve_fused(dev, srv)
-    log("phase 6b: the same configuration through the eager step "
+    phase("phase 6b: the same configuration through the eager step "
         "(graphs=False)")
     phase_serve_eager(dev, fsrv)
 
-    log("phase 7: the launcher on the same weights under the paged and int8 "
+    phase("phase 7: the launcher on the same weights under the paged and int8 "
         "cache layouts")
     runs = phase_serve_layouts(dev, srv, fsrv)
     layout_counts = {label: counts for label, (_, counts) in runs.items()}
+    phase("phase 10: the launcher with --deferred on the same weights: "
+        "unfused, --verify-fusion and --cache-dtype int8")
+    phase_serve_deferred(dev, srv, fsrv, runs["int8"][0])
     del runs
     torch.cuda.empty_cache()
-    log("phase 7s: the launcher on the same weights with --accept sample "
+    phase("phase 7s: the launcher on the same weights with --accept sample "
         f"(temperature 0.7 and {LOW_TEMPERATURE}, unfused and fused; "
         "temperature 0)")
     phase_serve_sampled(dev, srv, fsrv)
     prompt_lens = [len(p) for p in srv.prompts[:4]]
+    params = srv.params
     del srv, fsrv
     torch.cuda.empty_cache()
-    log("phase 9: the launcher on the dense family at full width and depth "
+    phase("phase 11: training (ii) at full width: self-distillation on bf16 "
+        "openPangu-7B, its float32 Medusa heads, qwen1.5-0.5b LM steps")
+    phase_train_full(dev, params)
+    del params
+    torch.cuda.empty_cache()
+    phase("phase 9: the launcher on the dense family at full width and depth "
         "in bf16, unfused and --verify-fusion")
     family = phase_family_serve(dev)
+    torch.cuda.empty_cache()
+    phase("phase 11: training (i) card against CPU, reduced float32 "
+        "openPangu-7B")
+    phase_train_parity(dev)
+    phase("phase 11: training (iii) the trained stack and Fig 3/4 on reduced "
+        "openPangu-7B")
+    phase_trained_stack(dev)
 
-    log("phase 8: timing at the main path's shapes")
+    phase("phase 8: timing at the main path's shapes")
     cfg = get_config("openpangu-7b")
     mid = [n + MAX_NEW // 2 for n in prompt_lens]
     paged_fused = layout_counts["paged fused"]

@@ -4,7 +4,9 @@
 (the reference's ``split_params`` output after ``np.asarray`` on each leaf)
 into the same nesting of torch tensors, leaf by leaf, with names and
 layouts unchanged: ``wq [d, Hq, hd]``, the stacked ``params["units"]``,
-Medusa's ``w1``/``b1``/``lm``.  It never sees a JAX object.
+Medusa's ``w1``/``b1``/``lm``.  ``adamw_to_torch`` carries an AdamW state
+(``step``, ``mu``, ``nu`` as numpy) across into the port's
+``optimizer.AdamWState``.  Neither ever sees a JAX object.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.runtime import resolve_device
+from repro_torch.training.optimizer import AdamWState
 
 
 def _leaf(a: np.ndarray, device) -> torch.Tensor:
@@ -35,3 +38,11 @@ def to_torch(tree, device="cuda"):
         return _leaf(node, dev)
 
     return conv(tree)
+
+
+def adamw_to_torch(step, mu, nu, device="cuda") -> AdamWState:
+    """An AdamW state given as numpy (``step`` a 0-dim int32 array, ``mu``
+    and ``nu`` nested dicts of arrays, the reference's ``AdamWState``
+    fields) -> the port's ``AdamWState`` on ``device``."""
+    return AdamWState(step=to_torch({"s": np.asarray(step)}, device)["s"],
+                      mu=to_torch(mu, device), nu=to_torch(nu, device))

@@ -117,10 +117,14 @@ class SpecEngine:
     card).  ``verify_fusion`` (default: ``cfg.verify_fusion``) verifies
     from the ``unembed_verify_stats`` kernel's statistics instead of the
     [B, T, V] logits, and with ``use_kernel`` also runs each layer's write
-    side as one ``fused_qkv_rope_commit`` launch.  ``device`` defaults to
-    the card and raises if there is none.  ``graphs`` (default True)
-    replays ``generate``'s step as a CUDA graph on the card; False runs
-    the same step eagerly (to compare the two).  The engine keeps its
+    side as one ``fused_qkv_rope_commit`` launch.  ``deferred`` skips the
+    per-step tree-row cache write: decode attends over the committed cache
+    (its columns below the lengths) merged with the in-flight rows, and
+    commit is the step's only cache write; it takes the unfused write side
+    (no ``fused_qkv_rope_commit``), as in the reference.  ``device``
+    defaults to the card and raises if there is none.  ``graphs``
+    (default True) replays ``generate``'s step as a CUDA graph on the
+    card; False runs the same step eagerly (to compare the two).  The engine keeps its
     graphs, one per step shape, in ``step_graphs``, and drops them with
     itself.  Verify fusion refuses ``accept="typical"`` (it needs full-row
     entropies) and a truncating warp (top_k or top_p < 1 need the sorted
@@ -133,7 +137,7 @@ class SpecEngine:
                  sampling: Optional[SamplingParams] = None,
                  proposer: Optional[Proposer] = None, device="cuda",
                  verify_fusion: Optional[bool] = None, graphs: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, deferred: bool = False):
         if accept not in ("greedy", "typical", "sample"):
             raise ValueError(f"unknown accept mode {accept!r}")
         if proposer is not None and tb is not None:
@@ -156,6 +160,7 @@ class SpecEngine:
                              "single-path candidates; pass a chain_tree()")
         self.dtree = self.proposer.dtree
         self.use_kernel = use_kernel
+        self.deferred = deferred
         self.accept = accept
         self.temperature = temperature
         self.sampling = sampling if sampling is not None else \
@@ -260,7 +265,7 @@ class SpecEngine:
             stochastic=self.accept == "sample")
         hidden, spec_cache = self.model.decode(
             params, self.cfg, cache, cand, lengths, dt.mask, dt.depths,
-            use_kernel=self.use_kernel)
+            use_kernel=self.use_kernel, deferred=self.deferred)
         if draws is None:
             draws = self.draws(cand.shape[0])
         if self.cfg.verify_fusion:
@@ -324,9 +329,11 @@ class SpecEngine:
         carry over ``cache``, one step a call.  Kept in ``step_graphs``
         under (batch, max_new, the state's shapes) while ``cache`` and the
         weights are the same tensors, and built anew (recaptured) when
-        they are not.  ``state`` gives the proposer state's shapes."""
+        they are not.  ``state`` gives the proposer state's shapes.  A
+        deferred step is a key of its own."""
         B = _cache_batch(cache)
         key = ("spec", B, max_new, self.accept, self.sampling.top_k,
+               self.deferred,
                tuple((k, tuple(t.shape), t.dtype)
                      for k, t in sorted(state.items())))
 
@@ -435,7 +442,8 @@ def build_engine(cfg: ModelConfig, proposer: str = "medusa", *,
                  accept: str = "greedy",
                  sampling: Optional[SamplingParams] = None,
                  verify_fusion: Optional[bool] = None,
-                 graphs: bool = True, seed: int = 0) -> SpecEngine:
+                 graphs: bool = True, seed: int = 0,
+                 deferred: bool = False) -> SpecEngine:
     """Engine construction shared by the launcher and the tests.  The
     port carries the Medusa proposer only."""
     if proposer != "medusa":
@@ -446,7 +454,7 @@ def build_engine(cfg: ModelConfig, proposer: str = "medusa", *,
     return SpecEngine(cfg, use_kernel=use_kernel, accept=accept,
                       sampling=sampling, proposer=MedusaProposer(cfg, dev),
                       device=dev, verify_fusion=verify_fusion, graphs=graphs,
-                      seed=seed)
+                      seed=seed, deferred=deferred)
 
 
 def ar_step(cfg: ModelConfig, params, cache, tok, lengths,

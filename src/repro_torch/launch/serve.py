@@ -30,7 +30,10 @@ is a later slice).  ``--accept sample`` verifies by lossless rejection
 sampling at ``--temperature`` (0, the default, is exact greedy) and
 ``--top-p`` (the reference launcher's flags and defaults; ``--top-p``
 below 1 is refused with ``--verify-fusion``); the draws come from a
-generator seeded with ``--seed``.
+generator seeded with ``--seed``.  ``--deferred`` serves through
+``SpecEngine(deferred=True)``: the decode step writes no tree row and
+commit is its only cache write (the unfused write side, as in the
+reference).
 """
 from __future__ import annotations
 
@@ -180,6 +183,9 @@ def main(argv=None, weights=None) -> Served:
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus truncation (accept=sample; 1.0 with "
                          "--verify-fusion)")
+    ap.add_argument("--deferred", action="store_true",
+                    help="skip the per-step tree-row cache write (commit "
+                         "is the only write)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -192,7 +198,8 @@ def main(argv=None, weights=None) -> Served:
         cfg, "medusa", use_kernel=True, device=dev, accept=args.accept,
         sampling=SamplingParams(temperature=args.temperature,
                                 top_p=args.top_p),
-        verify_fusion=args.verify_fusion, seed=args.seed)
+        verify_fusion=args.verify_fusion, seed=args.seed,
+        deferred=args.deferred)
     if weights is None:
         params, mp = build_model(cfg, args.seed, engine.dtree.K, dev)
     else:
@@ -207,6 +214,8 @@ def main(argv=None, weights=None) -> Served:
         print(f"  req {r['rid']}: {r['status']} prompt={r['prompt_len']} "
               f"steps={r['steps']} tokens/step={tps:.2f}")
     fused = " with verify fusion" if engine.cfg.verify_fusion else ""
+    if engine.deferred:
+        fused += ", deferred write"
     if engine.accept == "sample":
         fused += (f", sampled at temperature {args.temperature} top-p "
                   f"{args.top_p}")

@@ -8,8 +8,8 @@ eagerly and as the captured CUDA graph the engine replays.
 
 Builds the launcher's model (bf16 ``--arch``, by default openPangu-7B,
 at full width and depth, random weights from seed 0), prefills 4 prompts
-of 64–256 tokens from the same seed, then runs six kinds of step in turn on the one cache, each
-from where the last left off: the speculative loop body
+of 64–256 tokens from the same seed, then runs each kind of step in turn
+on the one cache, each from where the last left off: the speculative loop body
 (``SpecEngine.loop_step``) eagerly (``graphs=False``) and as a graph,
 the AR loop body (``ar_loop_step``) eagerly and as a graph, and the
 verify-fusion engine's loop body (``verify_fusion=True``: the
@@ -18,7 +18,10 @@ of the [B, T, V] logits and the unfused write side) eagerly and as a
 graph; then the same three loop bodies sampled (``accept="sample"`` at
 ``--temperature``, the AR body ``ar_generate_sampled``'s): the warp,
 the sort of the nucleus and the rejection-sampling walk in place of the
-greedy rule, the fused kernel at per-row temperatures.  Each kind warms
+greedy rule, the fused kernel at per-row temperatures; then the greedy
+unfused and fused loop bodies of a deferred engine (``deferred=True``:
+no tree-row cache write, commit the only one; under fusion the unfused
+projection and RoPE in place of ``fused_qkv_rope_commit``).  Each kind warms
 up for two steps (a graph: its eager warm-up
 step, then its capture and first replay), then runs ``--steps`` steps
 timed and ``--steps`` under the profiler; the spec kinds end each step
@@ -202,12 +205,13 @@ def main(argv=None):
     print(f"{cfg.name}: {cfg.resolved_cache_dtype} {cfg.cache_layout} cache"
           + (f", page size {cfg.page_size}" if cfg.paged else ""))
     sp = SamplingParams(temperature=args.temperature)
-    engines = {(vf, graphs, accept): build_engine(
+    engines = {(vf, graphs, accept, deferred): build_engine(
         cfg, "medusa", use_kernel=True, device=dev, verify_fusion=vf,
-        graphs=graphs, accept=accept, sampling=sp)
+        graphs=graphs, accept=accept, sampling=sp, deferred=deferred)
         for vf in (False, True) for graphs in (False, True)
-        for accept in ("greedy", "sample")}
-    eng = engines[False, False, "greedy"]
+        for accept, deferred in (("greedy", False), ("sample", False),
+                                 ("greedy", True))}
+    eng = engines[False, False, "greedy", False]
     params, mp = build_model(cfg, 0, eng.dtree.K, dev)
     prompts = make_prompts(cfg.vocab_size, 4, 0, 64, 257)
     S = max(len(p) for p in prompts)
@@ -223,9 +227,9 @@ def main(argv=None):
     pos = {"lengths": lengths, "base": base, "state": state}
     n = 2 + 2 * args.steps                 # steps each kind runs
 
-    def spec(vf, graphs, accept="greedy"):
-        step, c = engines[vf, graphs, accept].loop_step(params, mp, cache,
-                                                        pos["state"], n)
+    def spec(vf, graphs, accept="greedy", deferred=False):
+        step, c = engines[vf, graphs, accept, deferred].loop_step(
+            params, mp, cache, pos["state"], n)
         c.load(pos["lengths"], pos["base"], pos["state"], sp.temperature,
                sp.top_p)
 
@@ -239,7 +243,7 @@ def main(argv=None):
         return step, step_and_exit_test, done
 
     def ar(graphs, accept="greedy"):
-        e = engines[False, graphs, accept]
+        e = engines[False, graphs, accept, False]
         sampled = (sp, e.generator) if accept == "sample" else ()
         step, c = ar_loop_step(cfg, params, cache, n, True, e.step_graphs,
                                *sampled)
@@ -271,7 +275,12 @@ def main(argv=None):
              ("ar sampled", lambda: ar(False, "sample")),
              ("ar sampled graph", lambda: ar(True, "sample")),
              ("spec-fused sampled", lambda: spec(True, False, "sample")),
-             ("spec-fused sampled graph", lambda: spec(True, True, "sample")))
+             ("spec-fused sampled graph", lambda: spec(True, True, "sample")),
+             ("spec deferred", lambda: spec(False, False, deferred=True)),
+             ("spec deferred graph", lambda: spec(False, True, deferred=True)),
+             ("spec-fused deferred", lambda: spec(True, False, deferred=True)),
+             ("spec-fused deferred graph",
+              lambda: spec(True, True, deferred=True)))
     only = set(filter(None, args.only.split(",")))
     if only - {name for name, _ in kinds}:
         ap.error(f"--only: no kind {sorted(only - {n for n, _ in kinds})}")

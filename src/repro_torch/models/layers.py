@@ -205,6 +205,84 @@ def decode_mask(tree_mask, length, T: int, S_max: int):
     return past[..., None, :] | (within[..., None, :] & tree_vals)
 
 
+def attention_decode(p, x, cfg: ModelConfig, cache_k, cache_v, length,
+                     tree_mask, depths, use_kernel: bool = False):
+    """Cached tree-decode attention step with one length for every row
+    (the scalar-length form of the reference, which has no caller there).
+
+    x [B, T, d]; cache_k/v [B, S_max, Hkv, D]; ``length`` an int or a
+    0-dim tensor.  The T tree rows are written in place at
+    [length, length+T), the start clamped to S_max - T as the reference's
+    ``dynamic_update_slice`` clamps it.  Returns (y, cache_k, cache_v)."""
+    B, T, _ = x.shape
+    S_max = cache_k.shape[1]
+    hd = cfg.resolved_head_dim
+    length = torch.as_tensor(length, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg)
+    if cfg.use_rope:
+        positions = (length + depths)[None, :]               # [1, T]
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    rows = torch.clamp(length, max=S_max - T) + torch.arange(T,
+                                                             device=x.device)
+    cache_k.index_copy_(1, rows, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, rows, v.to(cache_v.dtype))
+    scale = 1.0 / math.sqrt(hd)
+    if use_kernel:
+        from repro_torch.kernels.ops import tree_attention
+        lengths = length.to(torch.int32).reshape(1).repeat(B)
+        out = tree_attention(q, cache_k, cache_v, tree_mask, lengths, scale)
+    else:
+        mask = decode_mask(tree_mask, length, T, S_max)[None]
+        out = _gqa_scores_to_out(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                                 mask, scale)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return y, cache_k, cache_v
+
+
+def gqa_two_part(q, cache_k, cache_v, k_new, v_new, lengths, tree_mask,
+                 scale):
+    """Deferred-write tree attention: the committed cache swept with a
+    col < length mask (its rows at and past ``lengths`` are stale, since
+    this step writes none) merged exactly with the in-flight tree block
+    ``k_new``/``v_new`` [B, T, Hkv, D] through the two parts'
+    online-softmax statistics.  The only cache write left is commit's.
+
+    q [B, T, Hq, D]; cache_k/v [B, S, Hkv, D] in q's dtype; lengths [B];
+    tree_mask [T, T] bool.  Returns [B, T, Hq, D] in q.dtype.  The plain
+    path of the deferred step; on the card the step runs
+    ``kernels.ops.tree_attention`` with ``k_tree``/``v_tree`` instead."""
+    B, T, Hq, D = q.shape
+    S, Hkv = cache_k.shape[1], cache_k.shape[2]
+    G = Hq // Hkv
+    # a 0-dim CPU tensor multiplies as a scalar (no copy to the device)
+    qg = q.reshape(B, T, Hkv, G, D) * torch.tensor(scale, dtype=q.dtype)
+    # part 1: the committed past
+    s1 = torch.einsum("bthgd,bshd->bhgts", qg, cache_k.to(q.dtype)).float()
+    past = (torch.arange(S, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, None]       # [B, 1, 1, 1, S]
+    s1 = torch.where(past, s1, NEG_INF)
+    m1 = torch.amax(s1, dim=-1, keepdim=True)
+    p1 = torch.where(past, torch.exp(s1 - m1), 0.0)
+    l1 = torch.sum(p1, dim=-1, keepdim=True)
+    a1 = torch.einsum("bhgts,bshd->bhgtd", p1.to(q.dtype), cache_v.to(q.dtype))
+    # part 2: the in-flight tree rows
+    s2 = torch.einsum("bthgd,bshd->bhgts", qg, k_new.to(q.dtype)).float()
+    s2 = torch.where(tree_mask, s2, NEG_INF)
+    m2 = torch.amax(s2, dim=-1, keepdim=True)
+    p2 = torch.where(tree_mask, torch.exp(s2 - m2), 0.0)
+    l2 = torch.sum(p2, dim=-1, keepdim=True)
+    a2 = torch.einsum("bhgts,bshd->bhgtd", p2.to(q.dtype), v_new.to(q.dtype))
+    # the exact merge
+    m = torch.maximum(m1, m2)
+    w1, w2 = torch.exp(m1 - m), torch.exp(m2 - m)
+    out = a1.float() * w1 + a2.float() * w2
+    out = (out / torch.clamp(l1 * w1 + l2 * w2, min=1e-30)).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, D)
+
+
 # ---------------------------------------------------------------------------
 # MLP (dense)
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paging as P
@@ -162,6 +163,66 @@ def unembed(params, cfg: ModelConfig, hidden):
 
 
 # ---------------------------------------------------------------------------
+# full-sequence forward (training)
+# ---------------------------------------------------------------------------
+
+def _unit_full(unit_p, x, cfg: ModelConfig):
+    """One unit over the full sequence (causal attention, then the MLP)."""
+    p = unit_p["pos0"]
+    x = x + L.attention_full(p["attn"], L.apply_norm(p["norm1"], x, cfg), cfg)
+    return x + L.mlp(p["ffn"], L.apply_norm(p["norm2"], x, cfg), cfg)
+
+
+def _unbound_units(params, cfg: ModelConfig) -> list:
+    """Every unit's weights, as views of the stacked ``params["units"]``
+    made with one ``unbind`` per leaf: its backward stacks the units'
+    gradients once, where indexing each unit (``unit_params``) would add a
+    zero-filled gradient of the whole stack per unit."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+
+    def pick(tree, u):
+        return {k: pick(v, u) if isinstance(v, dict) else v[u]
+                for k, v in tree.items()}
+
+    parts = split(params["units"])
+    return [pick(parts, u) for u in range(n_units(cfg))]
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens, extra_embeds=None,
+                   remat: bool = False, collect_router: bool = False):
+    """Token ids [B, S] -> (final hidden states [B, S, d], aux loss).
+
+    Differentiable (plain PyTorch, autograd).  ``remat`` recomputes each
+    unit's activations in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+    scan body).  The dense family has no router, so the aux loss is 0;
+    frontends and MoE routing raise."""
+    if extra_embeds is not None or collect_router:
+        raise NotImplementedError("frontends and MoE routing are ROADMAP "
+                                  "queue 1 item 14")
+    x = embed_tokens(params, cfg, tokens)
+    for unit_p in _unbound_units(params, cfg):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_unit_full, unit_p, x, cfg,
+                                                  use_reentrant=False)
+        else:
+            x = _unit_full(unit_p, x, cfg)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_train(params, cfg: ModelConfig, tokens, extra_embeds=None,
+                  remat: bool = True):
+    """-> (logits [B, S, V] in ``cfg.dtype``, aux loss scalar)."""
+    hidden, aux = forward_hidden(params, cfg, tokens, extra_embeds,
+                                 remat=remat,
+                                 collect_router=cfg.num_experts > 0)
+    return unembed(params, cfg, hidden), aux
+
+
+# ---------------------------------------------------------------------------
 # cache
 # ---------------------------------------------------------------------------
 
@@ -293,11 +354,14 @@ def _read_cache(entry, dtype, table=None):
 # ---------------------------------------------------------------------------
 
 def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
-           use_kernel: bool = False):
+           use_kernel: bool = False, deferred: bool = False):
     """One static speculative step over T tree/chain tokens.
 
     tokens [B, T]; lengths [B]; tree_mask [T, T] bool; depths [T] int.
-    Writes the T tree rows into the cache at [lengths, lengths+T) in place.
+    Writes the T tree rows into the cache at [lengths, lengths+T) in place,
+    unless ``deferred``: then no row is written this step, attention runs
+    as the sweep of the committed cache merged with the in-flight block,
+    and commit's write is the only one.
     Returns (hidden [B, T, d], spec_cache), where spec_cache holds the
     cache tensors (and ``_pages``) plus the in-flight rows
     ``k_new``/``v_new``, tuples of nu [B, T, Hkv, D] tensors, one per unit
@@ -309,10 +373,11 @@ def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
     x = embed_tokens(params, cfg, tokens)
     S_max = cache_max_len(cache)
     masks = phys = None
-    if not use_kernel:
+    if not (use_kernel or deferred):
         masks = L.decode_mask(tree_mask, lengths, T, S_max)       # [B, T, S]
     entry = layers["pos0"]
-    if table is not None and not _fused_write(cfg, entry, use_kernel):
+    if table is not None and not (deferred
+                                  or _fused_write(cfg, entry, use_kernel)):
         phys = P.phys_rows(table, lengths, T, cfg.page_size).reshape(-1)
     k_new, v_new = [], []
     for u in range(n_units(cfg)):
@@ -320,7 +385,8 @@ def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
         hh = L.apply_norm(p["norm1"], x, cfg)
         y, rows = attention_decode_batched(
             p["attn"], hh, cfg, {n: t[u] for n, t in entry.items()}, lengths,
-            masks, tree_mask, depths, use_kernel, table=table, phys=phys)
+            masks, tree_mask, depths, use_kernel, deferred, table=table,
+            phys=phys)
         k_new.append(rows["k_new"])
         v_new.append(rows["v_new"])
         x = x + y
@@ -334,15 +400,19 @@ def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
     return x, spec_cache
 
 
-def _fused_write(cfg, entry, use_kernel) -> bool:
+def _fused_write(cfg, entry, use_kernel, deferred=False) -> bool:
     """Whether the decode step's write side is one ``fused_qkv_rope_commit``
     launch: on the kernel path with verify fusion, on an fp cache (K3 is
-    fp-only; the int8 cache keeps the unfused write side)."""
-    return use_kernel and cfg.verify_fusion and "k_scale" not in entry
+    fp-only; the int8 cache keeps the unfused write side), and not under
+    ``deferred``, which writes no tree row, so there is nothing to fuse
+    (the reference's rule)."""
+    return (use_kernel and cfg.verify_fusion and not deferred
+            and "k_scale" not in entry)
 
 
 def attention_decode_batched(p, x, cfg, entry, lengths, masks, tree_mask,
-                             depths, use_kernel=False, table=None, phys=None):
+                             depths, use_kernel=False, deferred=False,
+                             table=None, phys=None):
     """Tree-decode attention of one layer with per-row lengths.
 
     ``entry`` holds that layer's cache k/v [B, S, Hkv, D] (plus
@@ -359,7 +429,11 @@ def attention_decode_batched(p, x, cfg, entry, lengths, masks, tree_mask,
     as in the reference; the int8 cache keeps the unfused write side.
     Under int8 the in-flight rows are fake-quantized (quantize, then
     dequantize), so verification attends over exactly the values every
-    later sweep reads back from the cache.  Returns (y [B, T, d],
+    later sweep reads back from the cache.  ``deferred`` writes no row
+    (and never takes the fused write side): the kernel path sweeps only
+    the cache's columns below ``lengths`` and merges the in-flight block
+    in, and the plain path does the same through ``layers.gqa_two_part``
+    (``masks`` unused).  Returns (y [B, T, d],
     {"k_new", "v_new": [B, T, Hkv, D]}), the in-flight tree rows.
     """
     hd = cfg.resolved_head_dim
@@ -368,7 +442,7 @@ def attention_decode_batched(p, x, cfg, entry, lengths, masks, tree_mask,
     if cfg.use_rope:
         positions = lengths[:, None] + depths[None, :]
         cos, sin = L.rope_cos_sin(positions, hd, cfg.rope_theta)
-    if _fused_write(cfg, entry, use_kernel):
+    if _fused_write(cfg, entry, use_kernel, deferred):
         q, k, v = fused_qkv_rope_commit(x, p, lengths, entry["k"], entry["v"],
                                         cos=cos, sin=sin, table=table)
     else:
@@ -382,12 +456,15 @@ def attention_decode_batched(p, x, cfg, entry, lengths, masks, tree_mask,
             vq, vs = Q.quantize_rows(v)
             k, v = Q.dequantize(kq, ks, k.dtype), Q.dequantize(vq, vs, v.dtype)
             rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-        for name, r in rows.items():
+        for name, r in ({} if deferred else rows).items():
             if table is not None:
                 P.scatter_at(entry[name], phys, r)
             else:
                 _update_rows(entry[name], r, lengths)
-    if use_kernel:
+    if deferred and not use_kernel:
+        ck, cv = _read_cache(entry, q.dtype, table=table)
+        out = L.gqa_two_part(q, ck, cv, k, v, lengths, tree_mask, scale)
+    elif use_kernel:
         out = tree_attention(q, entry["k"], entry["v"], tree_mask, lengths,
                              scale, k_scale=entry.get("k_scale"),
                              v_scale=entry.get("v_scale"), k_tree=k,

@@ -607,6 +607,57 @@ def test_cuda_graph_step_equals_eager(dev, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GRAPH_LAYOUTS))
+def test_cuda_deferred_step_equals_the_written_step(dev, name):
+    """The deferred step (no tree-row write) through its captured graph and
+    eagerly: the non-deferred step's tokens (== AR), launches exact with
+    K3 never launched, a second run replayed with no new capture."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import build_engine
+    from repro_torch.launch.serve import build_model, make_prompts
+
+    cfg = dataclasses.replace(get_config("openpangu-7b", reduced=True),
+                              head_dim=64, num_layers=2,
+                              **GRAPH_LAYOUTS[name])
+    plain, eng, eager = (build_engine(cfg, use_kernel=True, device=dev,
+                                      graphs=g, deferred=d)
+                         for g, d in ((True, False), (True, True),
+                                      (False, True)))
+    params, mp = build_model(cfg, 3, eng.dtree.K, dev)
+    prompts = make_prompts(cfg.vocab_size, 4, 3, 8, 40)
+    tok = torch.zeros((4, max(len(p) for p in prompts)), dtype=torch.int32)
+    for j, p in enumerate(prompts):
+        tok[j, :len(p)] = torch.from_numpy(p)
+    tok = tok.to(dev)
+    plen = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    max_new, max_len = 24, 256
+
+    def run(e):
+        for f in GRAPH_WRAPPERS.values():
+            f.launches = 0
+        sp, _, st = e.generate(params, mp, tok, plen,
+                               e.init_cache(4, max_len), max_new)
+        torch.cuda.synchronize()
+        want = _expected_counts(e.cfg, st.steps, 0)
+        if e.deferred:
+            want["K3"] = 0
+        assert {k: f.launches for k, f in GRAPH_WRAPPERS.items()} == want
+        return sp.cpu(), st
+
+    want, want_st = run(plain)
+    sp, st = run(eng)
+    (graph, _), = eng.step_graphs.kept()
+    replays = graph.replays
+    sp2, st2 = run(eng)
+    assert graph.replays - replays == st2.steps
+    assert len(eng.step_graphs.kept()) == 1
+    for got in (sp, sp2, run(eager)[0]):
+        assert torch.equal(got, want)
+    assert st.steps == st2.steps == want_st.steps
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fused", [False, True])
 def test_cuda_sampled_graph_step_equals_eager(dev, fused):
     from repro_torch.configs.base import SamplingParams
