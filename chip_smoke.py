@@ -21,7 +21,9 @@ non-zero exit:
    same logical rows; every K1 case logs its route ("single" or "split"),
    which must be the one ``decode_plan`` gives its shapes; all of it
    also at the dense family's new shapes (``FAMILY_K1``: gemma-2b's one
-   kv head, D 256, R 512 / 8; qwen1.5-0.5b's 16 kv heads, D 64, R 64 / 8);
+   kv head, D 256, R 512 / 8; qwen1.5-0.5b's 16 kv heads, D 64, R 64 / 8)
+   and at the chain proposers' verify step (T 5 folded to R 24 over 2048
+   rows: the "split" route), dense, int8, paged and int8 + paged;
 3. hold the verify-fusion kernels against their plain versions on the
    card, f32 and bf16: ``unembed_verify_stats`` (K2) at the spec step's
    shape (B 4, T 64, d 4096, V 153376, which is not a multiple of the
@@ -31,8 +33,11 @@ non-zero exit:
    (B 8, T 64) and N 64, and at the sampled step's per-row temperatures
    ``TMAX_ROWS`` (1e-6 standing for temperature 0; m and cand_w held in
    the logits' units, finite, argm the tmax 1 argm) on both routes;
-   ``fused_qkv_rope_commit`` (K3) at the spec (T 64) and AR (T 1) shapes
-   of openPangu-7B's attention, with biases, with rows past the cache's
+   and at the chain proposers' verify step (N 20: B 4, T 5, [4, 5, 5]
+   candidate weights, at tmax 1 and at ``TMAX_ROWS``);
+   ``fused_qkv_rope_commit`` (K3) at the spec (T 64), chain (T 5, M 20,
+   dense and paged) and AR (T 1) shapes of openPangu-7B's attention, with
+   biases, with rows past the cache's
    end (dropped; the rest of the cache unchanged bit for bit), at row
    counts that fit no tile (B 3, T 64 and B 4, T 7), at head_dim 64, and
    its paged variant with rows past the table (sent to trash block 0,
@@ -85,11 +90,23 @@ non-zero exit:
    replayed with no new capture, and the eager step; launches exact: K1
    once a layer and step, K2 once a fused step, the commit once a step,
    K3 never;
+4e. the chain proposers (``build_engine(cfg, "draft" | "ngram")``, gamma
+   4) on phase 4's weights and prompts: a 1-layer draft (the target's
+   first layer) and the n-gram lookup, on the dense, int8, paged and
+   int8 + paged caches, unfused and fused, greedy and sampled at
+   temperature 0, and deferred on the dense cache: spec == phase 4's AR
+   tokens through the captured step, launches exact (the target's T 5
+   chain, the draft's gamma + 1 T=1 decodes a step on K1, and on K3 when
+   fused on an fp cache), K1 on its routes (R 24, and R 8 for the
+   draft); a self-draft (the target as its own draft) accepts every
+   proposal: steps <= ceil(32 / 5) + 1;
 4b. the sampled distribution gate: float32 at full width, 2 layers, a
-   16-token vocabulary, untrained heads on a cartesian (2, 2) tree, 1024
-   rows of one prompt, 5 tokens at temperature 0.9: sampled speculative
-   tokens (unfused and fused, through K1-K4) against
-   ``ar_generate_sampled``, max marginal TVD <= 1.5 * floor + 0.05;
+   16-token vocabulary, 1024 rows of one prompt, 5 tokens at temperature
+   0.9: sampled speculative tokens (unfused and fused, through K1-K4) of
+   the Medusa tree walk (untrained heads on a cartesian (2, 2) tree) and
+   of the draft's chain walk (a 1-layer draft of other random weights)
+   against ``ar_generate_sampled``, max marginal TVD <= 1.5 * floor +
+   0.05;
 4c. the dense family (``FAMILY``: granite-8b, qwen1.5-0.5b, qwen1.5-4b,
    gemma-2b) in float32 at full width, 2 layers: spec == AR token for
    token through the captured steps, unfused and fused, launches exact;
@@ -146,6 +163,14 @@ non-zero exit:
    and ``--cache-dtype int8`` (all 8 answers 7b's), launches exact; each
    run's tokens/s, capture seconds and replayed step's wall and device ms
    beside the non-deferred run's;
+12. (run after 7s) the launcher with ``--proposer draft`` (its 2-layer
+   sibling, weights from ``--seed``) unfused, ``--verify-fusion``,
+   ``--cache-layout paged --verify-fusion`` (all 8 answers the fused
+   dense run's) and ``--cache-dtype int8``, and ``--proposer ngram``, on
+   phase 5's weights and requests: launches exact, each answer held to
+   ``ar_generate`` under ``MARGIN_BOUND``; tokens/s, tokens a step,
+   capture seconds and the replayed step's wall and device ms logged
+   beside phase 5's Medusa run, under the card's name and power limit;
 11. training: (ii, run before 9) at full width, self-distillation of 8
    synthetic-corpus prompts (64 + 64 tokens) with ``ar_generate`` on
    phase 5's bf16 openPangu-7B, 20 ``medusa_train_step``s of K 4 float32
@@ -183,7 +208,10 @@ non-zero exit:
    and K3's rows carry the wrapper's host ms per call, and K2's its time
    at ``TMAX_ROWS`` (``tmax_ms``).  Then the same for the dense family's
    new shapes: K1 at ``FAMILY_K1``, K2 over gemma-2b's tied table, K3 at
-   its head_dim 256 (with the plan's block count and shared memory).
+   its head_dim 256 (with the plan's block count and shared memory); and
+   the chain proposers' verify step (rows named ``@chain``): K1 at R 24
+   (dense, int8, paged; the draft's R 8 beside it), K2 at N 20, K3 at
+   M 20 (the draft's T 1 beside it), their launches from phase 12.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -233,6 +261,11 @@ ALL_LAYOUTS_FAMILY = ("qwen1.5-0.5b", "gemma-2b")
 # K1 at their new shapes: (name, Hkv, D, (spec R, AR R)) over B 4
 FAMILY_K1 = [("gemma-2b", 1, 256, (512, 8)),
              ("qwen1.5-0.5b", 16, 64, (64, 8))]
+# the chain proposers (draft model, n-gram): gamma 4, a chain of T 5 rows
+# a verify step; on openPangu-7B (G 4) K1 folds T 5, padded to 6, into R 24
+GAMMA = 4
+CHAIN_T = GAMMA + 1
+CHAIN_R = 24
 
 
 def log(msg: str):
@@ -370,22 +403,37 @@ def folded_rows(G, T):
     return G * T
 
 
-def k1_routes(cfg, B, S, steps, ar_steps=0, T=64):
+def draft_t1_launches(proposer, steps: int) -> int:
+    """Per-layer T=1 decodes the draft model of ``proposer`` runs in
+    ``steps`` spec steps (gamma + 1 a step on each of its layers); 0 for
+    a proposer without a draft model."""
+    from repro_torch.core.proposers import DraftModelProposer
+
+    if not isinstance(proposer, DraftModelProposer):
+        return 0
+    return steps * (proposer.dtree.K + 1) * proposer.dc.num_layers
+
+
+def k1_routes(cfg, B, S, steps, ar_steps=0, T=64, proposer=None):
     """K1's launches by route that ``decode_plan`` gives ``steps`` spec
     steps (T tree rows) and ``ar_steps`` AR steps on ``cfg``, B slots and
-    S cache rows: one per layer and step, and a merge per split launch."""
+    S cache rows: one per layer and step, and a merge per split launch;
+    with a draft-model ``proposer``, its T=1 decodes over a cache of the
+    same S rows too."""
     from repro_torch.kernels.tree_attention import decode_plan
     from repro_torch.runtime import torch_dtype
 
     G = cfg.num_heads // cfg.num_kv_heads
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     want = {"single": 0, "split": 0, "merge": 0}
-    for t, n in ((T, steps), (1, ar_steps)):
+    for t, n in ((T, steps * cfg.num_layers),
+                 (1, ar_steps * cfg.num_layers
+                  + draft_t1_launches(proposer, steps))):
         route = decode_plan(B, cfg.num_kv_heads, folded_rows(G, t), S,
                             torch_dtype(cfg.dtype), n_sm).route
-        want[route] += n * cfg.num_layers
+        want[route] += n
         if route == "split":
-            want["merge"] += n * cfg.num_layers
+            want["merge"] += n
     return want
 
 
@@ -551,6 +599,9 @@ def phase_kernels(dev):
         # short rows: most of the 32 splits start past the length
         folded_case("main R=8 short", 4, 2048, 8, 8, 128, dt,
                     [1, 64, 65, 190])
+        # the chain proposers' verify step: T 5 rows padded to 6, G 4
+        folded_case(f"chain R={CHAIN_R}", 4, 2048, 8, CHAIN_R, 128, dt,
+                    ragged, key="chain")
         # the dense family's shapes: gemma-2b (one kv head, D 256, 8 q heads
         # a kv head: R 512 / 8) and qwen1.5-0.5b (16 kv heads, D 64, R 64 /
         # 8, the AR step's one row padded to 8)
@@ -642,9 +693,11 @@ def variant_case(dev, name, B, S, Hkv, R, D, dt, lengths, quantized, ps,
 
 def phase_kernel_variants(dev):
     """K1-int8, K1-paged and K1-int8+paged at the reference sweep and the
-    main path's shapes, page sizes 16, 64 and 128.  Returns the max error
-    of the normalised output of each variant at the bf16 main shape
-    (R 256, page size 64)."""
+    main path's shapes, page sizes 16, 64 and 128, and at the chain
+    proposers' verify step (R 24).  Returns the max error of the
+    normalised output of each variant at the bf16 main shape (R 256,
+    page size 64) and at the chain's ("chain int8", "chain paged",
+    "chain int8+paged")."""
     from repro_torch.core.tree import chain_tree, medusa_63
     from repro_torch.runtime import torch_dtype
 
@@ -677,6 +730,17 @@ def phase_kernel_variants(dev):
                                        quantized, ps, R + ps)
                     if dt == torch.bfloat16 and R == 256 and ps == 64:
                         main["int8+paged" if quantized else "paged"] = err
+        # the chain proposers' verify step (R 24), every variant
+        args = (dev, f"chain R={CHAIN_R}", 4, 2048, 8, CHAIN_R, 128, dt)
+        err = variant_case(*args, [1, 517, 1300, 2048], True, 0, 24)
+        if dt == torch.bfloat16:
+            main["chain int8"] = err
+        for ps, quantized, name in ((64, False, "chain paged"),
+                                    (16, True, "chain int8+paged")):
+            err = variant_case(*args, [0, 517, 1300, 2048], quantized, ps,
+                               24 + ps)
+            if dt == torch.bfloat16:
+                main[name] = err
         # R 8 with short rows and an idle slot: most splits start past the
         # length, and the idle slot's are all empty
         args = (dev, "main R=8 short", 4, 2048, 8, 8, 128, dt,
@@ -983,9 +1047,10 @@ def commit_case(dev, name, dtype, width, paged, nu=3, S=2048, ps=64):
 def phase_fusion_kernels(dev):
     """K2 and K3 (dense and paged) at openPangu-7B's widths (B 4, T 64: the
     spec step; T 1: the AR step); then K2 over gemma-2b's tied table, K3
-    at its head_dim 256 and at qwen1.5's widths with biases.  Returns
-    their max abs errors at the bf16 spec-step shapes: {"K2", "K3",
-    "K3-paged", "K2 table", "K3 hd256"}."""
+    at its head_dim 256 and at qwen1.5's widths with biases; K2 and K3
+    at the chain proposers' verify step (N 20, M 20).  Returns their max
+    abs errors at the bf16 spec-step shapes: {"K2", "K3", "K3-paged",
+    "K2 table", "K3 hd256", "K2 chain", "K3 chain"}."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config("openpangu-7b")
@@ -998,6 +1063,11 @@ def phase_fusion_kernels(dev):
         stats_case(dev, "per-row tmax", 4, 64, d, V, dt, tmax=TMAX_ROWS)
         stats_case(dev, "tied columns", 4, 64, d, V, dt, tied=True)
         stats_case(dev, "V 4099 (unaligned rows)", 2, 64, 512, 4099, dt)
+        # the chain proposers' verify step: N 20 rows, [4, 5, 5] weights
+        errs["K2 chain", dt] = stats_case(dev, f"chain N {4 * CHAIN_T}", 4,
+                                          CHAIN_T, d, V, dt)
+        stats_case(dev, f"chain N {4 * CHAIN_T}, per-row tmax", 4, CHAIN_T,
+                   d, V, dt, tmax=TMAX_ROWS)
         if dt == torch.bfloat16:
             # the wgmma route's row tiling: two row tiles, and one mostly
             # padding (f32 takes the tile route, checked above)
@@ -1010,6 +1080,11 @@ def phase_fusion_kernels(dev):
         qkv_case(dev, cfg, "rows past S", 64, dt, [2040, 0, 2047, 100])
         qkv_case(dev, cfg, "B 3 (M 192)", 64, dt, [1, 517, 1300])
         qkv_case(dev, cfg, "T 7 (M 28)", 7, dt, ragged)
+        errs["K3 chain", dt] = qkv_case(dev, cfg,
+                                        f"chain T={CHAIN_T} (M 20)",
+                                        CHAIN_T, dt, ragged)
+        qkv_case(dev, cfg, f"chain T={CHAIN_T} (M 20)", CHAIN_T, dt, ragged,
+                 ps=64)
         qkv_case(dev, cfg64, "head_dim 64, spec", 64, dt, ragged)
         qkv_case(dev, cfg64, "head_dim 64, AR", 1, dt, ragged, ps=16)
         for T in (64, 1):
@@ -1017,7 +1092,8 @@ def phase_fusion_kernels(dev):
         errs["K3-paged", dt] = qkv_case(dev, cfg, "spec", 64, dt, ragged,
                                         ps=64)
         if dt == torch.bfloat16:
-            errs |= {k: errs[k, dt] for k in ("K2", "K3", "K3-paged")}
+            errs |= {k: errs[k, dt] for k in ("K2", "K3", "K3-paged",
+                                              "K2 chain", "K3 chain")}
         qkv_case(dev, cfg, "AR", 1, dt, ragged, ps=16)
         qkv_case(dev, cfg, "rows past the table", 64, dt,
                  [2040, 0, 2047, 100], ps=128)
@@ -1198,19 +1274,27 @@ def phase_commit_kernels(dev):
 # ---------------------------------------------------------------------------
 
 def expected_counts(cfg, steps: int, ar_steps: int = 0,
-                    deferred: bool = False):
+                    deferred: bool = False, proposer=None):
     """Launches of each kernel for ``steps`` spec steps and ``ar_steps`` AR
     steps on ``cfg``: K1 once per layer and step; with verify fusion K2
     once per spec step and, on an fp cache, K3 once per layer and step
     (never under ``deferred``, which writes no tree row); the commit once
     per spec step (every unit and cache leaf in one launch, int8 too),
-    through K4 on the dense cache and K5 on the paged pool."""
+    through K4 on the dense cache and K5 on the paged pool.  A draft-model
+    ``proposer`` adds its gamma + 1 T=1 decodes a step on each of its
+    layers: K1 each, and K3 each on its fused fp write side (its cache is
+    dense, in the target's cache dtype; ``deferred`` is the target's
+    alone)."""
     per_layer = cfg.num_layers * (steps + ar_steps)
     quantized = cfg.resolved_cache_dtype == "int8"
     commits = steps
     fused = cfg.verify_fusion
-    return {"K1": per_layer, "K2": steps if fused else 0,
-            "K3": per_layer if fused and not (quantized or deferred) else 0,
+    t1 = draft_t1_launches(proposer, steps)
+    draft_k3 = t1 if t1 and proposer.dc.verify_fusion and not quantized \
+        else 0
+    return {"K1": per_layer + t1, "K2": steps if fused else 0,
+            "K3": (per_layer if fused and not (quantized or deferred) else 0)
+            + draft_k3,
             "K4": 0 if cfg.paged else commits,
             "K5": commits if cfg.paged else 0}
 
@@ -1491,20 +1575,124 @@ def phase_f32_deferred(dev, f32):
             f"{eng.step_graphs.capture_s:.3f}s")
 
 
+# the chain proposers' layouts in phase 4e: (label, cache_dtype,
+# cache_layout, page_size)
+CHAIN_LAYOUTS = [("dense", "", "dense", 64), ("int8", "int8", "dense", 64),
+                 ("paged (page size 64)", "", "paged", 64),
+                 ("int8 paged (page size 16)", "int8", "paged", 16)]
+
+
+def truncated(params, layers: int):
+    """The first ``layers`` units of ``params`` beside its embedding, final
+    norm and lm head (views, no copy): a draft made of the target's own
+    first layers, whose weights cost no memory.  (At full width with
+    random weights it rarely agrees with the target: the self-draft is
+    the run where every proposal is accepted.)"""
+    from repro_torch.runtime import tree_map
+
+    return dict(params, units=tree_map(lambda t: t[:layers],
+                                       params["units"]))
+
+
+def phase_chain_f32(dev, f32):
+    """Phase 4e: the chain proposers on phase 4's weights and prompts
+    (float32 openPangu-7B, full width, 2 layers).  For ``draft`` (the
+    target's first layer as a 1-layer draft) and ``ngram``, on the dense,
+    int8, paged and int8 + paged caches, unfused and with verify fusion,
+    greedy and ``accept="sample"`` at temperature 0: spec == phase 4's AR
+    tokens, token for token, through the captured step (one capture, the
+    rest replays), launches exact (the target's chain of T 5, the draft's
+    gamma + 1 T=1 decodes a step) and K1 on the routes ``decode_plan``
+    gives (R 24 for the target, R 8 for the draft); deferred on the dense
+    cache, unfused and fused, too.  Then a self-draft (the target's own
+    config and weights as the draft): every proposal accepted, steps <=
+    ceil(new / (gamma + 1)) + 1, tokens == AR."""
+    from repro_torch.configs.base import SamplingParams
+    from repro_torch.core.engine import build_engine
+
+    base, params, tok, plen = (f32[k] for k in ("base", "params", "tok",
+                                                "plen"))
+    max_new, max_len = f32["max_new"], f32["max_len"]
+
+    def run(label, kind, cfg, pp, **kw):
+        eng = build_engine(cfg, kind, gamma=GAMMA, use_kernel=True,
+                           device=dev, sampling=SamplingParams(temperature=0.0),
+                           **kw)
+        reset_counts()
+        out, n_out, st = eng.generate(params, pp, tok, plen,
+                                      eng.init_cache(4, max_len), max_new)
+        counts = read_counts()
+        want = expected_counts(eng.cfg, st.steps, deferred=eng.deferred,
+                               proposer=eng.proposer)
+        graphs = kept_graphs(eng)
+        replays = sum(g.replays for _, g in graphs)
+        if counts != want or not bool((n_out == max_new).all()):
+            fail(f"f32 chain {label}: launches {counts}, expected {want}; "
+                 f"n_out {n_out.tolist()}")
+        if [k for k, g in graphs if g.graph is not None] != ["spec"] \
+                or replays != st.steps - 1:
+            fail(f"f32 chain {label}: {[(k, g.replays) for k, g in graphs]}"
+                 f" for {st.steps} steps: not one capture and replays")
+        ps = cfg.page_size if cfg.paged else 1
+        check_routes(f"f32 chain {label}", None,
+                     k1_routes(eng.cfg, 4, -(-max_len // ps) * ps, st.steps,
+                               T=eng.tb.T, proposer=eng.proposer))
+        ar = f32["want"][cfg.cache_dtype]
+        out = out.cpu()
+        if not torch.equal(out, ar):
+            fail(f"float32 chain {label}: spec != AR:\n{out.tolist()}\n"
+                 f"{ar.tolist()}")
+        log(f"  f32 chain {label}: spec == AR for 4 x {max_new} tokens; "
+            f"{st.steps} steps, "
+            f"{(st.tokens_out - 1).sum().item() / (st.steps * 4):.3f} tokens a "
+            f"step and slot; launches {counts} (exact); one capture "
+            f"({eng.step_graphs.capture_s:.3f}s), {replays} replays")
+        return st
+
+    for kind, pp, extra in (("draft", truncated(params, 1),
+                             dict(draft_layers=1)),
+                            ("ngram", None, {})):
+        for label, dtype, layout, ps in CHAIN_LAYOUTS:
+            cfg = dataclasses.replace(base, cache_dtype=dtype,
+                                      cache_layout=layout, page_size=ps)
+            for vf in (False, True):
+                for accept in ("greedy", "sample"):
+                    what = (f"{kind} {label}"
+                            + (", verify fusion" if vf else "")
+                            + (", sampled at temperature 0"
+                               if accept == "sample" else ""))
+                    run(what, kind, cfg, pp, verify_fusion=vf, accept=accept,
+                        **extra)
+        for vf in (False, True):
+            run(f"{kind} dense, deferred" + (", verify fusion" if vf else ""),
+                kind, base, pp, verify_fusion=vf, deferred=True, **extra)
+    st = run("self-draft (the target's config and weights as the draft)",
+             "draft", base, params, draft_cfg=base)
+    bound = -(-max_new // CHAIN_T) + 1
+    log(f"  self-draft: {st.steps} steps for {max_new} tokens (bound "
+        f"{bound})")
+    if st.steps > bound:
+        fail(f"self-draft took {st.steps} steps for {max_new} tokens, more "
+             f"than {bound}: a proposal of the target itself was rejected")
+
+
 def phase_tvd(dev):
     """The reference's tiny-vocabulary distribution gate on the card:
-    openPangu-7B's widths in float32, 2 layers, a 16-token vocabulary, a
-    cartesian (2, 2) tree with untrained heads (heavy rejection), 1024
-    rows of one 4-token prompt, 5 new tokens at temperature 0.9, through
-    K1, K2 (fused), K3 (fused) and K4.  The sampled speculative tokens
-    must meet ``TVD <= 1.5 * floor + 0.05`` against
+    openPangu-7B's widths in float32, 2 layers, a 16-token vocabulary,
+    1024 rows of one 4-token prompt, 5 new tokens at temperature 0.9,
+    through K1, K2 (fused), K3 (fused) and K4: the Medusa tree walk (a
+    cartesian (2, 2) tree with untrained heads: heavy rejection) and the
+    draft model's chain walk (a 1-layer draft of other random weights,
+    gamma 4, its chain sampled from its own warped logits).  The sampled
+    speculative tokens must meet ``TVD <= 1.5 * floor + 0.05`` against
     ``ar_generate_sampled``, the floor being the TVD of two AR runs of
     other seeds, unfused and fused."""
     from repro_torch.configs.base import SamplingParams
     from repro_torch.configs.registry import get_config
     from repro_torch.core import medusa as M
     from repro_torch.core import sampling as S
-    from repro_torch.core.engine import SpecEngine, ar_generate_sampled
+    from repro_torch.core.engine import (SpecEngine, ar_generate_sampled,
+                                         build_engine)
     from repro_torch.core.tree import cartesian_tree
     from repro_torch.models.api import get_model
 
@@ -1523,32 +1711,48 @@ def phase_tvd(dev):
     plen = torch.full((B,), 4, dtype=torch.int32, device=dev)
     max_len = 4 + new + tb.T + 8
     sp = SamplingParams(temperature=0.9)
-    for fused in (False, True):
-        c = dataclasses.replace(cfg, verify_fusion=fused)
-        eng = SpecEngine(c, tb, use_kernel=True, device=dev, accept="sample",
-                         sampling=sp, seed=21)
-        reset_counts()
-        spec, n_out, st = eng.generate(params, mp, tok, plen,
-                                       eng.init_cache(B, max_len), new)
-        counts = read_counts()
-        if counts != expected_counts(eng.cfg, st.steps) \
-                or not bool((n_out == new).all()):
-            fail(f"TVD gate, fused {fused}: launches {counts}, expected "
-                 f"{expected_counts(eng.cfg, st.steps)}")
-        ar1, ar2 = (ar_generate_sampled(
-            c, params, tok, plen, eng.init_cache(B, max_len), new,
-            torch.Generator(device=dev).manual_seed(s), sp, use_kernel=True,
-            graphs=eng.step_graphs)[0].cpu() for s in (22, 23))
-        floor = S.max_marginal_tvd(ar1, ar2, c.vocab_size)
-        tvd = S.max_marginal_tvd(spec.cpu(), ar1, c.vocab_size)
-        log(f"  TVD gate, {'fused' if fused else 'unfused'}: {B} rows x {new}"
-            f" tokens at temperature 0.9, {st.steps} spec steps, launches "
-            f"{counts}: max marginal TVD "
-            f"spec vs AR {tvd:.4f}, AR vs AR floor {floor:.4f}, bound "
-            f"{1.5 * floor + 0.05:.4f}")
-        if not tvd <= 1.5 * floor + 0.05:
-            fail(f"sampled spec tokens are not distributed as sampled AR's "
-                 f"(fused {fused}): TVD {tvd} > 1.5 * {floor} + 0.05")
+    dparams = None
+    for walk in ("tree", "chain"):
+        for fused in (False, True):
+            c = dataclasses.replace(cfg, verify_fusion=fused)
+            if walk == "tree":
+                eng = SpecEngine(c, tb, use_kernel=True, device=dev,
+                                 accept="sample", sampling=sp, seed=21)
+                pp = mp
+            else:
+                eng = build_engine(c, "draft", draft_layers=1, gamma=GAMMA,
+                                   use_kernel=True, device=dev,
+                                   accept="sample", sampling=sp, seed=24)
+                if dparams is None:
+                    dc = eng.proposer.dc
+                    dparams = get_model(dc).init_params(gen, dc,
+                                                        dtype=dc.dtype)
+                pp = dparams
+            label = f"{walk} walk, {'fused' if fused else 'unfused'}"
+            reset_counts()
+            spec, n_out, st = eng.generate(params, pp, tok, plen,
+                                           eng.init_cache(B, max_len), new)
+            counts = read_counts()
+            want = expected_counts(eng.cfg, st.steps, proposer=eng.proposer)
+            if counts != want or not bool((n_out == new).all()):
+                fail(f"TVD gate, {label}: launches {counts}, expected "
+                     f"{want}")
+            ar1, ar2 = (ar_generate_sampled(
+                c, params, tok, plen, eng.init_cache(B, max_len), new,
+                torch.Generator(device=dev).manual_seed(s), sp,
+                use_kernel=True, graphs=eng.step_graphs)[0].cpu()
+                for s in (22, 23))
+            floor = S.max_marginal_tvd(ar1, ar2, c.vocab_size)
+            tvd = S.max_marginal_tvd(spec.cpu(), ar1, c.vocab_size)
+            more = int((st.tokens_out > st.steps + 1).sum())
+            log(f"  TVD gate, {label}: {B} rows x {new} tokens at "
+                f"temperature 0.9, {st.steps} spec steps ({more} rows took "
+                f"more than a token a step), launches {counts}: max "
+                f"marginal TVD spec vs AR {tvd:.4f}, AR vs AR floor "
+                f"{floor:.4f}, bound {1.5 * floor + 0.05:.4f}")
+            if not tvd <= 1.5 * floor + 0.05:
+                fail(f"sampled spec tokens are not distributed as sampled "
+                     f"AR's ({label}): TVD {tvd} > 1.5 * {floor} + 0.05")
 
 
 def phase_family_f32(dev):
@@ -1636,7 +1840,7 @@ def phase_family_serve(dev):
         torch.cuda.reset_peak_memory_stats()
         srv, _ = serve_counted(argv)
         check_against_ar(srv, dev)
-        weights = (srv.params, srv.medusa_params)
+        weights = (srv.params, srv.proposer_params)
         log(f"  ({arch}) --arch {arch} --verify-fusion")
         enc0 = map_encodings()
         fsrv, counts = serve_counted(argv + ["--verify-fusion"], weights)
@@ -1710,7 +1914,8 @@ def check_served(srv, counts):
     steps = sum(res[g]["steps"] for g in range(0, REQUESTS, SLOTS))
     mean_acc = (sum(r["accepted"] for r in res)
                 / sum(r["steps"] for r in res))
-    want = expected_counts(srv.cfg, steps, deferred=srv.engine.deferred)
+    want = expected_counts(srv.cfg, steps, deferred=srv.engine.deferred,
+                           proposer=srv.engine.proposer)
     graphs = kept_graphs(srv.engine)
     replays = sum(g.replays for _, g in graphs)
     log(f"  served {REQUESTS} requests: {srv.tokens} tokens in "
@@ -1823,7 +2028,8 @@ def serve_counted(argv, weights=None):
     ps = srv.cfg.page_size if srv.cfg.paged else 1
     check_routes(" ".join(argv[len(SERVE_ARGV):]) or "launcher",
                  counts if srv.cfg.verify_fusion else None,
-                 k1_routes(srv.cfg, SLOTS, -(-MAX_LEN // ps) * ps, steps))
+                 k1_routes(srv.cfg, SLOTS, -(-MAX_LEN // ps) * ps, steps,
+                           T=srv.engine.tb.T, proposer=srv.engine.proposer))
     return srv, counts
 
 
@@ -1851,7 +2057,7 @@ def phase_serve_fused(dev, srv):
     per weight tensor (3 per layer for K3, the lm head for K2)."""
     enc0 = map_encodings()
     fsrv, counts = serve_counted(SERVE_ARGV + ["--verify-fusion"],
-                                 weights=(srv.params, srv.medusa_params))
+                                 weights=(srv.params, srv.proposer_params))
     enc = {k: n - enc0[k] for k, n in map_encodings().items()}
     limit = {"K2": 1, "K3": 3 * fsrv.cfg.num_layers}
     log(f"  weight tensor maps encoded over the run: {enc} (at most {limit}: "
@@ -1900,7 +2106,7 @@ def phase_serve_eager(dev, fsrv):
                        graphs=False)
     reset_counts()
     results, seconds, tokens, _ = serve_static(
-        eng, fsrv.params, fsrv.medusa_params, fsrv.prompts, SLOTS, MAX_NEW,
+        eng, fsrv.params, fsrv.proposer_params, fsrv.prompts, SLOTS, MAX_NEW,
         MAX_LEN)
     counts = read_counts()
     steps = sum(results[g]["steps"] for g in range(0, REQUESTS, SLOTS))
@@ -1935,7 +2141,7 @@ def phase_serve_layouts(dev, srv, fsrv):
     to ``ar_generate`` on the int8 config under the ``MARGIN_BOUND`` rule;
     (c) ``--cache-dtype int8 --cache-layout paged --page-size 16``,
     token-identical to (b).  Returns {label: (Served, counts)}."""
-    weights = (srv.params, srv.medusa_params)
+    weights = (srv.params, srv.proposer_params)
     runs = {}
     log("  (a) --cache-layout paged --verify-fusion")
     enc0 = map_encodings()
@@ -1981,7 +2187,7 @@ def eager_answers(run) -> list:
     eng = build_engine(e.cfg, "medusa", use_kernel=True, device=e.device,
                        accept=e.accept, sampling=e.sampling, graphs=False,
                        seed=SEED)
-    return serve_static(eng, run.params, run.medusa_params, run.prompts,
+    return serve_static(eng, run.params, run.proposer_params, run.prompts,
                         SLOTS, MAX_NEW, MAX_LEN)[0]
 
 
@@ -1994,7 +2200,7 @@ def phase_serve_sampled(dev, srv, fsrv):
     ``LOW_TEMPERATURE`` its accepted length and its answers against the
     eager step's; at temperature 0 all 8 answers token-identical to
     greedy's (phase 5)."""
-    weights = (srv.params, srv.medusa_params)
+    weights = (srv.params, srv.proposer_params)
     hot = SERVE_ARGV + ["--accept", "sample", "--temperature", "0.7"]
     torch.cuda.reset_peak_memory_stats()
 
@@ -2060,7 +2266,7 @@ def phase_serve_deferred(dev, srv, fsrv, int8):
     the non-deferred int8 run (phase 7b).  Each run's tokens/s, capture
     seconds and its replayed step's wall and device ms are logged beside
     the non-deferred run's."""
-    weights = (srv.params, srv.medusa_params)
+    weights = (srv.params, srv.proposer_params)
     runs = {}
     for label, flags, twin in (("unfused", [], srv),
                                ("verify fusion", ["--verify-fusion"], fsrv),
@@ -2088,6 +2294,72 @@ def phase_serve_deferred(dev, srv, fsrv, int8):
                 f"{1 - dev_ms / wall:.3f})")
         runs[label] = counts
     return runs
+
+# ---------------------------------------------------------------------------
+# phase 12: the chain proposers through the launcher at full width and depth
+# ---------------------------------------------------------------------------
+
+def phase_serve_chain(dev, srv):
+    """The launcher's ``--proposer draft`` and ``--proposer ngram`` (gamma
+    4) on phase 5's bf16 openPangu-7B and requests.  The draft is the
+    launcher's 2-layer sibling with the weights it draws from ``--seed``
+    (``serve.proposer_params``): unfused, ``--verify-fusion``,
+    ``--cache-layout paged --verify-fusion`` (all 8 answers those of the
+    fused dense run) and ``--cache-dtype int8``; the n-gram lookup
+    unfused.  Launches exact (the draft's gamma + 1 T=1 decodes a step
+    included), K1 on its routes, every K2 and K3 launch of a fused run on
+    the wgmma route; each answer held to ``ar_generate`` under
+    ``MARGIN_BOUND`` (the paged run by equality).  Logs each run's
+    tokens/s, tokens a step, capture seconds and replayed step's wall and
+    device ms beside phase 5's Medusa run, under the card's name and power
+    limit.  Returns {label: launch counts}."""
+    from repro_torch.core.engine import build_engine
+    from repro_torch.launch.serve import proposer_params
+
+    log(f"  card: {smi_line()}")
+    dparams = proposer_params(build_engine(srv.cfg, "draft", device=dev),
+                              SEED)
+
+    def summary(run):
+        steps = sum(run.results[g]["steps"]
+                    for g in range(0, REQUESTS, SLOTS))
+        wall, dev_ms = step_times(run.engine)
+        return (f"{run.tokens / run.seconds:.1f} tok/s "
+                f"({run.tokens / (run.seconds - run.capture_s):.1f} without "
+                f"the capture), {steps} steps, "
+                f"{run.tokens / (steps * SLOTS):.3f} tokens a step and slot, "
+                f"capture {run.capture_s:.3f}s, replayed step wall "
+                f"{wall:.3f} ms, device {dev_ms:.3f} ms (idle "
+                f"{1 - dev_ms / wall:.3f})")
+
+    runs = {}
+    for label, flags, pp, twin in (
+            ("draft", ["--proposer", "draft"], dparams, None),
+            ("draft fused", ["--proposer", "draft", "--verify-fusion"],
+             dparams, None),
+            ("draft paged fused", ["--proposer", "draft", "--cache-layout",
+                                   "paged", "--verify-fusion"], dparams,
+             "draft fused"),
+            ("draft int8", ["--proposer", "draft", "--cache-dtype", "int8"],
+             dparams, None),
+            ("ngram", ["--proposer", "ngram"], None, None)):
+        log(f"  ({label}) {' '.join(flags)}")
+        run, counts = serve_counted(SERVE_ARGV + flags, (srv.params, pp))
+        if twin is None:
+            check_against_ar(run, dev)
+        else:
+            same = same_answers(run, runs[twin][0])
+            log(f"  {same} of {REQUESTS} answers token-identical to the "
+                f"{twin} run's")
+            if same != REQUESTS:
+                fail(f"{label}: {same} of {REQUESTS} answers equal to the "
+                     f"{twin} run's")
+        log(f"  {label}: {summary(run)}; {same_answers(run, srv)} of "
+            f"{REQUESTS} answers equal to phase 5's")
+        runs[label] = (run, counts)
+    log(f"  medusa (phase 5): {summary(srv)}")
+    return {label: counts for label, (_, counts) in runs.items()}
+
 
 # ---------------------------------------------------------------------------
 # phase 11: training (dense family)
@@ -2508,15 +2780,16 @@ def bound(nbytes, flops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_verify_stats(dev, cfg, launches, max_err):
-    """K2 at the spec step: hidden [4, 64, d] against the full bf16 lm head
+def time_verify_stats(dev, cfg, launches, max_err, T=64, suffix=""):
+    """K2 at the spec step: hidden [4, T, d] (T 64: the Medusa tree; the
+    chain's T 5 with ``suffix`` "@chain") against the full bf16 lm head
     (openPangu-7B: 153,376 columns, 1.26 GB; every launch reads it from
     HBM, as the live step does), or for a tied model (gemma-2b) against
     its [V, d] embedding table read in place through ``embed.T``."""
     from repro_torch.kernels.tree_attention import (
         unembed_verify_stats, unembed_verify_stats_plain)
 
-    B, T, d, V = 4, 64, cfg.d_model, cfg.vocab_size
+    B, d, V = 4, cfg.d_model, cfg.vocab_size
     N = B * T
     gen = torch.Generator(device=dev).manual_seed(3)
     h = torch.randn((B, T, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -2557,7 +2830,7 @@ def time_verify_stats(dev, cfg, launches, max_err):
         f"the wrapper's host time {h_ms:.4f} ms per call; at per-row tmax "
         f"{TMAX_ROWS} {tmax_ms:.4f} ms")
     return {"name": "unembed_verify_stats"
-            + (f"[tied]@{cfg.name}" if cfg.tie_embeddings else ""),
+            + (f"[tied]@{cfg.name}" if cfg.tie_embeddings else "") + suffix,
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/verify_stats.cu",
             "replaces": "src/repro/kernels/tree_attention.py:298",
@@ -2566,9 +2839,12 @@ def time_verify_stats(dev, cfg, launches, max_err):
             "library_ms": lib_ms, "host_ms": h_ms, "tmax_ms": tmax_ms}
 
 
-def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0):
-    """K3 at the spec step (T 64) and the AR step (T 1); with ``ps`` its
-    paged variant on pools of that page size through a shuffled table.
+def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0, Ts=(64, 1),
+                   suffix=""):
+    """K3 at the spec step (``Ts[0]``: T 64, or the chain's T 5 with
+    ``suffix`` "@chain") and the AR step (T 1, the draft's step too); with
+    ``ps`` its paged variant on pools of that page size through a
+    shuffled table.
     Each timed launch takes the next of at least 4 weight sets, as many as
     make 100 MB, twice the L2 (openPangu-7B: 4 sets, 201 MB; gemma-2b: 10
     sets of 10.5 MB), so it reads its weights from HBM as a layer of the
@@ -2601,7 +2877,7 @@ def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0):
     vc = torch.zeros_like(kc)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     out = {}
-    for T in (64, 1):
+    for T in Ts:
         N = B * T
         x = torch.randn((B, T, d), generator=gen, device=dev).to(bf)
         x2 = x.reshape(N, d)
@@ -2647,13 +2923,14 @@ def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0):
             f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes, "
             f"{flops} flops); the wrapper's host time {h_ms:.4f} ms per call")
     return {"name": "fused_qkv_rope_commit" + ("[paged]" if ps else "")
-            + ("" if cfg.name == "openpangu-7b" else f"@{cfg.name}"),
+            + ("" if cfg.name == "openpangu-7b" else f"@{cfg.name}") + suffix,
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_qkv_rope_commit.cu",
             "replaces": ("src/repro/kernels/cache_update.py:203" if ps else
                          "src/repro/kernels/cache_update.py:209"),
-            "launches": launches, "max_abs_err": max_err, **out[64],
-            **{k + "_t1": v for k, v in out[1].items() if k != "bound_by"}}
+            "launches": launches, "max_abs_err": max_err, **out[Ts[0]],
+            **{k + "_t1": v for k, v in out.get(1, {}).items()
+               if k != "bound_by"}}
 
 
 K1_REPLACES = {"": "src/repro/kernels/tree_attention.py:126",
@@ -2960,10 +3237,16 @@ def main() -> int:
         "layers: deferred spec == phase 4's spec and AR on its seven "
         "layouts, graph and eager, K3 never launched")
     phase_f32_deferred(dev, f32)
+    phase("phase 4e: the chain proposers (draft model, n-gram), float32, "
+          "full width, 2 layers: speculative == AR on four cache layouts, "
+          "fused too, greedy and sampled at temperature 0, deferred, and a "
+          "self-draft that accepts every proposal")
+    phase_chain_f32(dev, f32)
     del f32
     torch.cuda.empty_cache()
     phase("phase 4b: the sampled distribution gate (tiny vocabulary, 1024 "
-        "rows), unfused and fused")
+        "rows): the tree walk and the draft's chain walk, unfused and "
+        "fused")
     phase_tvd(dev)
     torch.cuda.empty_cache()
     phase("phase 4c: the dense family (granite-8b, qwen1.5-0.5b, qwen1.5-4b, "
@@ -2995,6 +3278,10 @@ def main() -> int:
         f"(temperature 0.7 and {LOW_TEMPERATURE}, unfused and fused; "
         "temperature 0)")
     phase_serve_sampled(dev, srv, fsrv)
+    phase("phase 12: the launcher with --proposer draft (unfused, fused, "
+          "paged fused, int8) and --proposer ngram on the same weights")
+    chain = phase_serve_chain(dev, srv)
+    torch.cuda.empty_cache()
     prompt_lens = [len(p) for p in srv.prompts[:4]]
     params = srv.params
     del srv, fsrv
@@ -3053,6 +3340,25 @@ def main() -> int:
                                errs["K2 table"]),
              time_fused_qkv(dev, gemma, mid, family["gemma-2b"]["K3"],
                             errs["K3 hd256"])]
+    # the chain proposers' verify step: K1 at R 24 (the draft's T=1 at R 8
+    # beside it), K2 at N 20, K3 at M 20 (and the draft's M 4)
+    chain_k1 = ("chain", 8, 128, (CHAIN_R, 8))
+    rows += [time_flash_decode(dev, prompt_lens, MAX_NEW,
+                               chain["draft fused"]["K1"],
+                               k1_errs_dense["chain"], shape=chain_k1),
+             time_flash_decode(dev, prompt_lens, MAX_NEW,
+                               chain["draft int8"]["K1"],
+                               k1_errs["chain int8"], variant="int8",
+                               shape=chain_k1),
+             time_flash_decode(dev, prompt_lens, MAX_NEW,
+                               chain["draft paged fused"]["K1"],
+                               k1_errs["chain paged"], variant="paged",
+                               shape=chain_k1),
+             time_verify_stats(dev, cfg, chain["draft fused"]["K2"],
+                               errs["K2 chain"], T=CHAIN_T, suffix="@chain"),
+             time_fused_qkv(dev, cfg, mid, chain["draft fused"]["K3"],
+                            errs["K3 chain"], Ts=(CHAIN_T, 1),
+                            suffix="@chain")]
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(smi_line(), flush=True)

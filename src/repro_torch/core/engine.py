@@ -38,15 +38,17 @@ import torch
 from repro_torch.configs.base import ModelConfig, SamplingParams
 from repro_torch.core import sampling as S
 from repro_torch.core import verify as V
-from repro_torch.core.proposers import MedusaProposer, Proposer
+from repro_torch.core.proposers import (MedusaProposer, Proposer,
+                                       draft_config, make_proposer)
 from repro_torch.core.tree import TreeBuffers
 from repro_torch.kernels import ops as KO
 from repro_torch.kernels import paging as P
 from repro_torch.models import api as model_api
 from repro_torch.models.api import get_model
-from repro_torch.models.transformer import PAGES_KEY
-from repro_torch.runtime import (StepGraphs, binding, resolve_device,
-                                 torch_dtype)
+from repro_torch.models.transformer import PAGES_KEY, cache_max_len
+from repro_torch.runtime import (StepGraphs, binding, copy_tree_,
+                                 resolve_device, torch_dtype, tree_map,
+                                 tree_spec)
 
 
 class StepStats(NamedTuple):
@@ -63,8 +65,9 @@ class StepStats(NamedTuple):
 class Draws(NamedTuple):
     """One speculative step's noise (``core.sampling``: randomness is an
     argument), drawn from the engine's generator or passed in."""
-    u: Optional[torch.Tensor]    # [B, max(K, 1), Cmax] f32 acceptance
-                                 # uniforms (accept="sample")
+    u: Optional[torch.Tensor]    # f32 acceptance uniforms (accept=
+                                 # "sample"): [B, max(K, 1), Cmax] for the
+                                 # tree walk, [B, K] for the chain walk
     g: torch.Tensor              # [B, V] f32 Gumbel noise of the step's
                                  # final draw
 
@@ -78,7 +81,7 @@ class SpecCarry:
     cache: dict
     lengths: torch.Tensor        # [B] int32 committed rows
     base: torch.Tensor           # [B] int32 the next certain token
-    state: dict                  # the proposer's state
+    state: dict                  # the proposer's state (nested dicts)
     out: torch.Tensor            # [B, max_new + K + 2] int32
     n_out: torch.Tensor          # [B] int32 tokens written so far
     acc_sum: torch.Tensor        # () int64, as StepStats.accepted_sum
@@ -91,8 +94,7 @@ class SpecCarry:
         given per-row (or scalar) temperature and top-p."""
         self.lengths.copy_(lengths)
         self.base.copy_(base)
-        for k, t in state.items():
-            self.state[k].copy_(t)
+        copy_tree_(self.state, state)
         for t in (self.out, self.n_out, self.acc_sum, self.acc_slot):
             t.zero_()
         B, dev = self.base.shape[0], self.base.device
@@ -108,8 +110,10 @@ class SpecEngine:
     ``accept`` selects verification: "greedy" (lossless argmax match),
     "typical" (Medusa's lossy typical acceptance at ``temperature``) or
     "sample" (lossless rejection sampling under ``sampling``, whose
-    temperature defaults to ``temperature``).  At ``sampling.temperature
-    <= 0`` the "sample" mode is token-identical to "greedy".  ``seed``
+    temperature defaults to ``temperature``: the tree walk for a proposer
+    whose ``q_kind`` is "mprob", the chain walk for "logits").  At
+    ``sampling.temperature <= 0`` the "sample" mode is token-identical to
+    "greedy".  ``seed``
     seeds the engine's ``generator`` (on its device), which every draw of
     the non-greedy modes comes from.
     ``use_kernel`` routes decode attention through
@@ -176,9 +180,9 @@ class SpecEngine:
             if accept == "sample" and (sp.top_k or sp.top_p != 1.0):
                 raise ValueError("verify_fusion + accept='sample' requires "
                                  "top_k=0 and top_p=1.0")
-        if accept == "sample" and self.proposer.q_kind != "mprob":
-            raise NotImplementedError("the chain walk (draft-model "
-                                      "proposals) is ROADMAP queue 1 item 12")
+        if self.proposer.q_kind not in ("mprob", "logits"):
+            raise ValueError(f"proposer q_kind {self.proposer.q_kind!r}: "
+                             "the engine verifies 'mprob' and 'logits'")
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step_graphs = StepGraphs(self.device, capture=graphs)
         self._caches = {}
@@ -215,13 +219,17 @@ class SpecEngine:
     def draws(self, batch: int) -> Optional[Draws]:
         """One step's noise from the engine's generator: none under greedy,
         the Gumbel noise of the bonus draw under typical, and the
-        acceptance uniforms too under sample."""
+        acceptance uniforms too under sample (one per chain position for
+        a "logits" proposer, one per round and sibling for the tree
+        walk)."""
         if self.accept == "greedy":
             return None
         u = None
-        if self.accept == "sample":
-            u = S.uniform((batch, max(self.dtree.K, 1), self.dtree.Cmax),
-                          self.generator)
+        dt = self.dtree
+        if self.accept == "sample" and self.proposer.q_kind == "logits":
+            u = S.uniform((batch, dt.K), self.generator)
+        elif self.accept == "sample":
+            u = S.uniform((batch, max(dt.K, 1), dt.Cmax), self.generator)
         return Draws(u, S.gumbel((batch, self.cfg.vocab_size),
                                  self.generator))
 
@@ -233,7 +241,8 @@ class SpecEngine:
         is drawn from the warped target logits with noise from the
         engine's generator, as the sampled AR oracle draws it; otherwise
         it is the argmax.  ``temperature``/``top_p`` may be per-row [B]
-        tensors."""
+        tensors.  ``state`` is the proposer state to prime; None allocates
+        one holding as many rows as the cache."""
         B, Sp = tokens.shape
         last_hidden, cache = self.model.prefill(params, self.cfg, tokens,
                                                 lengths, cache)
@@ -245,9 +254,9 @@ class SpecEngine:
         else:
             base = torch.argmax(logits, dim=-1).to(torch.int32)
         if state is None:
-            state = self.init_proposer_state(B, Sp + self.dtree.T + 2)
+            state = self.init_proposer_state(B, cache_max_len(cache))
         state = self.proposer.prime(proposer_params, state, tokens, lengths,
-                                    last_hidden, base)
+                                    lengths, last_hidden, base)
         return cache, lengths, base, state
 
     def spec_step(self, params, proposer_params, cache, lengths, base, state,
@@ -257,7 +266,9 @@ class SpecEngine:
         verify -> commit -> observe.  Returns (cache, lengths, verdict,
         state').  ``draws`` is the step's noise (None: ``self.draws``
         from the engine's generator); ``temperature``/``top_p`` override
-        the engine's ``sampling`` and may be per-row [B] tensors."""
+        the engine's ``sampling`` and may be per-row [B] tensors.  A
+        proposer that ``consumes_key`` draws its noise from the engine's
+        generator before the step's verify draws are made."""
         dt = self.dtree
         t, k, p = self._sampling_args(temperature, top_p)
         cand, q, state = self.proposer.propose(
@@ -288,6 +299,10 @@ class SpecEngine:
         if self.accept == "typical":
             return V.typical_verify(cand, logits, dt, draws.g,
                                     temperature=self.temperature)
+        if self.accept == "sample" and self.proposer.q_kind == "logits":
+            return V.sample_verify_chain(cand, logits, q, dt, draws.u,
+                                         draws.g, temperature=temperature,
+                                         top_k=top_k, top_p=top_p)
         if self.accept == "sample":
             return V.sample_verify_tree(cand, logits, q, dt, draws.u, draws.g,
                                         temperature=temperature,
@@ -299,9 +314,10 @@ class SpecEngine:
         streams the lm-head product over vocabulary tiles and hands back
         Verdict-sized statistics of the logits divided by ``tmax`` (ones
         for greedy, max(t, 1e-6) per row for sample); the [B, T, V]
-        logits are never made.  The sampled walk rebuilds the residual
-        from ONE [B, V] row unembed at each row's stopping node.  The
-        greedy Verdict is bit-identical to ``greedy_verify``'s."""
+        logits are never made.  The sampled walks (tree or chain, as
+        ``_verify`` picks) rebuild the residual from ONE [B, V] row
+        unembed at each row's stopping node.  The greedy Verdict is
+        bit-identical to ``greedy_verify``'s."""
         B = cand.shape[0]
         dev = hidden.device
         if self.accept == "sample":
@@ -318,6 +334,10 @@ class SpecEngine:
         def row_fn(idx):
             return self.model.unembed(params, self.cfg, hidden[rows, idx])
 
+        if self.proposer.q_kind == "logits":
+            return V.sample_verify_chain_stats(cand, stats, q, self.dtree,
+                                               draws.u, draws.g, row_fn,
+                                               temperature=temperature)
         return V.sample_verify_tree_stats(cand, stats, q, self.dtree,
                                           draws.u, draws.g, row_fn,
                                           temperature=temperature)
@@ -329,13 +349,12 @@ class SpecEngine:
         carry over ``cache``, one step a call.  Kept in ``step_graphs``
         under (batch, max_new, the state's shapes) while ``cache`` and the
         weights are the same tensors, and built anew (recaptured) when
-        they are not.  ``state`` gives the proposer state's shapes.  A
-        deferred step is a key of its own."""
+        they are not.  ``state`` gives the proposer state's shapes (every
+        leaf of its nested dicts).  A deferred step is a key of its
+        own."""
         B = _cache_batch(cache)
         key = ("spec", B, max_new, self.accept, self.sampling.top_k,
-               self.deferred,
-               tuple((k, tuple(t.shape), t.dtype)
-                     for k, t in sorted(state.items())))
+               self.deferred, tree_spec(state))
 
         def make():
             dev = self.device
@@ -344,7 +363,7 @@ class SpecEngine:
             c = SpecCarry(
                 cache=cache, lengths=torch.zeros((B,), dtype=i32, device=dev),
                 base=torch.zeros((B,), dtype=i32, device=dev),
-                state={k: torch.empty_like(t) for k, t in state.items()},
+                state=tree_map(torch.empty_like, state),
                 out=torch.zeros((B, max_new + self.dtree.K + 2), dtype=i32,
                                 device=dev),
                 n_out=torch.zeros((B,), dtype=i32, device=dev),
@@ -379,8 +398,7 @@ class SpecEngine:
         c.n_out.add_(verdict.acc)
         c.lengths.copy_(lengths)
         c.base.copy_(verdict.next_token)
-        for k, t in state.items():
-            c.state[k].copy_(t)
+        copy_tree_(c.state, state)
 
     def generate(self, params, proposer_params, tokens, prompt_lengths, cache,
                  max_new: int, state=None, temperature=None):
@@ -391,13 +409,18 @@ class SpecEngine:
         ``temperature`` (a scalar or a per-row [B] tensor) overrides the
         engine's ``sampling.temperature`` for this call; it and
         ``sampling.top_p`` are carry values, so the captured step replays
-        for any of them.  Returns (out_tokens [B, max_new] int32, n_out
-        [B] int32 true lengths, StepStats)."""
+        for any of them.  ``state`` (optional) is a proposer state to
+        prime, such as a draft cache the caller allocated; None allocates
+        one holding as many rows as ``cache`` (the reference sizes it to
+        the prompt and ``max_new``, which would make every prompt width a
+        step shape of its own; the tokens are the same).  Returns
+        (out_tokens [B, max_new] int32, n_out [B] int32 true lengths,
+        StepStats)."""
         dt = self.dtree
-        B, Sp = tokens.shape
+        B = tokens.shape[0]
         t, _, p = self._sampling_args(temperature)
         if state is None:
-            state = self.init_proposer_state(B, Sp + max_new + dt.T + 2)
+            state = self.init_proposer_state(B, cache_max_len(cache))
         cache, lengths, base, state = self.prefill(
             params, proposer_params, tokens, prompt_lengths, cache,
             state=state, temperature=t, top_p=p)
@@ -438,23 +461,37 @@ def _cache_batch(cache) -> int:
 
 
 def build_engine(cfg: ModelConfig, proposer: str = "medusa", *,
+                 tb: Optional[TreeBuffers] = None,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 draft_layers: int = 2, gamma: int = 4, max_n: int = 3,
+                 min_n: int = 1, matcher: str = "auto",
                  use_kernel: bool = False, device="cuda",
                  accept: str = "greedy",
                  sampling: Optional[SamplingParams] = None,
                  verify_fusion: Optional[bool] = None,
                  graphs: bool = True, seed: int = 0,
                  deferred: bool = False) -> SpecEngine:
-    """Engine construction shared by the launcher and the tests.  The
-    port carries the Medusa proposer only."""
-    if proposer != "medusa":
-        raise NotImplementedError(f"proposer {proposer!r}: draft-model and "
-                                  "n-gram proposers are ROADMAP queue 1 "
-                                  "item 12")
+    """Engine construction shared by the launcher and the tests.
+
+    ``proposer`` names the draft policy (medusa | draft | ngram; another
+    name raises ``ValueError``).  For "draft" a ``draft_cfg`` may be given;
+    omitted, a ``draft_layers``-layer sibling of ``cfg`` is derived
+    (``proposers.draft_config``), and either way the draft takes the
+    engine's verify fusion and ``use_kernel``.  ``tb`` overrides the
+    Medusa tree; ``gamma``/``max_n``/``min_n`` shape the chain proposers;
+    ``matcher`` picks the n-gram lookup (scan | automaton | auto: the
+    hash-table automaton at a history capacity >= 8192)."""
     dev = resolve_device(device)
+    if verify_fusion is not None and verify_fusion != cfg.verify_fusion:
+        cfg = dataclasses.replace(cfg, verify_fusion=verify_fusion)
+    if proposer == "draft":
+        draft_cfg = draft_config(cfg, draft_cfg, draft_layers)
+    p = make_proposer(proposer, cfg, device=dev, tb=tb, draft_cfg=draft_cfg,
+                      gamma=gamma, max_n=max_n, min_n=min_n, matcher=matcher,
+                      use_kernel=use_kernel)
     return SpecEngine(cfg, use_kernel=use_kernel, accept=accept,
-                      sampling=sampling, proposer=MedusaProposer(cfg, dev),
-                      device=dev, verify_fusion=verify_fusion, graphs=graphs,
-                      seed=seed, deferred=deferred)
+                      sampling=sampling, proposer=p, device=dev,
+                      graphs=graphs, seed=seed, deferred=deferred)
 
 
 def ar_step(cfg: ModelConfig, params, cache, tok, lengths,

@@ -1,20 +1,21 @@
 """Static tree verification + zero-copy retrieval (paper §3.2) in PyTorch;
-counterpart of ``repro.core.verify`` for the Medusa tree.
+counterpart of ``repro.core.verify``.
 
-Three acceptance rules share the ``Verdict`` contract: ``greedy_verify``
+Four acceptance rules share the ``Verdict`` contract: ``greedy_verify``
 (lossless argmax match), ``typical_verify`` (Medusa's lossy typical
-acceptance) and ``sample_verify_tree`` (lossless rejection sampling over
-the tree).  Greedy and sampling are also fed by the fused kernel's
-statistics instead of the [B, T, V] logits (``greedy_verify_stats``,
-``sample_verify_tree_stats``).  The draft-model chain walks are ROADMAP
-queue 1 item 12.
+acceptance), and the lossless rejection-sampling pair
+``sample_verify_tree`` (over a tree, for a deterministic top-k proposal)
+and ``sample_verify_chain`` (over a chain a draft model sampled).  Greedy
+and sampling are also fed by the fused kernel's statistics instead of the
+[B, T, V] logits (``greedy_verify_stats``, ``sample_verify_tree_stats``,
+``sample_verify_chain_stats``).
 
 Everything here is fixed-shape tensor algebra on the device: the
 acceptance outcome changes only values (indices fed to gathers), never
 shapes, and nothing reads back to the host.  Randomness is an argument
 (see ``core.sampling``): the sampled walks take the acceptance uniforms
-``u`` [B, max(K, 1), Cmax] and the Gumbel noise ``g`` [B, V] of the final
-draw as tensors.
+``u`` (tree: [B, max(K, 1), Cmax]; chain: [B, K]) and the Gumbel noise
+``g`` [B, V] of the final draw as tensors.
 """
 from __future__ import annotations
 
@@ -199,6 +200,55 @@ def _remove_token(r, x):
     removed = r.scatter(1, x[:, None], 0.0)
     s = torch.sum(removed, dim=-1, keepdim=True)
     return torch.where(s > 1e-9, removed / torch.clamp(s, min=1e-38), r)
+
+
+def _chain_verdict(candidates, accept, dtree: DeviceTree, p_last_fn, q,
+                   g) -> Verdict:
+    """The chain rule after the per-token tests ``accept`` [B, gamma]: the
+    accepted prefix, then the next token drawn with ``g`` from the target
+    distribution at the last accepted node (``p_last_fn(last)`` -> [B, V])
+    on a full accept, else from the residual ``norm(max(p - q, 0))``."""
+    B, T = candidates.shape
+    gamma = T - 1
+    rows = torch.arange(B, device=candidates.device)
+    acc = 1 + torch.sum(torch.cumprod(accept.to(torch.int32), dim=-1),
+                        dim=-1)
+    last = (acc - 1).long()                                    # [B]
+    p_last = p_last_fn(last)
+    q_last = q[rows, torch.clamp(last, max=gamma - 1)]
+    full = (acc == T)[:, None]
+    next_dist = torch.where(full, p_last, S.residual_dist(p_last, q_last))
+    path_slots = dtree.retrieve[0].repeat(B, 1)             # [B, K+1]
+    return Verdict(acc.to(torch.int32), path_slots, candidates,
+                   S.categorical_from_probs(g, next_dist), last)
+
+
+def sample_verify_chain(candidates, logits, draft_logits, dtree: DeviceTree,
+                        u, g, temperature=1.0, top_k: int = 0,
+                        top_p=1.0) -> Verdict:
+    """Lossless chain rejection-sampling verification (Leviathan/Chen) for
+    the draft-model proposer.
+
+    candidates [B, gamma+1] int32 (slot 0 the certain base token), logits
+    [B, gamma+1, V] target logits (node i predicts token i+1),
+    draft_logits [B, gamma, V] the draft distributions that sampled
+    candidates[:, 1:], u [B, gamma] f32 uniforms, g [B, V] Gumbel noise for
+    the final draw.  Draft token x_i is accepted with probability
+    min(1, p_i(x_i)/q_i(x_i)), evaluated division-free as ``u*q < p``; the
+    first rejection draws from the residual ``norm(max(p - q, 0))``, a
+    full accept draws the bonus token from the target distribution at the
+    last node.  p and q pass through the same warp, so the committed
+    stream is distributed as warped-target autoregressive sampling.
+    ``temperature``/``top_p`` may be per-row [B] tensors.
+    """
+    p = S.warp_probs(logits, temperature, top_k, top_p)       # [B, T, V]
+    q = S.warp_probs(draft_logits, temperature, top_k, top_p)  # [B, g, V]
+    x = candidates[:, 1:].long()[..., None]                    # [B, g, 1]
+    px = torch.gather(p[:, :-1], -1, x)[..., 0]
+    qx = torch.gather(q, -1, x)[..., 0]
+    rows = torch.arange(candidates.shape[0], device=candidates.device)
+    return _chain_verdict(candidates, u * qx < px, dtree,
+                          lambda last: p[rows, last], q, g)
 
 
 def sample_verify_tree(candidates, logits, mprob, dtree: DeviceTree, u, g,
@@ -388,3 +438,40 @@ def sample_verify_tree_stats(candidates, stats: VerifyStats, mprob,
                         r)
     return Verdict(acc, torch.stack(slots, 1), torch.stack(tokens, 1),
                    S.categorical_from_probs(g, r), cur)
+
+
+def sample_verify_chain_stats(candidates, stats: VerifyStats, draft_logits,
+                              dtree: DeviceTree, u, g, row_logits_fn,
+                              temperature=1.0, top_k: int = 0,
+                              top_p=1.0) -> Verdict:
+    """``sample_verify_chain`` fed by the fused kernel's statistics.
+
+    The chain test u·q(x) < p(x) needs p only at the drafted tokens,
+    ``exp(cand_w - m) / l`` along the diagonal band (the one-hot warp at
+    temperature 0), and one full row (``row_logits_fn(last)`` -> [B, V] raw
+    logits at the last accepted node) for the residual or bonus draw.  The
+    draft side q is the draft's own logits, warped as in the unfused rule.
+    ``u``/``g`` as ``sample_verify_chain``.  Requires an untruncated
+    target warp (top_k 0, top_p 1.0; the engine refuses the rest)."""
+    B, T = candidates.shape
+    gamma = T - 1
+    dev = candidates.device
+    rows = torch.arange(B, device=dev)
+    t_arr = S.per_row(temperature, B, dev)
+    t_zero = t_arr <= 0.0
+    tmax = torch.clamp(t_arr, min=1e-6)
+    q = S.warp_probs(draft_logits, temperature, top_k, top_p)  # [B, g, V]
+    x = candidates[:, 1:]                                      # [B, g]
+    node = torch.arange(gamma, device=dev)
+    cw = stats.cand_w[:, node, node + 1]                       # [B, g]
+    px = torch.exp(cw - stats.m[:, :gamma]) / stats.l[:, :gamma]
+    hard = (x == stats.argm[:, :gamma]).to(px.dtype)
+    px = torch.where(t_zero[:, None], hard, px)
+    qx = torch.gather(q, -1, x.long()[..., None])[..., 0]
+
+    def p_last(last):
+        return _stats_row_dist(row_logits_fn(last), stats.m[rows, last],
+                               stats.l[rows, last], tmax, t_zero,
+                               stats.argm[rows, last])
+
+    return _chain_verdict(candidates, u * qx < px, dtree, p_last, q, g)

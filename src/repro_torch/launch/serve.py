@@ -1,8 +1,10 @@
-"""Static-batch speculative server for the port: Medusa tree decoding
-through the ``flash_decode`` kernel, greedy or lossless sampled.
+"""Static-batch speculative server for the port: Medusa tree decoding, or
+draft-model or n-gram chain speculation (``--proposer``), through the
+``flash_decode`` kernel, greedy or lossless sampled.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --slots 4 \\
-      --max-new 64 --max-len 2048 --min-prompt 64 --max-prompt 257
+      --max-new 64 --max-len 2048 --min-prompt 64 --max-prompt 257 \\
+      [--proposer medusa|draft|ngram] [--gamma 4]
 
 Counterpart of the reference launcher's static-batch path
 (``repro/launch/serve.py::serve_tp`` without tensor parallelism): seeded
@@ -33,14 +35,20 @@ below 1 is refused with ``--verify-fusion``); the draws come from a
 generator seeded with ``--seed``.  ``--deferred`` serves through
 ``SpecEngine(deferred=True)``: the decode step writes no tree row and
 commit is its only cache write (the unfused write side, as in the
-reference).
+reference).  ``--proposer`` (the reference launcher's flag) picks the
+draft policy: ``medusa`` (the default: Medusa heads seeded from the lm
+head), ``draft`` (a 2-layer sibling of the model as the draft model, its
+random weights drawn from ``--seed`` on the device) or ``ngram``
+(train-free prompt lookup, no weights); ``--gamma`` (default 4) is the
+chain length of the last two.  Each request's line gives its tokens a
+step.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,6 +57,7 @@ from repro_torch.configs.base import ModelConfig, SamplingParams
 from repro_torch.configs.registry import ALL_ARCHS, get_config
 from repro_torch.core import medusa as M
 from repro_torch.core.engine import SpecEngine, build_engine
+from repro_torch.core.proposers import DraftModelProposer
 from repro_torch.models.api import get_model
 from repro_torch.runtime import resolve_device
 
@@ -59,7 +68,7 @@ class Served(NamedTuple):
     cfg: ModelConfig
     engine: SpecEngine
     params: dict
-    medusa_params: dict
+    proposer_params: Optional[dict]  # Medusa heads, draft weights or None
     prompts: list
     results: list          # one dict per request, in submission order
     seconds: float         # serving, the graphs' capture included
@@ -90,6 +99,18 @@ def build_model(cfg, seed: int, K: int, device):
                        base_lm_head=model.unembed_weight(params)[0],
                        dtype=cfg.dtype)
     return params, mp
+
+
+def proposer_params(engine: SpecEngine, seed: int):
+    """The chain proposers' weights: for a draft-model engine the draft's
+    random weights, drawn on the engine's device from ``seed + 1`` in the
+    draft config's dtype; None for the n-gram lookup, which has none.
+    (Medusa heads come with the backbone, from ``build_model``.)"""
+    p = engine.proposer
+    if isinstance(p, DraftModelProposer):
+        gen = torch.Generator(device=engine.device).manual_seed(seed + 1)
+        return p.dm.init_params(gen, p.dc, dtype=p.dc.dtype)
+    return None
 
 
 def serve_static(engine: SpecEngine, params, mp, prompts, slots: int,
@@ -138,13 +159,13 @@ def serve_static(engine: SpecEngine, params, mp, prompts, slots: int,
 
 def main(argv=None, weights=None) -> Served:
     """Run the launcher on ``argv``.  ``weights``, if given, is a
-    (params, medusa_params) pair for the configuration ``argv`` names,
-    served in place of the random weights drawn from ``--seed`` (so one
-    set of weights can be served under two settings without building the
-    model twice)."""
+    (params, proposer_params) pair for the configuration and proposer
+    ``argv`` names, served in place of the random weights drawn from
+    ``--seed`` (so one set of weights can be served under two settings
+    without building the model twice)."""
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
-        description="static-batch Medusa serving on the PyTorch port")
+        description="static-batch speculative serving on the PyTorch port")
     ap.add_argument("--arch", default="openpangu-7b", choices=ALL_ARCHS)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,
@@ -186,6 +207,14 @@ def main(argv=None, weights=None) -> Served:
     ap.add_argument("--deferred", action="store_true",
                     help="skip the per-step tree-row cache write (commit "
                          "is the only write)")
+    ap.add_argument("--proposer", default="medusa",
+                    choices=("medusa", "draft", "ngram"),
+                    help="draft policy: trained Medusa heads, a 2-layer "
+                         "draft-model sibling, or train-free n-gram prompt "
+                         "lookup")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="chain length for the draft/ngram proposers "
+                         "(medusa uses its static tree)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -195,15 +224,22 @@ def main(argv=None, weights=None) -> Served:
                                   cache_layout=args.cache_layout,
                                   page_size=args.page_size)
     engine = build_engine(
-        cfg, "medusa", use_kernel=True, device=dev, accept=args.accept,
+        cfg, args.proposer, gamma=args.gamma, use_kernel=True, device=dev,
+        accept=args.accept,
         sampling=SamplingParams(temperature=args.temperature,
                                 top_p=args.top_p),
         verify_fusion=args.verify_fusion, seed=args.seed,
         deferred=args.deferred)
-    if weights is None:
+    if weights is not None:
+        params, mp = weights
+    elif args.proposer == "medusa":
         params, mp = build_model(cfg, args.seed, engine.dtree.K, dev)
     else:
-        params, mp = weights
+        # the backbone's first draws are build_model's: the same target
+        params = get_model(cfg).init_params(
+            torch.Generator(device=dev).manual_seed(args.seed), cfg,
+            dtype=cfg.dtype)
+        mp = proposer_params(engine, args.seed)
     prompts = make_prompts(cfg.vocab_size, args.requests, args.seed,
                            args.min_prompt, args.max_prompt)
     results, seconds, tokens, capture_s = serve_static(
@@ -213,7 +249,9 @@ def main(argv=None, weights=None) -> Served:
         tps = len(r["output"]) / max(r["steps"], 1)
         print(f"  req {r['rid']}: {r['status']} prompt={r['prompt_len']} "
               f"steps={r['steps']} tokens/step={tps:.2f}")
-    fused = " with verify fusion" if engine.cfg.verify_fusion else ""
+    fused = "" if args.proposer == "medusa" else \
+        f", {args.proposer} proposer (gamma {args.gamma})"
+    fused += " with verify fusion" if engine.cfg.verify_fusion else ""
     if engine.deferred:
         fused += ", deferred write"
     if engine.accept == "sample":
@@ -224,9 +262,13 @@ def main(argv=None, weights=None) -> Served:
         layout = (f" ({cfg.resolved_cache_dtype} {cfg.cache_layout} cache"
                   + (f", page size {cfg.page_size}" if cfg.paged else "")
                   + ")")
+    # every answered request's tokens over its steps (its group's)
+    steps = sum(r["steps"] for r in results if r["status"] == "done")
     print(f"{cfg.name}{fused}{layout}: {len(results)} requests, {tokens} "
           f"tokens in {seconds:.3f}s ({tokens / seconds:.1f} tok/s on "
-          f"{where}; {capture_s:.3f}s of it capturing the step graph)")
+          f"{where}; {capture_s:.3f}s of it capturing the step graph); "
+          f"{args.proposer} proposer: {tokens / max(steps, 1):.2f} tokens "
+          f"a step")
     return Served(engine.cfg, engine, params, mp, prompts, results, seconds,
                   tokens, capture_s)
 

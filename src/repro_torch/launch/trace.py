@@ -4,7 +4,8 @@ eagerly and as the captured CUDA graph the engine replays.
 
   PYTHONPATH=src python -m repro_torch.launch.trace [--arch openpangu-7b] \
       [--steps 4] [--cache-dtype int8] [--cache-layout paged] \
-      [--page-size 64] [--temperature 0.7] [--only KIND,KIND]
+      [--page-size 64] [--temperature 0.7] [--only KIND,KIND] \
+      [--proposer medusa|draft|ngram] [--gamma 4]
 
 Builds the launcher's model (bf16 ``--arch``, by default openPangu-7B,
 at full width and depth, random weights from seed 0), prefills 4 prompts
@@ -42,7 +43,11 @@ and of ``decode``'s stacks of its in-flight rows (``aten::stack`` inside
 replayed graph carries no ranges), so it reads any tree of the port the
 same way.  ``--cache-dtype``, ``--cache-layout`` and ``--page-size`` (the
 launcher's flags, names and defaults) trace the same steps on the int8
-cache and on the paged pool.
+cache and on the paged pool.  ``--proposer`` and ``--gamma`` (the
+launcher's flags) trace the spec kinds of the draft-model or n-gram
+engine instead of the Medusa one (the draft: the launcher's 2-layer
+sibling with its weights from ``proposer_params``); the AR kinds are the
+same whatever the proposer.
 """
 from __future__ import annotations
 
@@ -58,9 +63,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from repro_torch.configs.base import SamplingParams
 from repro_torch.configs.registry import ALL_ARCHS, get_config
 from repro_torch.core.engine import ar_loop_step, build_engine
-from repro_torch.launch.serve import build_model, make_prompts
+from repro_torch.launch.serve import (build_model, make_prompts,
+                                      proposer_params)
 from repro_torch.models import transformer
-from repro_torch.runtime import resolve_device
+from repro_torch.runtime import resolve_device, tree_map
 
 DECODE_RANGE, COMMIT_RANGE = "model.decode", "model.commit"
 
@@ -194,6 +200,11 @@ def main(argv=None):
     ap.add_argument("--only", default="",
                     help="comma-separated kinds to trace (e.g. "
                          "'spec-fused,spec-fused graph'); default: all")
+    ap.add_argument("--proposer", default="medusa",
+                    choices=("medusa", "draft", "ngram"),
+                    help="the spec kinds' draft policy")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="chain length for the draft/ngram proposers")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -203,16 +214,24 @@ def main(argv=None):
                               cache_layout=args.cache_layout,
                               page_size=args.page_size)
     print(f"{cfg.name}: {cfg.resolved_cache_dtype} {cfg.cache_layout} cache"
-          + (f", page size {cfg.page_size}" if cfg.paged else ""))
+          + (f", page size {cfg.page_size}" if cfg.paged else "")
+          + f"; {args.proposer} proposer"
+          + ("" if args.proposer == "medusa" else f", gamma {args.gamma}"))
     sp = SamplingParams(temperature=args.temperature)
     engines = {(vf, graphs, accept, deferred): build_engine(
-        cfg, "medusa", use_kernel=True, device=dev, verify_fusion=vf,
-        graphs=graphs, accept=accept, sampling=sp, deferred=deferred)
+        cfg, args.proposer, gamma=args.gamma, use_kernel=True, device=dev,
+        verify_fusion=vf, graphs=graphs, accept=accept, sampling=sp,
+        deferred=deferred)
         for vf in (False, True) for graphs in (False, True)
         for accept, deferred in (("greedy", False), ("sample", False),
                                  ("greedy", True))}
     eng = engines[False, False, "greedy", False]
-    params, mp = build_model(cfg, 0, eng.dtree.K, dev)
+    if args.proposer == "medusa":
+        params, mp = build_model(cfg, 0, eng.dtree.K, dev)
+    else:
+        params = transformer.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, dtype=cfg.dtype)
+        mp = proposer_params(eng, 0)
     prompts = make_prompts(cfg.vocab_size, 4, 0, 64, 257)
     S = max(len(p) for p in prompts)
     tok = torch.zeros((4, S), dtype=torch.int32)
@@ -239,7 +258,7 @@ def main(argv=None):
 
         def done():
             pos.update(lengths=c.lengths.clone(), base=c.base.clone(),
-                       state={k: t.clone() for k, t in c.state.items()})
+                       state=tree_map(torch.clone, c.state))
         return step, step_and_exit_test, done
 
     def ar(graphs, accept="greedy"):

@@ -249,6 +249,38 @@ class StepGraphs:
         return sum(g.capture_s for g, _ in self.kept())
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf over nested dicts (a proposer's state, a
+    cache): the structure of ``tree``, each of ``rest`` read at the same
+    keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_spec(tree) -> tuple:
+    """(path, shape, dtype) of every tensor in nested dicts, in key order:
+    what a step captured on tensors of these shapes depends on."""
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        else:
+            out.append((path, tuple(t.shape), t.dtype))
+    walk(tree, ())
+    return tuple(out)
+
+
+def copy_tree_(dst, src):
+    """Copy every tensor of ``src`` into the tensor at the same place in
+    ``dst``.  A leaf of ``src`` that is already that tensor (a draft cache
+    the step wrote in place) is not copied."""
+    tree_map(lambda d, s: None if d is s else d.copy_(s), dst, src)
+
+
 def binding(*trees) -> tuple:
     """(address, shape, dtype) of every tensor in nested dicts, and every
     ``torch.Generator`` itself (held, and compared by identity): a graph

@@ -26,6 +26,7 @@ from repro_torch import bridge
 from repro_torch.core import medusa as M
 from repro_torch.core import verify as V
 from repro_torch.core.engine import SpecEngine, ar_generate, build_engine
+from repro_torch.core.proposers import NgramProposer
 from repro_torch.launch import serve
 
 B, S_P, MAX_NEW, S_MAX = 2, 8, 16, 256
@@ -133,8 +134,10 @@ def test_build_engine_is_the_medusa_engine(stack):
     cfg, tb, _, _, tparams, tmp, tokens, lengths = stack
     eng = build_engine(cfg, "medusa", use_kernel=True, device="cpu")
     assert eng.tb.T == tb.T and eng.use_kernel
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_engine(cfg, "ngram", device="cpu")
+    ngram = build_engine(cfg, "ngram", device="cpu")
+    assert isinstance(ngram.proposer, NgramProposer)
+    with pytest.raises(ValueError, match="unknown proposer"):
+        build_engine(cfg, "eagle", device="cpu")
 
 
 def test_launcher_answers_every_request(capsys):

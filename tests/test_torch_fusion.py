@@ -330,7 +330,7 @@ def test_launcher_verify_fusion_answers_every_request(capsys):
     assert [r["status"] for r in fused.results] == ["done"] * 5
     assert "with verify fusion" in capsys.readouterr().out
     # the same weights served without fusion give the same answers
-    plain = serve.main(argv, weights=(fused.params, fused.medusa_params))
+    plain = serve.main(argv, weights=(fused.params, fused.proposer_params))
     assert not plain.cfg.verify_fusion
     for a, b in zip(fused.results, plain.results):
         np.testing.assert_array_equal(a["output"], b["output"])

@@ -539,6 +539,6 @@ def test_launcher_int8_paged_answers_every_request(capsys):
     assert "int8 paged cache, page size 16" in capsys.readouterr().out
     # the same weights on the int8 dense cache give the same answers
     dense = serve.main(argv + ["--cache-dtype", "int8"],
-                       weights=(srv.params, srv.medusa_params))
+                       weights=(srv.params, srv.proposer_params))
     for a, b in zip(srv.results, dense.results):
         np.testing.assert_array_equal(a["output"], b["output"])

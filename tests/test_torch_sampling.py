@@ -621,7 +621,7 @@ def test_launcher_sampled_temperature_zero_answers_as_greedy():
     greedy = serve.main(argv)
     zero = serve.main(argv + ["--accept", "sample", "--temperature", "0"])
     hot = serve.main(argv + ["--accept", "sample", "--temperature", "0.7"],
-                     weights=(greedy.params, greedy.medusa_params))
+                     weights=(greedy.params, greedy.proposer_params))
     for a, b in zip(greedy.results, zero.results):
         np.testing.assert_array_equal(a["output"], b["output"])
     assert all(r["status"] == "done" and len(r["output"]) == 8
