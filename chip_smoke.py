@@ -186,6 +186,41 @@ non-zero exit:
    openPangu-7B: head top-1 accuracy, mean accepted length, spec/AR step
    ratio and speedup at its four cache lengths, trained heads against the
    untrained ones (which must accept fewer), greedy spec == AR;
+13. (run after 4e) the continuous-batching server
+   (``serving.scheduler.SpecServer``) on phase 4's float32 openPangu-7B
+   (full width, 2 layers), 4 slots, max_len 512: every answer equals
+   ``ar_generate`` token for token on each run: dense with batched and
+   serial admission, int8, paged with a pool tight enough to defer,
+   paged with the prefix cache and a copy on write, chunked prefill
+   (chunk 32), paged with optimistic allocation and preemption, adaptive
+   gamma (the n-gram lookup, whose low acceptance lowers the level),
+   ``--verify-fusion``, deferred, a ``FamilySpecServer`` with medusa,
+   ngram and draft lanes, a sample engine at 0.8 with temperature-0
+   requests mixed in (those equal AR), and a decode step that fails after
+   running, recovered; each run's stats show its mechanism fired; the
+   launches are exact (``serve_expected``: one commit, K4 or K5, a decode
+   step and a ``suffix_prefill`` call; K1 a layer for both; K2 and K3
+   under fusion); each level's serve step is one captured graph,
+   replayed at every step after its first, never recaptured on
+   admission, reap or recovery;
+13b. (run after 12) the launcher's server (the default: no ``--static``)
+   on phase 5's bf16 weights at full width and depth: 16 requests (phase
+   5's 8 prompts and 8 more from the same generator), 4 slots, max_len
+   2048, max_new drawn from 16..64; unfused, ``--verify-fusion``, and
+   ``--cache-layout paged --page-size 64 --prefix-cache --preemption``,
+   unfused and with ``--verify-fusion``,
+   over 4 shared bases of 224 tokens (3.5 pages) plus 16..64-token
+   suffixes in a pool of 3/4 of four requests' worst case: every request
+   finishes, launches exact, one graph per level, each answer held to
+   ``ar_generate`` under ``MARGIN_BOUND`` (the unfused paged run with
+   ``ServedLogits``, its own top-two logits for every delivered token,
+   logged at each divergence: an AR gap of exactly ``MARGIN_BOUND``
+   passes only where the served logits tie the two tokens); each paged
+   run preempts and copies on write at least once and peaks below the
+   dense layout's worst case; logged: tok/s, latency and time-to-first-token p50/p99,
+   scheduler iterations, host ms an iteration outside the step, the
+   replayed step's device ms (CUDA events around each replay), capture
+   seconds by level, the stats, and phase 5's static tok/s beside them;
 8. time every kernel and variant, its plain version, and one PyTorch call
    as a yardstick the port never calls where one computes the same
    function (``scaled_dot_product_attention`` for K1, its backend pinned
@@ -266,6 +301,9 @@ FAMILY_K1 = [("gemma-2b", 1, 256, (512, 8)),
 GAMMA = 4
 CHAIN_T = GAMMA + 1
 CHAIN_R = 24
+# the serving scheduler's suffix_prefill (prefix-cache admission, chunked
+# prefill): a causal block of a prompt bucket's T rows
+SUFFIX_T = (128, 512)
 
 
 def log(msg: str):
@@ -602,6 +640,12 @@ def phase_kernels(dev):
         # the chain proposers' verify step: T 5 rows padded to 6, G 4
         folded_case(f"chain R={CHAIN_R}", 4, 2048, 8, CHAIN_R, 128, dt,
                     ragged, key="chain")
+        # the server's suffix_prefill: a causal T 128 or 512 block (prompt
+        # buckets and chunks), R = 4 T; the slots outside its mask run at
+        # length = capacity (2048: the whole cache)
+        for T in SUFFIX_T:
+            folded_case(f"suffix_prefill T={T} R={4 * T}", 4, 2048, 8, 4 * T,
+                        128, dt, ragged, key=f"suffix{T}")
         # the dense family's shapes: gemma-2b (one kv head, D 256, 8 q heads
         # a kv head: R 512 / 8) and qwen1.5-0.5b (16 kv heads, D 64, R 64 /
         # 8, the AR step's one row padded to 8)
@@ -1091,9 +1135,18 @@ def phase_fusion_kernels(dev):
             qkv_same_case(dev, cfg, T, dt, ragged)
         errs["K3-paged", dt] = qkv_case(dev, cfg, "spec", 64, dt, ragged,
                                         ps=64)
+        # the server's suffix_prefill under fusion: M = 4 T rows, one slot
+        # at capacity (its rows dropped), paged with one past the table
+        for T in SUFFIX_T:
+            errs[f"K3 suffix{T}", dt] = qkv_case(
+                dev, cfg, f"suffix_prefill T={T} (M {4 * T})", T, dt,
+                [0, 517, 1300, 2048])
+            qkv_case(dev, cfg, f"suffix_prefill T={T} (M {4 * T})", T, dt,
+                     [0, 517, 1300, 2048], ps=64)
         if dt == torch.bfloat16:
-            errs |= {k: errs[k, dt] for k in ("K2", "K3", "K3-paged",
-                                              "K2 chain", "K3 chain")}
+            errs |= {k: errs[k, dt] for k in (
+                "K2", "K3", "K3-paged", "K2 chain", "K3 chain",
+                *(f"K3 suffix{T}" for T in SUFFIX_T))}
         qkv_case(dev, cfg, "AR", 1, dt, ragged, ps=16)
         qkv_case(dev, cfg, "rows past the table", 64, dt,
                  [2040, 0, 2047, 100], ps=128)
@@ -1893,7 +1946,7 @@ def phase_family_serve(dev):
 # ---------------------------------------------------------------------------
 
 REQUESTS, SLOTS, MAX_NEW, MAX_LEN, SEED = 8, 4, 64, 2048, 0
-SERVE_ARGV = ["--requests", str(REQUESTS), "--slots", str(SLOTS),
+SERVE_ARGV = ["--static", "--requests", str(REQUESTS), "--slots", str(SLOTS),
               "--max-new", str(MAX_NEW), "--max-len", str(MAX_LEN),
               "--min-prompt", "64", "--max-prompt", "257", "--seed",
               str(SEED)]
@@ -2359,6 +2412,542 @@ def phase_serve_chain(dev, srv):
         runs[label] = (run, counts)
     log(f"  medusa (phase 5): {summary(srv)}")
     return {label: counts for label, (_, counts) in runs.items()}
+
+
+# ---------------------------------------------------------------------------
+# phases 13 and 13b: the continuous-batching server (serving/scheduler.py)
+# ---------------------------------------------------------------------------
+
+def serve_expected(srv, failed_steps: int = 0):
+    """Launches of each kernel for everything ``srv`` (a ``SpecServer``)
+    ran since its counters were set to 0: K1 once a layer for each decode
+    step and each ``suffix_prefill`` call (prefix-cache admissions and
+    chunks); with verify fusion K2 once a decode step and, on an fp cache,
+    K3 once a layer for each decode step (unless deferred) and each
+    suffix call (which never defers); one commit a decode step and a
+    suffix call, K4 dense, K5 paged; a draft-model proposer's gamma + 1
+    T=1 decodes a step on each of its layers.  ``failed_steps`` are
+    decode steps that ran and then failed (not in the stats).  Group
+    prefills launch none of these kernels."""
+    cfg, eng = srv.cfg, srv.engine
+    steps = srv.stats["steps"] + failed_steps
+    sfx = srv.timing["suffix_calls"]
+    L = cfg.num_layers
+    quantized = cfg.resolved_cache_dtype == "int8"
+    fused = cfg.verify_fusion
+    t1 = draft_t1_launches(eng.proposer, steps)
+    draft_k3 = t1 if t1 and eng.proposer.dc.verify_fusion and not quantized \
+        else 0
+    k3 = (L * (steps * (not eng.deferred) + sfx) if fused and not quantized
+          else 0) + draft_k3
+    return {"K1": L * (steps + sfx) + t1, "K2": steps if fused else 0,
+            "K3": k3, "K4": 0 if cfg.paged else steps + sfx,
+            "K5": steps + sfx if cfg.paged else 0}
+
+
+def add_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def check_server_graphs(label, srv, failed_steps: int = 0):
+    """One captured graph per speculation level that ran, no recapture:
+    a level's graph replayed every step after its first (eager warm-up)
+    one, its capture never redone on admission, reap or recovery."""
+    graphs = srv.step_graphs()
+    got, want = {}, {}
+    for g, n in srv.stats["gamma_steps"].items():
+        n += failed_steps if g == srv._levels[-1][0] else 0
+        if n:
+            graph = graphs.get(g)
+            got[g] = None if graph is None else (graph.graph is not None,
+                                                 graph.replays)
+            want[g] = (n >= 2, n - 1)
+    if got != want:
+        fail(f"{label}: serve-step graphs (captured, replays) by level {got},"
+             f" expected {want}: one capture per level and every later step "
+             f"replayed")
+    return {g: graphs[g].capture_s for g in got}
+
+
+def serve_ar(cfg, params, prompts, max_new, dev, observe=None):
+    """``ar_generate`` answers of ``prompts`` on ``cfg`` in groups of 4
+    (padded as the launcher pads), ``max_new`` tokens each: [n, max_new]
+    int64 on the host."""
+    from repro_torch.core.engine import ar_generate
+    from repro_torch.models.api import init_cache
+
+    outs = []
+    for g in range(0, len(prompts), 4):
+        rows = list(range(g, min(g + 4, len(prompts))))
+        tok, plen = padded_batch(prompts, rows)
+        S = -(-(tok.shape[1] + max_new + 8) // 64) * 64
+        ar, _ = ar_generate(cfg, params, torch.from_numpy(tok).to(dev),
+                            torch.from_numpy(plen).to(dev),
+                            init_cache(cfg, len(rows), S, device=dev),
+                            max_new, use_kernel=True,
+                            observe=None if observe is None
+                            else (lambda t, lg, rows=rows:
+                                  observe(rows, t, lg)))
+        outs.append(ar.cpu().long())
+    return torch.cat(outs)
+
+
+SERVE13 = dict(slots=4, max_len=512)
+
+
+def phase_serving_f32(dev, f32):
+    """Phase 13: the ``SpecServer`` on phase 4's float32 openPangu-7B (full
+    width, 2 layers): every answer equals ``ar_generate`` token for token
+    on each of its runs, the mechanism each run is about fired (from its
+    stats), the launches are exact (``serve_expected``), and each level's
+    serve step is one captured graph replayed after its first step."""
+    from repro_torch.configs.base import SamplingParams, SchedulerParams
+    from repro_torch.core.engine import build_engine
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.serving.scheduler import (FamilySpecServer,
+                                              ServerStepFailure, SpecServer)
+
+    base, params, mp = f32["base"], f32["params"], f32["mp"]
+    V = base.vocab_size
+    rng = np.random.default_rng(13)
+    plain = make_prompts(V, 7, 13, 16, 120)            # buckets 32 and 128
+    # four donors of a 160-token shared prefix (10 pages of 16), then one
+    # that shares 100 of its tokens (6 pages and 4 rows of a seventh: a
+    # copy on write), admitted once a donor has finished and registered
+    shared = rng.integers(0, V, size=160).astype(np.int32)
+    prefixed = [np.concatenate([shared[:n], p]) for n, p in
+                zip((160, 160, 160, 160, 100),
+                    make_prompts(V, 5, 14, 4, 20))]
+    longp = make_prompts(V, 4, 15, 90, 200)            # chunked at 32
+    # 100 tokens each: admitted at blocks_for(100 + 66, 16) = 11 blocks,
+    # so two fill a 22-block pool, and the first to grow past 110 rows
+    # preempts the other
+    hundred = make_prompts(V, 4, 16, 100, 101)
+    news = [int(n) for n in rng.integers(8, 25, size=8)]
+    ar_memo = {}
+
+    def ar_of(cfg, prompts):
+        key = (cfg.resolved_cache_dtype, id(prompts))
+        if key not in ar_memo:
+            ar_memo[key] = serve_ar(cfg, params, prompts, 24, dev)
+        return ar_memo[key]
+
+    def engine(cfg=base, kind="medusa", **kw):
+        return build_engine(cfg, kind, gamma=GAMMA, use_kernel=True,
+                            device=dev, **kw)
+
+    def run(label, srv, prompts, *, temps=None, fail_at=None, lanes=None,
+            check=None, new=None):
+        new = news if new is None else new
+        reset_counts()
+        failed = {"n": 0}
+        if fail_at is not None:
+            real = srv._step_fn
+
+            def flaky(level):
+                out = real(level)
+                failed["n"] += 1
+                if failed["n"] == fail_at:
+                    raise ServerStepFailure("injected device failure")
+                return out
+            srv._step_fn = flaky
+        rids = []
+        for i, p in enumerate(prompts):
+            kw = {} if temps is None else dict(temperature=temps[i])
+            if lanes is not None:
+                kw["group"] = lanes[i % len(lanes)]
+            rids.append(srv.submit(p, max_new=new[i % len(new)], **kw))
+        t0 = time.perf_counter()
+        iters = srv.run()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        servers = (list(srv.groups.values()) if lanes is not None
+                   else [srv])
+        nfail = 1 if fail_at is not None and failed["n"] >= fail_at else 0
+        want = add_counts(*(serve_expected(s, nfail) for s in servers))
+        if counts != want:
+            fail(f"serve f32 {label}: launches {counts}, expected {want}")
+        caps = {}
+        for s in servers:
+            caps.update(check_server_graphs(f"serve f32 {label}", s, nfail))
+        cfg = servers[0].engine.cfg
+        ar = ar_of(cfg, prompts)
+        same = 0
+        for i, rid in enumerate(rids):
+            req = srv.result(rid)
+            n = new[i % len(new)]
+            if req is None or req.status != "done" or len(req.output) != n:
+                fail(f"serve f32 {label}: request {i} "
+                     f"{None if req is None else req.status}, "
+                     f"{0 if req is None else len(req.output)} of {n} tokens")
+            if temps is not None and temps[i] != 0:
+                continue
+            if req.output != ar[i, :n].tolist():
+                fail(f"serve f32 {label}: request {i} != AR:\n"
+                     f"{req.output}\n{ar[i, :n].tolist()}")
+            same += 1
+        stats = [s.stats for s in servers]
+        if check is not None and not check(stats[0] if len(stats) == 1
+                                           else stats):
+            fail(f"serve f32 {label}: its mechanism did not fire: {stats}")
+        log(f"  serve f32 {label}: {same} of {len(prompts)} answers == AR "
+            f"token for token ({len(prompts) - same} sampled); {iters} "
+            f"iterations in {seconds:.3f}s; launches {counts} (exact); "
+            f"captured levels {sorted(caps)} "
+            f"({sum(caps.values()):.3f}s); stats "
+            + "; ".join(json.dumps(st, default=int) for st in stats))
+        return srv
+
+    def server(eng, pp=mp, **kw):
+        kw.setdefault("batch_slots", SERVE13["slots"])
+        kw.setdefault("max_len", SERVE13["max_len"])
+        return SpecServer(eng, params, pp, **kw)
+
+    paged = dataclasses.replace(base, cache_layout="paged", page_size=16)
+    int8 = dataclasses.replace(base, cache_dtype="int8")
+    run("dense, batched admission", server(engine()), plain,
+        check=lambda st: st["prefill_calls"] < len(plain))
+    run("dense, serial admission", server(engine(), admission="serial"),
+        plain, check=lambda st: st["prefill_calls"] == len(plain))
+    run("int8", server(engine(int8)), plain)
+    # worst case a request: 120 + 24 + 66 rows = 14 blocks of 16
+    run("paged, a pool tight enough to defer",
+        server(engine(paged), n_blocks=1 + 30), plain,
+        check=lambda st: st["deferred"] >= 1 and st["peak_blocks"] <= 30)
+    run("paged + prefix cache (CoW at a partial block)",
+        server(engine(paged), n_blocks=1 + 64, prefix_cache=True), prefixed,
+        check=lambda st: st["cow_copies"] >= 1 and st["cached_tokens"] > 0)
+    run("chunked prefill (chunk 32)",
+        server(engine(), sched=SchedulerParams(chunk_size=32)), longp,
+        check=lambda st: st["chunk_calls"] >= 1)
+    run("paged + preemption",
+        server(engine(paged), n_blocks=1 + 22,
+               sched=SchedulerParams(preemption=True)), hundred,
+        new=[24], check=lambda st: st["preemptions"] >= 1
+        and st["resumed"] >= 1)
+    # the n-gram lookup on random prompts accepts little, so the level
+    # falls (the Medusa heads, seeded from the lm head, accept ~4 a step)
+    run("adaptive gamma (n-gram)",
+        server(engine(kind="ngram"), None,
+               sched=SchedulerParams(adaptive_gamma=True)), plain,
+        check=lambda st: sum(1 for n in st["gamma_steps"].values() if n) >= 2)
+    run("verify fusion", server(engine(verify_fusion=True)), plain)
+    run("deferred", server(engine(deferred=True)), plain)
+    lanes = ["medusa", "ngram", "draft"]
+    fam = FamilySpecServer({
+        "medusa": server(engine()),
+        "ngram": server(engine(kind="ngram"), None),
+        "draft": server(engine(kind="draft", draft_layers=1),
+                        truncated(params, 1))})
+    run("FamilySpecServer (medusa, ngram, draft lanes)", fam, plain,
+        lanes=lanes, check=lambda sts: all(st["steps"] for st in sts))
+    temps = [0.0 if i % 2 == 0 else 0.8 for i in range(len(plain))]
+    run("sampled at 0.8, temperature-0 requests mixed in",
+        server(engine(accept="sample", seed=5,
+                      sampling=SamplingParams(temperature=0.8))),
+        plain, temps=temps)
+    run("an injected step failure, recovered",
+        server(engine(), max_retries=2), plain, fail_at=3,
+        check=lambda st: st["admitted"] > len(plain))
+
+
+def latency_line(res):
+    """p50 / p99 of per-request latency and time to first token, ms."""
+    lat = np.array([r["latency_s"] for r in res]) * 1e3
+    ttft = np.array([r["ttft_s"] for r in res]) * 1e3
+    return (f"latency p50 {np.percentile(lat, 50):.1f} ms, p99 "
+            f"{np.percentile(lat, 99):.1f} ms; time to first token p50 "
+            f"{np.percentile(ttft, 50):.1f} ms, p99 "
+            f"{np.percentile(ttft, 99):.1f} ms")
+
+
+def event_timed_steps(srv):
+    """Wrap ``srv``'s decode step so each replay is bracketed by CUDA
+    events on the current stream; -> the list the (start, end) pairs go
+    to (read with ``elapsed_time`` once the run is over)."""
+    pairs = []
+    real = srv._step_fn
+
+    def step(level):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(level)
+        b.record()
+        pairs.append((a, b))
+        return out
+    srv._step_fn = step
+    return pairs
+
+
+class ServedLogits:
+    """The served path's own logits, as a witness at a divergence from AR:
+    for every token an unfused greedy server delivers, the top two
+    (value, index) of the logits row that chose it, read from the run
+    itself.  A token at a step's path position j + 1 is the argmax of the
+    step's logits at path node j; the first token of a stint in a slot
+    (after admission or a preemption's resume) is the argmax of the
+    admission's logits (``prefill`` or ``suffix_prefill``).  The step's
+    rows are gathered inside the captured graph (a gather and a top-k
+    added to it), the admission's from a proxy of the engine's model; both
+    are copied out on the device and read after the run.  ``table``
+    checks that every delivered token is its row's argmax (a tie counted),
+    so the witness is known to be the run's own."""
+
+    def __init__(self, srv):
+        eng = srv.engine
+        self.srv, self.step, self.unembeds = srv, {}, []
+        self.pending, self.records = {}, []
+        real_verify, model, witness = eng._verify, eng.model, self
+
+        def verify(cand, logits, q, draws, t, k, p, dt):
+            verdict = real_verify(cand, logits, q, draws, t, k, p, dt)
+            rows = torch.arange(logits.shape[0], device=logits.device)
+            top = torch.topk(logits[rows[:, None], verdict.path_slots]
+                             .float(), 2, dim=-1)
+            self.step["top"] = (top.values, top.indices)   # [B, K+1, 2]
+            return verdict
+
+        class Model:
+            def __getattr__(self, name):
+                return getattr(model, name)
+
+            def unembed(self, params, cfg, hidden):
+                out = model.unembed(params, cfg, hidden)
+                witness.unembeds.append(out)
+                return out
+
+        eng._verify, eng.model = verify, Model()
+        real_admit, real_suffix = srv._admit_fn, srv._suffix_fn
+        real_step = srv._step_fn
+
+        def admitted(slots, rows):
+            """The admission's first unembed is the base's logits."""
+            lg = self.unembeds[0]
+            top = torch.topk(lg.float(), 2, dim=-1)
+            for s_, r_ in zip(slots, rows):
+                self.pending[s_] = (top.values[r_], top.indices[r_])
+
+        def admit(toks, plens, gtemp, gtopp, slots, rows, *rest):
+            self.unembeds.clear()
+            out = real_admit(toks, plens, gtemp, gtopp, slots, rows, *rest)
+            admitted(slots.tolist(), rows.tolist())
+            return out
+
+        def suffix(stoks, nv, mlen, smask, *rest):
+            self.unembeds.clear()
+            out = real_suffix(stoks, nv, mlen, smask, *rest)
+            live = smask.nonzero()[:, 0].tolist()
+            admitted(live, live)
+            return out
+
+        def step(level):
+            pre = [(i, sl.request.rid, len(sl.request.output))
+                   for i, sl in enumerate(srv.slots)
+                   if sl.request is not None and srv._active[i]]
+            out = real_step(level)
+            vals, idx = (t.clone() for t in self.step["top"])
+            for i, rid, start in pre:
+                if i in self.pending:
+                    pv, pi = self.pending.pop(i)
+                    self.records.append(("base", rid, start, pv, pi))
+                self.records.append(("step", rid, start, vals[i], idx[i]))
+            return out
+
+        srv._admit_fn, srv._suffix_fn, srv._step_fn = admit, suffix, step
+
+    def table(self, results):
+        """{(result index, position): (v1, i1, v2, i2)} for every
+        delivered token, after checking each is its row's argmax."""
+        srv = self.srv
+        rids = sorted(srv.done)
+        if len(rids) != len(results) or any(
+                list(srv.done[r].output) != list(res["output"])
+                for r, res in zip(rids, results)):
+            fail("the witness's requests are not the launcher's results")
+        index = {rid: n for n, rid in enumerate(rids)}
+        rows = {}
+        for kind, rid, start, vals, idx in self.records:
+            vals, idx = vals.cpu().tolist(), idx.cpu().tolist()
+            if kind == "base":
+                rows[index[rid], start] = (vals[0], idx[0], vals[1], idx[1])
+                continue
+            for j, (v, i) in enumerate(zip(vals, idx)):
+                rows[index[rid], start + 1 + j] = (v[0], i[0], v[1], i[1])
+        for n, res in enumerate(results):
+            for pos, tok in enumerate(res["output"]):
+                w = rows.get((n, pos))
+                if w is None or not (tok == w[1] or (tok == w[3]
+                                                     and w[0] == w[2])):
+                    fail(f"the served-logits witness does not reproduce "
+                         f"request {n}'s token {int(tok)} at {pos}: {w}")
+        return rows
+
+
+def check_server_against_ar(label, served, dev, witness=None):
+    """Each answer of a server run matches ``ar_generate`` on its config up
+    to its first divergence, where AR ranks the emitted token within
+    ``MARGIN_BOUND`` of its top logit.  With ``witness`` (a
+    ``ServedLogits`` on an unfused prefix-cache run: a request's prompt
+    rows were written by another request's prefill, and its suffix's by
+    a causal ``suffix_prefill`` pass through K1, each in bf16, where AR
+    computes them in its own prefill) each divergence also logs the
+    served path's own gap between the two tokens, and one more case is
+    accepted: AR's gap exactly two bf16 steps (one rounding each way of
+    the two competing logits) where the served logits tie them exactly
+    and the tie went to the lower index, the served token's."""
+    res, prompts = served.results, served.prompts
+    n_max = max(r["max_new"] for r in res)
+    outs = [torch.tensor(r["output"], dtype=torch.long) for r in res]
+    gaps = {}
+    seen = None if witness is None else witness.table(res)
+
+    def observe(rows, t, logits):
+        lf = logits.float()
+        top = lf.max(dim=-1).values
+        for j, i in enumerate(rows):
+            if t < len(outs[i]):
+                gaps[i, t] = (top[j] - lf[j, outs[i][t]], top[j])
+
+    ar = serve_ar(served.cfg, served.params, prompts, n_max, dev, observe)
+    gaps = {k: (float(g), float(t)) for k, (g, t) in gaps.items()}
+    diverged, worst, ties = 0, 0.0, 0
+    for i, r in enumerate(res):
+        n = len(outs[i])
+        differ = (outs[i] != ar[i, :n]).nonzero()
+        if len(differ) == 0:
+            continue
+        at = int(differ[0, 0])
+        gap, top = gaps[i, at]
+        s_tok, a_tok = int(outs[i][at]), int(ar[i, at])
+        diverged += 1
+        worst = max(worst, gap)
+        tie, served = False, ""
+        if seen is not None:
+            v1, i1, v2, i2 = seen[i, at]
+            if {i1, i2} == {s_tok, a_tok}:
+                s_gap = v1 - v2 if i1 == s_tok else v2 - v1
+                tie = s_gap == 0.0 and s_tok < a_tok
+                served = (f"; the served logits put it {s_gap:.5f} above "
+                          f"AR's token (top {v1:.5f})")
+            else:
+                served = (f"; AR's token is not in the served top two "
+                          f"({i1} {v1:.5f}, {i2} {v2:.5f})")
+        ok = gap < MARGIN_BOUND or (tie and gap == MARGIN_BOUND)
+        ties += ok and gap >= MARGIN_BOUND
+        log(f"  {label}: request {i} == AR for {at} tokens, then the served "
+            f"token {s_tok} where AR's is {a_tok}, {gap:.5f} below AR's top "
+            f"{top:.5f}{served}")
+        if not ok:
+            fail(f"{label}: request {i} diverges from AR at token {at}, "
+                 f"where AR ranks the served token {s_tok} {gap} below its "
+                 f"top {a_tok} ({top}; bound {MARGIN_BOUND}{served})")
+    log(f"  {label}: {len(res) - diverged} of {len(res)} answers == AR "
+        f"token for token, the rest near ties at their first divergence "
+        f"(largest gap {worst:.5f}; {ties} at {MARGIN_BOUND} with the "
+        f"served logits tied"
+        + (f", the witness checked on {len(seen)} served tokens)"
+           if seen is not None else ")"))
+
+
+PAGED_13B = "paged 64, verify fusion, prefix cache, preemption"
+PAGED_13B_UNFUSED = "paged 64, prefix cache, preemption"
+
+
+def phase_serving_full(dev, static):
+    """Phase 13b: the launcher's continuous-batching server on phase 5's
+    bf16 openPangu-7B (full width and depth) and weights: 16 requests
+    (phase 5's 8 prompts and 8 more from the same generator), 4 slots,
+    max_len 2048, max_new drawn from 16..64, so slots free at different
+    times and refill; unfused, with --verify-fusion, and paged (page 64)
+    with --prefix-cache --preemption, unfused and with --verify-fusion
+    (the suffix admissions run K1, and K3 fused, at the suffix_prefill
+    shapes), over 4 shared bases of 224 tokens (3.5 pages: CoW) plus
+    16..64-token suffixes in a pool of about 3/4 of the concurrent worst
+    case.  Each answer held to ``ar_generate`` under ``MARGIN_BOUND``; the
+    unfused paged run carries a ``ServedLogits`` witness (its timings
+    include the witness's gather, top-k and host reads), which logs the
+    served side of each divergence and decides the one case beyond
+    ``MARGIN_BOUND`` that ``check_server_against_ar`` accepts; launches
+    exact; one graph per level."""
+    from repro_torch.launch import serve
+
+    argv = ["--requests", "16", "--slots", "4", "--max-len", str(MAX_LEN),
+            "--min-new", "16", "--max-new", "64", "--seed", str(SEED)]
+    weights = (static.params, static.proposer_params)
+    worst = -(-(224 + 64 + 64 + 66) // 64)        # blocks a request, worst
+    n_blocks = 1 + (3 * 4 * worst) // 4
+    paged = ["--cache-layout", "paged", "--page-size", "64",
+             "--prefix-cache", "--preemption", "--shared-prefix", "224",
+             "--min-prompt", "16", "--max-prompt", "65", "--n-blocks",
+             str(n_blocks)]
+    runs = {}
+    for label, flags in (
+            ("dense", ["--min-prompt", "64", "--max-prompt", "257"]),
+            ("dense, verify fusion", ["--min-prompt", "64", "--max-prompt",
+                                      "257", "--verify-fusion"]),
+            (PAGED_13B_UNFUSED, paged),
+            (PAGED_13B, paged + ["--verify-fusion"])):
+        reset_counts()
+        pairs, witness = [], []
+        real_main_server = serve.SpecServer
+
+        class Timed(real_main_server):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                pairs.append(event_timed_steps(self))
+                if label == PAGED_13B_UNFUSED:
+                    witness.append(ServedLogits(self))
+        serve.SpecServer = Timed
+        try:
+            served = serve.main(argv + flags, weights=weights)
+        finally:
+            serve.SpecServer = real_main_server
+        counts = read_counts()
+        srv = served.server
+        want = serve_expected(srv)
+        if counts != want:
+            fail(f"13b {label}: launches {counts}, expected {want}")
+        caps = check_server_graphs(f"13b {label}", srv)
+        if any(r["status"] != "done" or len(r["output"]) != r["max_new"]
+               for r in served.results):
+            fail(f"13b {label}: not every request finished: "
+                 + str([(r["rid"], r["status"], len(r["output"]))
+                        for r in served.results]))
+        st, tm = srv.stats, srv.timing
+        dev_ms = [a.elapsed_time(b) for a, b in pairs[0]]
+        host_ms = (tm["iter_s"] - tm["step_s"]) * 1e3 / tm["iterations"]
+        admit_ms = tm["admit_s"] * 1e3 / tm["iterations"]
+        log(f"  13b {label}: {served.tokens} tokens in {served.seconds:.3f}s "
+            f"= {served.tokens / served.seconds:.1f} tok/s ({smi_line()}); "
+            f"{latency_line(served.results)}; {served.iterations} scheduler "
+            f"iterations, host {host_ms:.2f} ms an iteration outside the "
+            f"step's replay and sync read ({admit_ms:.2f} ms of it in "
+            f"admission and suffix calls); the replayed serve step "
+            f"{np.median(dev_ms):.2f} ms median on the card (CUDA events "
+            f"around the replay, {len(dev_ms)} steps); capture s by level "
+            f"{ {g: round(s, 3) for g, s in caps.items()} }; launches "
+            f"{counts} (exact); stats {json.dumps(st, default=int)}")
+        if label.startswith("paged"):
+            dense_worst = 4 * (MAX_LEN // 64)
+            log(f"  13b paged: peak {st['peak_blocks']} blocks of a "
+                f"{n_blocks - 1}-block pool (the dense layout's worst case "
+                f"{dense_worst}); {st['preemptions']} preemptions, "
+                f"{st['cow_copies']} CoW copies, {st['cached_tokens']} "
+                f"prompt tokens from the prefix cache")
+            if not (st["preemptions"] >= 1 and st["cow_copies"] >= 1
+                    and st["peak_blocks"] < dense_worst):
+                fail(f"13b paged: preemption, CoW or the pool did not do "
+                     f"their part: {st}")
+        check_server_against_ar(f"13b {label}", served, dev,
+                                witness=witness[0] if witness else None)
+        runs[label] = served
+    log(f"  the static launcher on phase 5's 8 prompts (phase 5): "
+        f"{static.tokens / static.seconds:.1f} tok/s; the server on 16 "
+        f"(8 of them phase 5's): "
+        + ", ".join(f"{k} {v.tokens / v.seconds:.1f} tok/s"
+                    for k, v in runs.items()))
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2929,7 +3518,7 @@ def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0, Ts=(64, 1),
             "replaces": ("src/repro/kernels/cache_update.py:203" if ps else
                          "src/repro/kernels/cache_update.py:209"),
             "launches": launches, "max_abs_err": max_err, **out[Ts[0]],
-            **{k + "_t1": v for k, v in out.get(1, {}).items()
+            **{k + f"_t{T}": v for T in Ts[1:] for k, v in out[T].items()
                if k != "bound_by"}}
 
 
@@ -2959,7 +3548,8 @@ def sdpa_pinned(q, k, v, mask):
 
 
 def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
-                      variant="", ps=64, shape=("", 8, 128, (256, 8))):
+                      variant="", ps=64, shape=("", 8, 128, (256, 8)),
+                      lens=None, live=None):
     """K1 at the spec (R 256) and AR (R 8) shapes, B 4, Hkv 8, D 128, a
     2048-row bf16 cache (int8 + f32 scales for the int8 variants; pools of
     page size ``ps`` through a shuffled table for the paged ones).  Kernel,
@@ -2970,7 +3560,12 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
     view the cache holds: gathered from the pool for the paged variants,
     dequantized to bf16 for the int8 ones, neither step timed.  ``shape``
     (model, Hkv, D, (spec R, AR R)) gives another model's widths
-    (``FAMILY_K1``); the row's name then carries the model."""
+    (``FAMILY_K1``) or the suffix_prefill's rows; the row's name then
+    carries the model, and the second R's keys end in ``_r<R>``.
+    ``lens`` (default: the prompts mid-way through generation) are the
+    swept lengths.  ``live`` (optional) counts the leading slots that do
+    real work (the suffix call's masked slots sweep to capacity): the row
+    then also carries ``bound_ms_live``, the bound of those slots alone."""
     from repro_torch.kernels import paging as P
     from repro_torch.kernels.quant import dequantize, quantize_rows
     from repro_torch.kernels.tree_attention import (flash_decode,
@@ -2982,7 +3577,8 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
     quantized, paged = "int8" in variant, "paged" in variant
     gen = torch.Generator(device=dev).manual_seed(0)
     # lengths mid-way through the first group's generation
-    lens = [n + max_new // 2 for n in prompt_lens]
+    if lens is None:
+        lens = [n + max_new // 2 for n in prompt_lens]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     S_run = max(lens)
     n_cols = sum(lens)
@@ -3026,17 +3622,29 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
         plain_ms = queued_ms(lambda: flash_decode_plain(q, k, v, lengths,
                                                         **kw), 20)
         lib_ms = queued_ms(lib, 100)
-        # bytes: q, the swept rows of k and v (+ their f32 scales), the
-        # lengths, the table entries of the swept rows, the f32 outputs
-        row_bytes = Hkv * (D + 4) if quantized else Hkv * D * 2
-        nbytes = (q.numel() * 2 + 2 * n_cols * row_bytes + B * 4
-                  + B * Hkv * R * (D + 2) * 4
-                  + (sum(-(-n // ps) for n in lens) * 4 if paged else 0))
-        flops = 4 * R * D * Hkv * n_cols
+        def work(lens):
+            """(bytes, flops) of K1 over slots of ``lens``: q, the swept
+            rows of k and v (+ their f32 scales), the lengths, the table
+            entries of the swept rows, the f32 outputs."""
+            nb, cols = len(lens), sum(lens)
+            row_bytes = Hkv * (D + 4) if quantized else Hkv * D * 2
+            return (nb * Hkv * R * D * 2 + 2 * cols * row_bytes + nb * 4
+                    + nb * Hkv * R * (D + 2) * 4
+                    + (sum(-(-n // ps) for n in lens) * 4 if paged else 0),
+                    4 * R * D * Hkv * cols)
+
+        nbytes, flops = work(lens)
         b_ms, b_by = bound(nbytes, flops)
         rows[R] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by, host_ms=h_ms,
                        library_backend=SDPA_BACKEND)
+        if live is not None:
+            l_ms, l_by = bound(*work(lens[:live]))
+            rows[R]["bound_ms_live"] = l_ms
+            log(f"  flash_decode R={R}: the {live} live slot(s) alone "
+                f"(lengths {lens[:live]}) bound {l_ms:.5f} ms ({l_by}); "
+                f"{sum(lens[live:])} of the {n_cols} swept columns are the "
+                f"masked slots' at capacity")
         what = variant + (f" ps={ps}" if paged else "")
         view = ("the dequantized bf16 view" if quantized else "the rows")
         view += ", gathered from the pool," if paged else ""
@@ -3055,7 +3663,7 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": K1_REPLACES[variant], "launches": launches,
             "max_abs_err": max_err, **rows[r_both[0]],
-            **{k + "_r8": v for k, v in rows[r_both[1]].items()
+            **{k + f"_r{r_both[1]}": v for k, v in rows[r_both[1]].items()
                if k != "bound_by"}}
 
 
@@ -3242,6 +3850,13 @@ def main() -> int:
           "fused too, greedy and sampled at temperature 0, deferred, and a "
           "self-draft that accepts every proposal")
     phase_chain_f32(dev, f32)
+    phase("phase 13: the continuous-batching server (SpecServer), float32, "
+          "full width, 2 layers: every answer == AR on each of its runs "
+          "(dense batched and serial, int8, paged tight, prefix cache + "
+          "CoW, chunked prefill, preemption, adaptive gamma, fusion, "
+          "deferred, FamilySpecServer, sampled with temperature-0 "
+          "requests, a recovered failure)")
+    phase_serving_f32(dev, f32)
     del f32
     torch.cuda.empty_cache()
     phase("phase 4b: the sampled distribution gate (tiny vocabulary, 1024 "
@@ -3281,6 +3896,13 @@ def main() -> int:
     phase("phase 12: the launcher with --proposer draft (unfused, fused, "
           "paged fused, int8) and --proposer ngram on the same weights")
     chain = phase_serve_chain(dev, srv)
+    torch.cuda.empty_cache()
+    phase("phase 13b: the launcher's continuous-batching server on the same "
+          "weights: 16 requests, 4 slots, max_new 16..64; unfused, "
+          "--verify-fusion, and paged with --prefix-cache --preemption")
+    serving = phase_serving_full(dev, srv)
+    paged_server = serving[PAGED_13B].server
+    del serving
     torch.cuda.empty_cache()
     prompt_lens = [len(p) for p in srv.prompts[:4]]
     params = srv.params
@@ -3359,6 +3981,18 @@ def main() -> int:
              time_fused_qkv(dev, cfg, mid, chain["draft fused"]["K3"],
                             errs["K3 chain"], Ts=(CHAIN_T, 1),
                             suffix="@chain")]
+    # the server's suffix_prefill (13b's paged prefix admissions): K1 at
+    # R 512 / 2048 (T 128 / 512) with one slot continuing from 192 cached
+    # rows and three outside the mask at capacity, K3 at M 512 / 2048
+    sfx = cfg.num_layers * paged_server.timing["suffix_calls"]
+    rows += [time_flash_decode(dev, prompt_lens, MAX_NEW, sfx,
+                               k1_errs_dense["suffix128"],
+                               shape=("suffix", 8, 128,
+                                      tuple(4 * T for T in SUFFIX_T)),
+                               lens=[192, 2048, 2048, 2048], live=1),
+             time_fused_qkv(dev, cfg, [192, 2048, 2048, 2048], sfx,
+                            errs["K3 suffix128"], Ts=SUFFIX_T,
+                            suffix="@suffix")]
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(smi_line(), flush=True)

@@ -5,7 +5,8 @@ names and defaults, so one architecture reads the same in both packages
 and a test can compare the two field by field.  ``reduce`` derives the
 CPU-test variant exactly as the reference does.  The port runs the dense
 family only; ``models/api.get_model`` rejects the rest.
-``SamplingParams`` is a copy of the reference's sampling controls.
+``SamplingParams`` is a copy of the reference's sampling controls and
+``SchedulerParams`` of its serving-scheduler knobs.
 """
 from __future__ import annotations
 
@@ -28,6 +29,35 @@ class SamplingParams:
     temperature: float = 1.0
     top_k: int = 0          # 0 => no top-k truncation
     top_p: float = 1.0      # 1.0 => no nucleus truncation
+
+
+@dataclass(frozen=True)
+class SchedulerParams:
+    """Serving-scheduler policy knobs (a copy of the reference's).
+
+    The defaults are the conservative scheduler: whole-prompt prefill,
+    worst-case paged block reservation with FIFO deferral, and one fixed
+    speculation topology.  Each knob opts one overload countermeasure in:
+
+    * ``chunk_size`` — prompts longer than this are prefilled in
+      chunk-sized pieces through ``SpecEngine.suffix_prefill``, one piece
+      a scheduler iteration beside the decode step (0 disables; needs a
+      proposer that ``supports_prefix``).
+    * ``preemption`` — paged layout only: admission allocates blocks for
+      the prompt plus one step of slack, the decode loop grows a slot's
+      table on demand, and pool exhaustion preempts the latest-submitted
+      request, which resumes later by recompute, token for token.
+    * ``adaptive_gamma`` — a per-slot acceptance EMA selects, on the host,
+      one of a small family of step graphs (``gamma_levels`` chain
+      prefixes plus the full topology), each captured once.
+    """
+    chunk_size: int = 0            # 0 => whole-prompt prefill
+    preemption: bool = False       # optimistic paged alloc + preempt/requeue
+    adaptive_gamma: bool = False   # host-side step-graph family selection
+    gamma_levels: tuple = ()       # () => derived (1, 3, ..., full)
+    accept_ema: float = 0.8        # per-slot acceptance EMA decay
+    adapt_low: float = 0.35        # shrink speculation below this EMA
+    adapt_high: float = 0.7        # grow speculation above this EMA
 
 
 @dataclass(frozen=True)

@@ -40,7 +40,7 @@ from repro_torch.core import sampling as S
 from repro_torch.core import verify as V
 from repro_torch.core.proposers import (MedusaProposer, Proposer,
                                        draft_config, make_proposer)
-from repro_torch.core.tree import TreeBuffers
+from repro_torch.core.tree import TreeBuffers, chain_tree
 from repro_torch.kernels import ops as KO
 from repro_torch.kernels import paging as P
 from repro_torch.models import api as model_api
@@ -187,20 +187,25 @@ class SpecEngine:
         self.step_graphs = StepGraphs(self.device, capture=graphs)
         self._caches = {}
 
-    def init_cache(self, batch: int, max_len: int):
+    def init_cache(self, batch: int, max_len: int, n_blocks=None):
         """Decode cache for ``batch`` slots on the engine's device in the
-        config's cache dtype and layout (paged: the identity table).  The
-        engine keeps one cache per (batch, max_len): a later call zeroes
-        that cache in place and returns it again, so a graph captured on
-        it replays for every group of requests."""
-        cache = self._caches.get((batch, max_len))
+        config's cache dtype and layout.  Paged: ``n_blocks`` sizes the
+        pool and its tables start all-zero (every entry trash block 0) for
+        an allocator to fill; None gives the identity table.  The engine
+        keeps one cache per (batch, max_len, n_blocks): a later call
+        zeroes that cache in place (tables back to the identity or to
+        zero) and returns it again, so a graph captured on it replays for
+        every group of requests."""
+        key = (batch, max_len, n_blocks)
+        cache = self._caches.get(key)
         if cache is None:
-            cache = self._caches[batch, max_len] = model_api.init_cache(
-                self.cfg, batch, max_len, device=self.device)
+            cache = self._caches[key] = model_api.init_cache(
+                self.cfg, batch, max_len, n_blocks=n_blocks,
+                device=self.device)
             return cache
         for pos, entry in cache.items():
             for t in entry.values():
-                if pos == PAGES_KEY:
+                if pos == PAGES_KEY and n_blocks is None:
                     t.copy_(P.identity_table(*t.shape, device=t.device))
                 else:
                     t.zero_()
@@ -216,16 +221,17 @@ class SpecEngine:
         return (sp.temperature if temperature is None else temperature,
                 sp.top_k, sp.top_p if top_p is None else top_p)
 
-    def draws(self, batch: int) -> Optional[Draws]:
+    def draws(self, batch: int, dtree=None) -> Optional[Draws]:
         """One step's noise from the engine's generator: none under greedy,
         the Gumbel noise of the bonus draw under typical, and the
         acceptance uniforms too under sample (one per chain position for
         a "logits" proposer, one per round and sibling for the tree
-        walk)."""
+        walk), sized for the step's topology ``dtree`` (default: the
+        proposer's)."""
         if self.accept == "greedy":
             return None
         u = None
-        dt = self.dtree
+        dt = self.dtree if dtree is None else dtree
         if self.accept == "sample" and self.proposer.q_kind == "logits":
             u = S.uniform((batch, dt.K), self.generator)
         elif self.accept == "sample":
@@ -259,43 +265,113 @@ class SpecEngine:
                                     lengths, last_hidden, base)
         return cache, lengths, base, state
 
+    def step_dtrees(self, levels=()):
+        """The adaptive-speculation graph family: ``(gamma, DeviceTree)``
+        step topologies, ascending, ending with the proposer's full tree.
+        Each smaller level is a single-path ``chain_tree`` prefix, which
+        every accept mode verifies losslessly; the serving scheduler
+        captures one step graph per level and selects among them on the
+        host.  ``levels`` lists the chain gammas (default (1, 3), those
+        below the full tree's K kept)."""
+        K = self.dtree.K
+        fam = []
+        for g in sorted(set(levels or (1, 3))):
+            if 0 < g < K:
+                fam.append((g, V.device_tree(chain_tree(g), self.device)))
+        fam.append((K, self.dtree))
+        return fam
+
+    def suffix_prefill(self, params, proposer_params, cache, lengths, tokens,
+                       n_valid, active, temperature=None, top_p=None,
+                       state=None):
+        """Continue a prefill from cached prefix rows (prefix-cache
+        admission and chunked prefill).
+
+        A causal T-token decode of ``tokens`` [B, T] (right-padded
+        suffixes) from ``lengths`` [B] (the rows already in the cache),
+        committed for ``n_valid`` [B] rows on the slots where ``active``
+        [B] is True; inactive slots keep their lengths, and their rows
+        land where the masked commit sends dead rows.  Returns (cache,
+        lengths, base [B], proposer state), meaningful on active rows
+        only.  The proposer is primed from the suffix alone; one that
+        does not ``supports_prefix`` raises.  Under ``accept="sample"``
+        the base token is drawn from the warped target logits at the last
+        valid row (``temperature``/``top_p`` may be per-row [B]
+        tensors) with noise from the engine's generator; otherwise it is
+        the argmax."""
+        if not self.proposer.supports_prefix:
+            raise ValueError(f"{type(self.proposer).__name__} cannot be "
+                             "primed from a prompt suffix")
+        B, T = tokens.shape
+        dev = tokens.device
+        causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
+        depths = torch.arange(T, dtype=torch.int32, device=dev)
+        hidden, spec_cache = self.model.decode(
+            params, self.cfg, cache, tokens, lengths, causal, depths,
+            use_kernel=self.use_kernel)
+        path = torch.arange(T, dtype=torch.int32,
+                            device=dev)[None].expand(B, T)
+        nv = torch.clamp(n_valid, 1, T).to(torch.int32)
+        cache, new_lengths = self.model.commit(self.cfg, spec_cache, lengths,
+                                               path, nv, active=active)
+        rows = torch.arange(B, device=dev)
+        h_last = hidden[rows, (nv - 1).long()]                    # [B, d]
+        logits = self.model.unembed(params, self.cfg, h_last)
+        if self.accept == "sample":
+            t, k, p = self._sampling_args(temperature, top_p)
+            base = S.sample(S.gumbel(tuple(logits.shape), self.generator),
+                            logits, t, k, p)
+        else:
+            base = torch.argmax(logits, dim=-1).to(torch.int32)
+        if state is None:
+            state = self.init_proposer_state(B, cache_max_len(cache))
+        state = self.proposer.prime(proposer_params, state, tokens,
+                                    new_lengths, nv, h_last, base)
+        return cache, new_lengths, base, state
+
     def spec_step(self, params, proposer_params, cache, lengths, base, state,
                   draws: Optional[Draws] = None, temperature=None,
-                  top_p=None):
+                  top_p=None, active=None, dtree=None):
         """One static speculative step: propose -> one target forward ->
         verify -> commit -> observe.  Returns (cache, lengths, verdict,
         state').  ``draws`` is the step's noise (None: ``self.draws``
         from the engine's generator); ``temperature``/``top_p`` override
         the engine's ``sampling`` and may be per-row [B] tensors.  A
         proposer that ``consumes_key`` draws its noise from the engine's
-        generator before the step's verify draws are made."""
-        dt = self.dtree
+        generator before the step's verify draws are made.  ``active``
+        [B] bool (optional) is the serving scheduler's masked commit: only
+        active slots advance their lengths.  ``dtree`` (optional) is a
+        member of ``step_dtrees()`` to step on instead of the proposer's
+        full topology; verification stays lossless."""
+        dt = self.dtree if dtree is None else dtree
         t, k, p = self._sampling_args(temperature, top_p)
         cand, q, state = self.proposer.propose(
             proposer_params, state, base, self.generator, t, k, p,
-            stochastic=self.accept == "sample")
+            stochastic=self.accept == "sample", dtree=dt)
         hidden, spec_cache = self.model.decode(
             params, self.cfg, cache, cand, lengths, dt.mask, dt.depths,
             use_kernel=self.use_kernel, deferred=self.deferred)
         if draws is None:
-            draws = self.draws(cand.shape[0])
+            draws = self.draws(cand.shape[0], dt)
         if self.cfg.verify_fusion:
-            verdict = self._verify_fused(params, cand, hidden, q, draws, t)
+            verdict = self._verify_fused(params, cand, hidden, q, draws, t,
+                                         dt)
         else:
             logits = self.model.unembed(params, self.cfg, hidden)  # [B,T,V]
-            verdict = self._verify(cand, logits, q, draws, t, k, p)
+            verdict = self._verify(cand, logits, q, draws, t, k, p, dt)
         cache, lengths = self.model.commit(self.cfg, spec_cache, lengths,
-                                           verdict.path_slots, verdict.acc)
+                                           verdict.path_slots, verdict.acc,
+                                           active=active)
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         h_last = hidden[rows, verdict.last_slot]                  # [B, d]
         state = self.proposer.observe(proposer_params, state, verdict,
                                       h_last, lengths)
         return cache, lengths, verdict, state
 
-    def _verify(self, cand, logits, q, draws, temperature, top_k, top_p):
-        """Acceptance-rule dispatch on ``accept``; every verifier returns
-        the same shapes."""
-        dt = self.dtree
+    def _verify(self, cand, logits, q, draws, temperature, top_k, top_p,
+                dt):
+        """Acceptance-rule dispatch on ``accept`` over the step's topology
+        ``dt``; every verifier returns the same shapes."""
         if self.accept == "typical":
             return V.typical_verify(cand, logits, dt, draws.g,
                                     temperature=self.temperature)
@@ -309,7 +385,8 @@ class SpecEngine:
                                         top_k=top_k, top_p=top_p)
         return V.greedy_verify(cand, logits, dt)
 
-    def _verify_fused(self, params, cand, hidden, q, draws, temperature):
+    def _verify_fused(self, params, cand, hidden, q, draws, temperature,
+                      dt):
         """Fused-epilogue acceptance: the ``unembed_verify_stats`` kernel
         streams the lm-head product over vocabulary tiles and hands back
         Verdict-sized statistics of the logits divided by ``tmax`` (ones
@@ -328,17 +405,17 @@ class SpecEngine:
         stats = V.VerifyStats(*KO.verify_stats(hidden, w, cand, tmax,
                                                layout))
         if self.accept != "sample":
-            return V.greedy_verify_stats(cand, stats, self.dtree)
+            return V.greedy_verify_stats(cand, stats, dt)
         rows = torch.arange(B, device=dev)
 
         def row_fn(idx):
             return self.model.unembed(params, self.cfg, hidden[rows, idx])
 
         if self.proposer.q_kind == "logits":
-            return V.sample_verify_chain_stats(cand, stats, q, self.dtree,
+            return V.sample_verify_chain_stats(cand, stats, q, dt,
                                                draws.u, draws.g, row_fn,
                                                temperature=temperature)
-        return V.sample_verify_tree_stats(cand, stats, q, self.dtree,
+        return V.sample_verify_tree_stats(cand, stats, q, dt,
                                           draws.u, draws.g, row_fn,
                                           temperature=temperature)
 

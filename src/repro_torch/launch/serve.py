@@ -1,41 +1,57 @@
-"""Static-batch speculative server for the port: Medusa tree decoding, or
-draft-model or n-gram chain speculation (``--proposer``), through the
-``flash_decode`` kernel, greedy or lossless sampled.
+"""Speculative serving on the port: the continuous-batching
+``SpecServer`` by default, or static batches with ``--static``; Medusa
+tree decoding, or draft-model or n-gram chain speculation
+(``--proposer``), through the port's kernels, greedy or lossless sampled.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --slots 4 \\
       --max-new 64 --max-len 2048 --min-prompt 64 --max-prompt 257 \\
-      [--proposer medusa|draft|ngram] [--gamma 4]
+      [--proposer medusa|draft|ngram] [--gamma 4] [--static]
 
-Counterpart of the reference launcher's static-batch path
-(``repro/launch/serve.py::serve_tp`` without tensor parallelism): seeded
-numpy prompts, each group of ``--slots`` requests answered by one
-``SpecEngine.generate``.  It serves openPangu-7B at full width on the card
-by default, or with ``--arch`` any dense decoder of the registry
-(granite-8b, qwen1.5-0.5b, qwen1.5-4b, gemma-2b) (random weights from
-``--seed``, in the config's bf16);
-``--reduced`` takes the reference's reduced CPU-test config and
+Counterpart of the reference launcher (``repro/launch/serve.py``).  By
+default it serves seeded numpy prompts through one ``SpecServer``
+(``serving/scheduler.py``): ``--slots`` decode slots, requests admitted
+as slots free up (``--admission batched|serial``), each request's own
+``max_new`` (drawn from ``--min-new`` .. ``--max-new``).  The reference
+server's flags select its mechanisms: ``--cache-layout paged`` serves
+from an allocator-managed block pool (``--n-blocks`` sizes it; default
+every slot's worst case), ``--prefix-cache`` shares prompt-prefix blocks
+(with copy-on-write at a partial block), ``--chunk-size`` prefills long
+prompts in pieces beside decode steps, ``--preemption`` allocates blocks
+optimistically and preempts on exhaustion, ``--adaptive-gamma`` picks
+the speculation depth each step from one of several captured step
+graphs, ``--families medusa,ngram,draft`` serves one
+``FamilySpecServer`` with a lane per proposer (requests round-robin), and
+``--replicas N`` a prefix-affinity ``ReplicaRouter`` over N servers.
+``--shared-prefix L`` prefixes every prompt with one of 4 seeded bases
+of L tokens (the prefix cache's traffic; with ``--replicas`` it defaults
+to two pages, as in the reference).  ``--static`` keeps the static-batch
+path: each group of ``--slots`` requests answered by one
+``SpecEngine.generate`` (the reference's ``serve_tp`` without tensor
+parallelism, which stays a later slice).
+
+It serves openPangu-7B at full width on the card by default, or with
+``--arch`` any dense decoder of the registry (granite-8b, qwen1.5-0.5b,
+qwen1.5-4b, gemma-2b) (random weights from ``--seed``, in the config's
+bf16); ``--reduced`` takes the reference's reduced CPU-test config and
 ``--device cpu`` the plain PyTorch versions of the kernels.  On the card
-the decode step is a CUDA graph, captured in the first group's second
-step and replayed for every later step and group (the engine keeps one
-cache per batch shape, so the graph's addresses hold); the capture's
-seconds are printed apart from the serving seconds.  Decode
-attention always goes through ``kernels.ops.tree_attention``: there is no
-switch that turns the kernel off.  ``--verify-fusion`` (the reference
-launcher's flag, off by default) verifies from the
-``unembed_verify_stats`` kernel's statistics and runs each layer's write
-side through the ``fused_qkv_rope_commit`` kernel.  ``--cache-dtype int8``
-and ``--cache-layout paged`` (with ``--page-size``) select the
-reference's other KV-cache layouts, under the same flags: an int8 cache
-with per-head-per-row f32 scales, and a block pool read through per-slot
-block tables (the identity table here; the serving scheduler's allocator
-is a later slice).  ``--accept sample`` verifies by lossless rejection
+every decode step is a CUDA graph, captured at its second run and
+replayed after it (one graph a speculation level for the server; the
+engine keeps one cache per batch shape, so the static path's graph
+replays for every group); the capture's seconds are printed apart from
+the serving seconds.  Decode attention always goes through
+``kernels.ops.tree_attention``: there is no switch that turns the kernel
+off.  ``--verify-fusion`` verifies from the ``unembed_verify_stats``
+kernel's statistics and runs each layer's write side through the
+``fused_qkv_rope_commit`` kernel.  ``--cache-dtype int8`` and
+``--cache-layout paged`` (with ``--page-size``) select the reference's
+other KV-cache layouts: an int8 cache with per-head-per-row f32 scales,
+and a block pool read through per-slot block tables (the identity table
+under ``--static``).  ``--accept sample`` verifies by lossless rejection
 sampling at ``--temperature`` (0, the default, is exact greedy) and
-``--top-p`` (the reference launcher's flags and defaults; ``--top-p``
-below 1 is refused with ``--verify-fusion``); the draws come from a
-generator seeded with ``--seed``.  ``--deferred`` serves through
-``SpecEngine(deferred=True)``: the decode step writes no tree row and
-commit is its only cache write (the unfused write side, as in the
-reference).  ``--proposer`` (the reference launcher's flag) picks the
+``--top-p`` (``--top-p`` below 1 is refused with ``--verify-fusion``);
+the draws come from a generator seeded with ``--seed``.  ``--deferred``
+serves through ``SpecEngine(deferred=True)``: the decode step writes no
+tree row and commit is its only cache write.  ``--proposer`` picks the
 draft policy: ``medusa`` (the default: Medusa heads seeded from the lm
 head), ``draft`` (a 2-layer sibling of the model as the draft model, its
 random weights drawn from ``--seed`` on the device) or ``ngram``
@@ -48,18 +64,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, SamplingParams
+from repro_torch.configs.base import (ModelConfig, SamplingParams,
+                                      SchedulerParams)
 from repro_torch.configs.registry import ALL_ARCHS, get_config
 from repro_torch.core import medusa as M
 from repro_torch.core.engine import SpecEngine, build_engine
 from repro_torch.core.proposers import DraftModelProposer
 from repro_torch.models.api import get_model
 from repro_torch.runtime import resolve_device
+from repro_torch.serving.router import ReplicaRouter
+from repro_torch.serving.scheduler import FamilySpecServer, SpecServer
 
 
 class Served(NamedTuple):
@@ -74,6 +93,9 @@ class Served(NamedTuple):
     seconds: float         # serving, the graphs' capture included
     tokens: int
     capture_s: float       # capturing and instantiating the step graphs
+    server: object = None  # the SpecServer / FamilySpecServer /
+                           # ReplicaRouter that answered (None: --static)
+    iterations: int = 0    # scheduler iterations (0: --static)
 
 
 def make_prompts(vocab: int, n: int, seed: int, lo: int, hi: int):
@@ -157,32 +179,99 @@ def serve_static(engine: SpecEngine, params, mp, prompts, slots: int,
     return results, seconds, tokens, engine.step_graphs.capture_s - capture0
 
 
+def serve_requests(srv, prompts, max_news, temperature: float,
+                   top_p: float, groups=None):
+    """Submit ``prompts`` (with their ``max_news``) to ``srv`` (a
+    ``SpecServer``, ``FamilySpecServer`` or ``ReplicaRouter``) and run it
+    until every request is resolved; ``groups`` (optional) names each
+    request's lane.  Returns (results, seconds, tokens, iterations): one
+    dict per request in submission order with its status, output, steps,
+    latency and time to first token (host clock, seconds from submission;
+    None where it never produced one)."""
+    dev = _device_of(srv)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rids = []
+    for r, (p, n) in enumerate(zip(prompts, max_news)):
+        kw = dict(max_new=int(n), temperature=temperature, top_p=top_p)
+        if groups is not None:
+            kw["group"] = groups[r]
+        rids.append(srv.submit(p, **kw))
+    iterations = srv.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = max(time.perf_counter() - t0, 1e-9)
+    results = []
+    for r, (rid, p, n) in enumerate(zip(rids, prompts, max_news)):
+        req = srv.result(rid)
+        done = req is not None and req.status == "done"
+        results.append({
+            "rid": r, "prompt_len": len(p), "max_new": int(n),
+            "status": "lost" if req is None else req.status,
+            "output": np.asarray(req.output if req is not None else [],
+                                 np.int32),
+            "steps": 0 if req is None else req.steps,
+            "preemptions": 0 if req is None else req.preemptions,
+            "latency_s": (req.finished_s - req.submitted_at) if done
+            and req.finished_s is not None else None,
+            "ttft_s": (req.first_token_s - req.submitted_at) if done
+            and req.first_token_s is not None else None})
+    tokens = sum(len(r["output"]) for r in results if r["status"] == "done")
+    return results, seconds, tokens, iterations
+
+
+def _lanes(srv) -> List[SpecServer]:
+    """The ``SpecServer``s behind a server, a family façade or a router."""
+    if isinstance(srv, FamilySpecServer):
+        return list(srv.groups.values())
+    if isinstance(srv, ReplicaRouter):
+        return list(srv.replicas.values())
+    return [srv]
+
+
+def _device_of(srv) -> torch.device:
+    return _lanes(srv)[0].device
+
+
 def main(argv=None, weights=None) -> Served:
     """Run the launcher on ``argv``.  ``weights``, if given, is a
     (params, proposer_params) pair for the configuration and proposer
     ``argv`` names, served in place of the random weights drawn from
     ``--seed`` (so one set of weights can be served under two settings
-    without building the model twice)."""
+    without building the model twice; with ``--families`` it gives the
+    backbone and the lane of ``--proposer``)."""
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
-        description="static-batch speculative serving on the PyTorch port")
+        description="continuous-batching (or --static) speculative serving "
+                    "on the PyTorch port")
     ap.add_argument("--arch", default="openpangu-7b", choices=ALL_ARCHS)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,
-                    help="requests per static batch")
+                    help="decode slots (--static: requests per batch)")
     ap.add_argument("--max-new", type=int, default=64)
+    ap.add_argument("--min-new", type=int, default=0,
+                    help="draw each request's max_new from "
+                         "[min-new, max-new]; 0 = every request max-new")
     ap.add_argument("--max-len", type=int, default=2048,
                     help="cache rows per slot")
     ap.add_argument("--min-prompt", type=int, default=4,
                     help="shortest prompt length drawn")
     ap.add_argument("--max-prompt", type=int, default=48,
                     help="prompt lengths are drawn below this")
+    ap.add_argument("--shared-prefix", type=int, default=-1,
+                    help="prefix every prompt with one of 4 seeded bases "
+                         "of this many tokens (-1: two pages with "
+                         "--replicas, else none)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the prompts, the random weights and the "
                          "sampling draws")
     ap.add_argument("--reduced", action="store_true",
                     help="the reference's reduced CPU-test config")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--static", action="store_true",
+                    help="static batches through SpecEngine.generate "
+                         "instead of the continuous-batching server")
     ap.add_argument("--verify-fusion", action="store_true",
                     help="fused unembed + acceptance statistics and fused "
                          "qkv + RoPE + cache write kernels")
@@ -195,6 +284,36 @@ def main(argv=None, weights=None) -> Served:
                          "global block pool with per-slot block tables")
     ap.add_argument("--page-size", type=int, default=64,
                     help="paged layout: logical rows per pool block")
+    ap.add_argument("--n-blocks", type=int, default=0,
+                    help="paged layout: physical pool blocks (trash block "
+                         "included); 0 = every slot's worst case")
+    ap.add_argument("--admission", default="batched",
+                    choices=("batched", "serial"),
+                    help="bucketed group prefill (default) or one prefill "
+                         "per request")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="reuse shared prompt-prefix blocks across requests "
+                         "(requires --cache-layout paged)")
+    ap.add_argument("--chunk-size", type=int, default=0,
+                    help="chunked prefill: admit long prompts in pieces of "
+                         "this many tokens beside decode steps; 0 = "
+                         "whole-prompt prefill")
+    ap.add_argument("--preemption", action="store_true",
+                    help="optimistic block allocation with preempt-and-"
+                         "requeue on pool exhaustion (requires "
+                         "--cache-layout paged)")
+    ap.add_argument("--adaptive-gamma", action="store_true",
+                    help="adapt the speculation depth each step from the "
+                         "acceptance EMA, among captured step graphs")
+    ap.add_argument("--families", default="",
+                    help="comma-separated proposer kinds (e.g. "
+                         "'medusa,ngram,draft'): one FamilySpecServer with "
+                         "a lane per kind, requests round-robin across "
+                         "lanes; --proposer names the lane --weights "
+                         "feeds")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="a prefix-affinity ReplicaRouter over this many "
+                         "server replicas; 0 = one server")
     ap.add_argument("--accept", default="greedy", choices=("greedy", "sample"),
                     help="verification mode: greedy argmax match or lossless "
                          "stochastic rejection sampling")
@@ -217,38 +336,165 @@ def main(argv=None, weights=None) -> Served:
                          "(medusa uses its static tree)")
     args = ap.parse_args(argv)
 
+    kinds = [k.strip() for k in args.families.split(",") if k.strip()]
+    server_only = (kinds or args.replicas or args.prefix_cache
+                   or args.chunk_size or args.preemption
+                   or args.adaptive_gamma or args.n_blocks
+                   or args.admission != "batched")
+    if args.static and server_only:
+        raise SystemExit("--static serves static batches; the scheduler's "
+                         "flags need the server")
+    if args.replicas and kinds:
+        raise SystemExit("--replicas routes across single-proposer "
+                         "replicas; it does not combine with --families")
+    for k in kinds:
+        if k not in ("medusa", "draft", "ngram"):
+            raise SystemExit(f"--families: unknown proposer {k!r}")
+
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.cache_dtype or args.cache_layout != "dense":
         cfg = dataclasses.replace(cfg, cache_dtype=args.cache_dtype,
                                   cache_layout=args.cache_layout,
                                   page_size=args.page_size)
-    engine = build_engine(
-        cfg, args.proposer, gamma=args.gamma, use_kernel=True, device=dev,
-        accept=args.accept,
-        sampling=SamplingParams(temperature=args.temperature,
-                                top_p=args.top_p),
-        verify_fusion=args.verify_fusion, seed=args.seed,
-        deferred=args.deferred)
+
+    def engine_for(kind):
+        return build_engine(
+            cfg, kind, gamma=args.gamma, use_kernel=True, device=dev,
+            accept=args.accept,
+            sampling=SamplingParams(temperature=args.temperature,
+                                    top_p=args.top_p),
+            verify_fusion=args.verify_fusion, seed=args.seed,
+            deferred=args.deferred)
+
+    # one engine per proposer the run serves (``--proposer`` first), and
+    # its weights: the backbone's draws are build_model's first, so every
+    # proposer serves the same target
+    engines = {k: engine_for(k)
+               for k in dict.fromkeys([args.proposer] + kinds)}
+    engine = engines[args.proposer]
+    pps = {}
     if weights is not None:
-        params, mp = weights
-    elif args.proposer == "medusa":
-        params, mp = build_model(cfg, args.seed, engine.dtree.K, dev)
+        params, pps[args.proposer] = weights
+    elif "medusa" in engines:
+        params, pps["medusa"] = build_model(cfg, args.seed,
+                                            engines["medusa"].dtree.K, dev)
     else:
-        # the backbone's first draws are build_model's: the same target
         params = get_model(cfg).init_params(
             torch.Generator(device=dev).manual_seed(args.seed), cfg,
             dtype=cfg.dtype)
-        mp = proposer_params(engine, args.seed)
+    for k, e in engines.items():
+        if k not in pps:
+            pps[k] = (build_model(cfg, args.seed, e.dtree.K, dev)[1]
+                      if k == "medusa" else proposer_params(e, args.seed))
+    mp = pps[args.proposer]
     prompts = make_prompts(cfg.vocab_size, args.requests, args.seed,
                            args.min_prompt, args.max_prompt)
-    results, seconds, tokens, capture_s = serve_static(
-        engine, params, mp, prompts, args.slots, args.max_new, args.max_len)
+    L = args.shared_prefix
+    if L < 0:
+        L = 2 * args.page_size if args.replicas else 0
+    if L:
+        rng = np.random.default_rng(args.seed + 3)
+        bases = [rng.integers(0, cfg.vocab_size, size=L).astype(np.int32)
+                 for _ in range(4)]
+        prompts = [np.concatenate([bases[r % 4], p])
+                   for r, p in enumerate(prompts)]
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
+
+    if args.static:
+        results, seconds, tokens, capture_s = serve_static(
+            engine, params, mp, prompts, args.slots, args.max_new,
+            args.max_len)
+        for r in results:
+            tps = len(r["output"]) / max(r["steps"], 1)
+            print(f"  req {r['rid']}: {r['status']} "
+                  f"prompt={r['prompt_len']} steps={r['steps']} "
+                  f"tokens/step={tps:.2f}")
+        # every answered request's tokens over its steps (its group's)
+        steps = sum(r["steps"] for r in results if r["status"] == "done")
+        print(f"{_describe(cfg, engine, args)}: {len(results)} requests, "
+              f"{tokens} tokens in {seconds:.3f}s ({tokens / seconds:.1f} "
+              f"tok/s on {where}; {capture_s:.3f}s of it capturing the step "
+              f"graph); {args.proposer} proposer: "
+              f"{tokens / max(steps, 1):.2f} tokens a step")
+        return Served(engine.cfg, engine, params, mp, prompts, results,
+                      seconds, tokens, capture_s)
+
+    sched = SchedulerParams(chunk_size=args.chunk_size,
+                            preemption=args.preemption,
+                            adaptive_gamma=args.adaptive_gamma)
+    n_blocks = args.n_blocks or None
+
+    def make_server(kind):
+        return SpecServer(engines[kind], params, pps[kind],
+                          batch_slots=args.slots, max_len=args.max_len,
+                          admission=args.admission, n_blocks=n_blocks,
+                          prefix_cache=args.prefix_cache, sched=sched)
+
+    if args.replicas:
+        srv = ReplicaRouter({f"r{i}": make_server(args.proposer)
+                             for i in range(args.replicas)},
+                            page_size=args.page_size)
+    elif kinds:
+        srv = FamilySpecServer({k: make_server(k) for k in kinds})
+    else:
+        srv = make_server(args.proposer)
+    rng = np.random.default_rng(args.seed + 5)
+    lo = args.min_new or args.max_new
+    max_news = [int(rng.integers(lo, args.max_new + 1)) for _ in prompts]
+    groups = [kinds[r % len(kinds)] for r in range(len(prompts))] \
+        if kinds else None
+    capture0 = sum(e.step_graphs.capture_s for e in engines.values())
+    results, seconds, tokens, iterations = serve_requests(
+        srv, prompts, max_news, args.temperature, args.top_p, groups)
+    capture_s = sum(e.step_graphs.capture_s
+                    for e in engines.values()) - capture0
     for r in results:
         tps = len(r["output"]) / max(r["steps"], 1)
         print(f"  req {r['rid']}: {r['status']} prompt={r['prompt_len']} "
-              f"steps={r['steps']} tokens/step={tps:.2f}")
+              f"max_new={r['max_new']} steps={r['steps']} "
+              f"tokens/step={tps:.2f}")
+    print(f"{_describe(cfg, engine, args)}: {len(results)} requests, "
+          f"{tokens} tokens in {seconds:.3f}s ({tokens / seconds:.1f} tok/s "
+          f"on {where}; {capture_s:.3f}s of it capturing step graphs); "
+          f"{iterations} scheduler iterations")
+    for lane in _lanes(srv):
+        st = lane.stats
+        gs = ", ".join(f"gamma{g}={n}" for g, n in
+                       sorted(st["gamma_steps"].items()))
+        line = (f"  {type(lane.engine.proposer).__name__}: "
+                f"{st['admitted']} admissions in {st['prefill_calls']} "
+                f"prefill calls, {st['steps']} decode steps ({gs}), "
+                f"{st['chunk_calls']} chunk calls")
+        if lane.paged:
+            line += (f"; paged: peak {st['peak_blocks']}/"
+                     f"{lane.n_blocks - 1} blocks, {st['deferred']} "
+                     f"deferred, {st['cached_tokens']} prompt tokens from "
+                     f"the prefix cache ({st['cow_copies']} CoW copies), "
+                     f"{st['preemptions']} preemptions "
+                     f"({st['resumed']} resumed), {st['grown_blocks']} "
+                     f"blocks grown, {st['reclaimed_blocks']} reclaimed")
+        print(line)
+    if args.replicas:
+        snap = srv.snapshot()
+        total = snap["affinity_hits"] + snap["affinity_misses"]
+        print(f"router: {snap['affinity_hits']}/{total} affinity hits, "
+              f"{snap['rebalances']} rebalances, {snap['requeues']} "
+              f"requeues; routed "
+              + ", ".join(f"{n}={c}" for n, c in snap["routed"].items()))
+    failed = [r["rid"] for r in results if r["status"] == "failed"]
+    if failed:
+        why = [f for lane in _lanes(srv) for f in lane.failures]
+        raise SystemExit(f"requests {failed} failed (refused at admission "
+                         f"as too long for the cache or the pool, or out of "
+                         f"retries); the step failures recovered from: "
+                         f"{why}")
+    return Served(engine.cfg, engine, params, mp, prompts, results, seconds,
+                  tokens, capture_s, srv, iterations)
+
+
+def _describe(cfg, engine, args) -> str:
+    """The configuration's one-line name for the summary."""
     fused = "" if args.proposer == "medusa" else \
         f", {args.proposer} proposer (gamma {args.gamma})"
     fused += " with verify fusion" if engine.cfg.verify_fusion else ""
@@ -262,15 +508,7 @@ def main(argv=None, weights=None) -> Served:
         layout = (f" ({cfg.resolved_cache_dtype} {cfg.cache_layout} cache"
                   + (f", page size {cfg.page_size}" if cfg.paged else "")
                   + ")")
-    # every answered request's tokens over its steps (its group's)
-    steps = sum(r["steps"] for r in results if r["status"] == "done")
-    print(f"{cfg.name}{fused}{layout}: {len(results)} requests, {tokens} "
-          f"tokens in {seconds:.3f}s ({tokens / seconds:.1f} tok/s on "
-          f"{where}; {capture_s:.3f}s of it capturing the step graph); "
-          f"{args.proposer} proposer: {tokens / max(steps, 1):.2f} tokens "
-          f"a step")
-    return Served(engine.cfg, engine, params, mp, prompts, results, seconds,
-                  tokens, capture_s)
+    return f"{cfg.name}{fused}{layout}"
 
 
 if __name__ == "__main__":

@@ -22,7 +22,13 @@ the sort of the nucleus and the rejection-sampling walk in place of the
 greedy rule, the fused kernel at per-row temperatures; then the greedy
 unfused and fused loop bodies of a deferred engine (``deferred=True``:
 no tree-row cache write, commit the only one; under fusion the unfused
-projection and RoPE in place of ``fused_qkv_rope_commit``).  Each kind warms
+projection and RoPE in place of ``fused_qkv_rope_commit``); then the
+serving scheduler's iteration (``SpecServer.step_once``: the captured
+serve step of all 4 slots with the masked commit and the on-device EOS
+and budget scan, its one sync read and the host's apply and reap; the
+kinds ``serve``, ``serve graph`` and ``serve-fused graph``) on a server
+of its own over the same weights, the 4 prompts admitted in its first
+iteration with budgets that outlast the trace.  Each kind warms
 up for two steps (a graph: its eager warm-up
 step, then its capture and first replay), then runs ``--steps`` steps
 timed and ``--steps`` under the profiler; the spec kinds end each step
@@ -67,6 +73,7 @@ from repro_torch.launch.serve import (build_model, make_prompts,
                                       proposer_params)
 from repro_torch.models import transformer
 from repro_torch.runtime import resolve_device, tree_map
+from repro_torch.serving.scheduler import SpecServer
 
 DECODE_RANGE, COMMIT_RANGE = "model.decode", "model.commit"
 
@@ -276,6 +283,17 @@ def main(argv=None):
             pos.update(lengths=c.lengths.clone(), base=c.tok.clone())
         return step, step, done
 
+    def serve(vf, graphs):
+        """A server of 4 slots on the engine; its first iteration admits
+        the 4 prompts and runs the eager warm-up step."""
+        e = engines[vf, graphs, "greedy", False]
+        srv = SpecServer(e, params, mp, batch_slots=4, max_len=2048)
+        for p in prompts:
+            srv.submit(p, max_new=1000, max_steps=10 ** 6)
+        srv.step_once()
+        graph = srv.step_graphs()[e.dtree.K]
+        return graph, srv.step_once, srv.release_all
+
     def timed(step):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -299,7 +317,10 @@ def main(argv=None):
              ("spec deferred graph", lambda: spec(False, True, deferred=True)),
              ("spec-fused deferred", lambda: spec(True, False, deferred=True)),
              ("spec-fused deferred graph",
-              lambda: spec(True, True, deferred=True)))
+              lambda: spec(True, True, deferred=True)),
+             ("serve", lambda: serve(False, False)),
+             ("serve graph", lambda: serve(False, True)),
+             ("serve-fused graph", lambda: serve(True, True)))
     only = set(filter(None, args.only.split(",")))
     if only - {name for name, _ in kinds}:
         ap.error(f"--only: no kind {sorted(only - {n for n, _ in kinds})}")

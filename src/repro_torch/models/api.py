@@ -14,9 +14,13 @@ def get_model(cfg: ModelConfig):
     return transformer
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, n_blocks=None,
+               device="cuda"):
     """Decode cache for ``batch`` slots of ``max_len`` tokens on ``device``
     (the card unless the caller asks for ``"cpu"``), honouring
     ``cfg.cache_dtype`` (int8 adds scale leaves) and ``cfg.cache_layout``
-    (the paged pool with the allocator-free identity table)."""
-    return get_model(cfg).init_cache(cfg, batch, max_len, device=device)
+    (``n_blocks`` sizes the paged pool, whose tables then start all-zero
+    for an allocator to fill; None means the allocator-free identity
+    table)."""
+    return get_model(cfg).init_cache(cfg, batch, max_len, device=device,
+                                     n_blocks=n_blocks)

@@ -494,13 +494,20 @@ def _commit_attn_entry(entry, lengths, path_slots, table=None):
         lengths, table=table)
 
 
-def commit(cfg: ModelConfig, spec_cache, lengths, path_slots, acc):
+def commit(cfg: ModelConfig, spec_cache, lengths, path_slots, acc,
+           active=None):
     """Zero-copy compaction: keep exactly the accepted prefix.
 
     path_slots [B, K+1]: tree-node slots of the best path (0..T-1); acc [B]
     in [1, K+1].  Writes the best path's KV rows at [len, len+K+1) in place
-    (rows past ``acc`` are dead and are overwritten later).  Returns
-    (cache, lengths + acc); the cache keeps ``_pages``.
+    (rows past ``acc`` are dead and are overwritten later).  ``active``
+    [B] bool (optional) is the serving scheduler's masked commit: rows of
+    inactive slots do not advance their lengths.  Their rows are still
+    written by the same launch (the reference's dead-write rule): a dense
+    slot's rows are replaced whole at its next admission, and a paged
+    slot that is inactive has a zeroed table row, so its rows land in
+    trash block 0.  Returns (cache, lengths + where(active, acc, 0)); the
+    cache keeps ``_pages``.
     """
     layers, pages = split_pages(spec_cache)
     table = None if pages is None else pages["table"]
@@ -508,4 +515,6 @@ def commit(cfg: ModelConfig, spec_cache, lengths, path_slots, acc):
                                         table=table)}
     if pages is not None:
         cache[PAGES_KEY] = pages
-    return cache, lengths + acc
+    adv = acc if active is None else torch.where(active, acc,
+                                                 torch.zeros_like(acc))
+    return cache, lengths + adv

@@ -239,6 +239,17 @@ class StepGraphs:
             held = self._kept[key] = (binding, make())
         return held[1]
 
+    def held(self, key):
+        """The (StepGraph, carry) pair kept under ``key``, or None."""
+        held = self._kept.get(key)
+        return None if held is None else held[1]
+
+    def drop(self, keys):
+        """Forget the pairs kept under ``keys`` (a server that captured its
+        steps here drops them with itself)."""
+        for key in keys:
+            self._kept.pop(key, None)
+
     def kept(self) -> list:
         """Every kept (StepGraph, carry) pair."""
         return [pair for _, pair in self._kept.values()]

@@ -311,8 +311,9 @@ def test_deferred_graph_counts_and_tokens(stack, stub_cuda, counters,
 
 
 def test_launcher_deferred_answers_as_the_launcher(capsys):
-    argv = ["--reduced", "--device", "cpu", "--requests", "3", "--slots",
-            "2", "--max-new", "8", "--max-len", "128", "--verify-fusion"]
+    argv = ["--static", "--reduced", "--device", "cpu", "--requests", "3",
+            "--slots", "2", "--max-new", "8", "--max-len", "128",
+            "--verify-fusion"]
     want = serve.main(argv)
     got = serve.main(argv + ["--deferred"])
     assert got.engine.deferred and "deferred write" in capsys.readouterr().out

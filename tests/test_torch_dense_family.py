@@ -456,8 +456,9 @@ def test_stats_plan_over_the_table(N, d, v, layout, want):
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma-2b"])
 def test_launcher_answers_on_the_cpu(capsys, arch, fused):
-    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--requests",
-            "3", "--slots", "2", "--max-new", "8", "--max-len", "128"]
+    argv = ["--static", "--arch", arch, "--reduced", "--device", "cpu",
+            "--requests", "3", "--slots", "2", "--max-new", "8",
+            "--max-len", "128"]
     srv = serve.main(argv + (["--verify-fusion"] if fused else []))
     assert [r["status"] for r in srv.results] == ["done"] * 3
     assert srv.tokens == 24 and srv.cfg.verify_fusion == fused

@@ -141,8 +141,9 @@ def test_build_engine_is_the_medusa_engine(stack):
 
 
 def test_launcher_answers_every_request(capsys):
-    srv = serve.main(["--reduced", "--device", "cpu", "--requests", "5",
-                      "--slots", "2", "--max-new", "8", "--max-len", "128"])
+    srv = serve.main(["--static", "--reduced", "--device", "cpu",
+                      "--requests", "5", "--slots", "2", "--max-new", "8",
+                      "--max-len", "128"])
     assert [r["status"] for r in srv.results] == ["done"] * 5
     assert all(len(r["output"]) == 8 for r in srv.results)
     assert srv.tokens == 40
@@ -157,7 +158,7 @@ def test_launcher_answers_every_request(capsys):
 
 
 def test_launcher_rejects_requests_that_do_not_fit():
-    srv = serve.main(["--reduced", "--device", "cpu", "--requests", "2",
-                      "--max-new", "8", "--max-len", "64"])
+    srv = serve.main(["--static", "--reduced", "--device", "cpu",
+                      "--requests", "2", "--max-new", "8", "--max-len", "64"])
     assert [r["status"] for r in srv.results] == ["rejected"] * 2
     assert srv.tokens == 0

@@ -323,8 +323,8 @@ def test_fused_spec_equals_unfused_ar_and_reference(stack, jax_fused,
 
 
 def test_launcher_verify_fusion_answers_every_request(capsys):
-    argv = ["--reduced", "--device", "cpu", "--requests", "5", "--slots",
-            "2", "--max-new", "8", "--max-len", "128"]
+    argv = ["--static", "--reduced", "--device", "cpu", "--requests", "5",
+            "--slots", "2", "--max-new", "8", "--max-len", "128"]
     fused = serve.main(argv + ["--verify-fusion"])
     assert fused.cfg.verify_fusion and fused.engine.cfg.verify_fusion
     assert [r["status"] for r in fused.results] == ["done"] * 5

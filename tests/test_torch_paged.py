@@ -528,8 +528,8 @@ def test_paged_fused_equals_dense_fused(stack):
 
 
 def test_launcher_int8_paged_answers_every_request(capsys):
-    argv = ["--reduced", "--device", "cpu", "--requests", "5", "--slots",
-            "2", "--max-new", "8", "--max-len", "128"]
+    argv = ["--static", "--reduced", "--device", "cpu", "--requests", "5",
+            "--slots", "2", "--max-new", "8", "--max-len", "128"]
     srv = serve.main(argv + ["--cache-dtype", "int8", "--cache-layout",
                              "paged", "--page-size", "16"])
     assert srv.cfg.resolved_cache_dtype == "int8" and srv.cfg.paged

@@ -647,9 +647,10 @@ def test_launcher_serves_each_proposer(kind, capsys):
     """``--proposer draft|ngram``: every request answered with the AR
     baseline's tokens, and the printout names the proposer and its
     tokens a step."""
-    srv = serve.main(["--reduced", "--device", "cpu", "--requests", "3",
-                      "--slots", "2", "--max-new", "8", "--max-len", "128",
-                      "--proposer", kind, "--gamma", "3"])
+    srv = serve.main(["--static", "--reduced", "--device", "cpu",
+                      "--requests", "3", "--slots", "2", "--max-new", "8",
+                      "--max-len", "128", "--proposer", kind, "--gamma",
+                      "3"])
     assert [r["status"] for r in srv.results] == ["done"] * 3
     assert srv.engine.dtree.K == 3
     assert (srv.proposer_params is None) == (kind == "ngram")

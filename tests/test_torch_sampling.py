@@ -616,8 +616,9 @@ def test_typical_engine_runs(stack):
 
 
 def test_launcher_sampled_temperature_zero_answers_as_greedy():
-    argv = ["--reduced", "--device", "cpu", "--requests", "2", "--slots",
-            "2", "--max-new", "8", "--min-prompt", "4", "--max-prompt", "12"]
+    argv = ["--static", "--reduced", "--device", "cpu", "--requests", "2",
+            "--slots", "2", "--max-new", "8", "--min-prompt", "4",
+            "--max-prompt", "12"]
     greedy = serve.main(argv)
     zero = serve.main(argv + ["--accept", "sample", "--temperature", "0"])
     hot = serve.main(argv + ["--accept", "sample", "--temperature", "0.7"],
