@@ -23,7 +23,10 @@ non-zero exit:
    also at the dense family's new shapes (``FAMILY_K1``: gemma-2b's one
    kv head, D 256, R 512 / 8; qwen1.5-0.5b's 16 kv heads, D 64, R 64 / 8)
    and at the chain proposers' verify step (T 5 folded to R 24 over 2048
-   rows: the "split" route), dense, int8, paged and int8 + paged;
+   rows: the "split" route), dense, int8, paged and int8 + paged; and at
+   the MoE and VLM families' folds (``MOE_VLM_K1``: internvl2-26b's GQA
+   group of 6, R 384 / 24 at D 128; granite-moe-1b-a400m's group of 2,
+   R 128 / 8 at D 64), every variant;
 3. hold the verify-fusion kernels against their plain versions on the
    card, f32 and bf16: ``unembed_verify_stats`` (K2) at the spec step's
    shape (B 4, T 64, d 4096, V 153376, which is not a multiple of the
@@ -63,7 +66,15 @@ non-zero exit:
    routes, at tmax 1 and at ``TMAX_ROWS``; K3 at gemma-2b's head_dim 256
    (8 + 1 + 1 heads), dense and paged, T 64 and T 1, with and without
    biases, both routes, dense == paged bitwise; K3 at qwen1.5-0.5b's and
-   qwen1.5-4b's widths with biases;
+   qwen1.5-4b's widths with biases; K2 over the MoE and VLM families'
+   heads (granite-moe d 1024 x V 49155 and internvl2 d 6144 x V 92553,
+   whose unaligned rows take the tile route, asserted; phi3.5-moe d 4096
+   x V 32064, wgmma in bf16), f32 and bf16 (a row whose top logit the
+   two products round to neighbouring bf16 steps has m one step apart,
+   and its l is then held to the sum-exp of the plain logits against the
+   kernel's m); K3 at internvl2's and granite-moe's widths, spec and AR,
+   dense and paged; the one-launch commit over granite-moe's 24 units of
+   [8, 64] (dense, paged, int8 paged) and internvl2's 48 of [8, 128];
 4. float32 openPangu-7B at full width, 2 layers: speculative ``generate``
    == ``ar_generate`` token for token, dense, with verify fusion, paged,
    paged with verify fusion, int8, int8 paged and int8 with verify fusion
@@ -112,6 +123,12 @@ non-zero exit:
    token through the captured steps, unfused and fused, launches exact;
    for qwen1.5-0.5b and gemma-2b also on the int8, paged and int8 + paged
    caches (fp layouts give the dense tokens, int8 ones the int8 tokens);
+4m. the MoE and VLM families (``MOE_VLM``: granite-moe-1b-a400m,
+   phi3.5-moe-42b-a6.6b, internvl2-26b) in float32 at full width, 2
+   layers, at the no-drop capacity factor E / K (``no_drop``): spec == AR
+   token for token through the captured steps, unfused and fused,
+   launches exact, K1 on its routes; granite-moe also on int8 + paged;
+   internvl2 with a 256-row frontend prefix ahead of every prompt;
 5. the launcher (``repro_torch.launch.serve.main``) serves 8 requests on
    bf16 openPangu-7B at full width and depth through the captured step
    (one eager warm-up step, then replays of one graph for both groups,
@@ -221,6 +238,24 @@ non-zero exit:
    scheduler iterations, host ms an iteration outside the step, the
    replayed step's device ms (CUDA events around each replay), capture
    seconds by level, the stats, and phase 5's static tok/s beside them;
+14. (run after 9) the MoE and VLM families in bf16 at full width:
+   granite-moe-1b-a400m at full depth through the launcher at the no-drop
+   capacity factor (``--static`` unfused and fused, and the server's 16
+   requests unfused and fused; launches exact, K2 on the tile route),
+   every answer held to ``ar_generate`` under ``near_tie``, then the same
+   four runs at the config's 1.25, reported and not held: answers equal
+   to AR, the share of (token, expert) assignments dropped per step
+   shape (``DropMeter``, counted on the card inside the graphs), tok/s,
+   accepted length; internvl2-26b at full depth (~40 GB) through
+   ``SpecEngine.generate`` with a 256-row prefix per request, unfused and
+   fused, held to AR, and through the launcher with text only, fused;
+   phi3.5-moe-42b-a6.6b at ``PHI_LAYERS`` (16) of its 32 layers (all 32
+   do not fit one card) through ``build_engine``: no drop unfused and
+   fused, held to AR, and 1.25 fused, reported.  A MoE's divergence from
+   AR logs ``router_gap``, the f32 router's smallest top-K gap over the
+   layers at the parting token; 11 (iv), after it: 8 ``lm_train_step``s
+   of granite-moe at full width and depth on 8 x 512 (the loss falls, the
+   aux loss finite and > 0);
 8. time every kernel and variant, its plain version, and one PyTorch call
    as a yardstick the port never calls where one computes the same
    function (``scaled_dot_product_attention`` for K1, its backend pinned
@@ -246,13 +281,18 @@ non-zero exit:
    its head_dim 256 (with the plan's block count and shared memory); and
    the chain proposers' verify step (rows named ``@chain``): K1 at R 24
    (dense, int8, paged; the draft's R 8 beside it), K2 at N 20, K3 at
-   M 20 (the draft's T 1 beside it), their launches from phase 12.
+   M 20 (the draft's T 1 beside it), their launches from phase 12; and
+   the MoE and VLM families' shapes (rows named ``@<arch>``): K1 at their
+   folds, K2 over their heads (the tile route at granite-moe's and
+   internvl2's vocabularies), K3 at their widths, the commit over their
+   units, their launches from phase 14's fused no-drop runs.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -304,6 +344,29 @@ CHAIN_R = 24
 # the serving scheduler's suffix_prefill (prefix-cache admission, chunked
 # prefill): a causal block of a prompt bucket's T rows
 SUFFIX_T = (128, 512)
+# the MoE and VLM families; phi3.5-moe serves in bf16 at 16 of its 32
+# layers (~43 GB with the heads: all 32, ~84 GB, do not fit the card)
+MOE_VLM = ["granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b", "internvl2-26b"]
+PHI_LAYERS = 16
+# K1 at their new folds (name, Hkv, D, (spec R, AR R)): internvl2's GQA
+# group of 6 folds T 64 into R 384 and the AR step's one row, padded to 4
+# (6 x 4 = 24, the first multiple of 8), into R 24; granite-moe's group of
+# 2 at head_dim 64 gives R 128 and R 8 (phi3.5-moe's G 4, D 128 is
+# openPangu-7B's fold)
+MOE_VLM_K1 = [("internvl2-26b", 8, 128, (384, 24)),
+              ("granite-moe-1b-a400m", 8, 64, (128, 8))]
+
+
+def no_drop(cfg):
+    """``cfg`` at the least capacity factor that drops nothing, E / K: the
+    capacity C then covers a whole group (the reference's equivalence
+    test raises it to 8.0 for the same reason: a token dropped in the
+    verify forward but not in AR changes the logits).  A config without
+    experts is returned as it is."""
+    if not cfg.num_experts:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.experts_per_tok)
 
 
 def log(msg: str):
@@ -475,10 +538,21 @@ def k1_routes(cfg, B, S, steps, ar_steps=0, T=64, proposer=None):
     return want
 
 
-def check_routes(label, counts, k1_want=None):
+def stats_route(cfg) -> str:
+    """The route ``stats_plan`` gives K2 over ``cfg``'s bf16 unembedding
+    weight: ``tile`` for an untied [d, V] head whose V is not a multiple
+    of 8 (TMA reads rows of multiples of 16 bytes), else ``wgmma``."""
+    from repro_torch.kernels.tree_attention import stats_plan
+
+    return stats_plan(256, cfg.d_model, cfg.vocab_size, torch.bfloat16,
+                      layout="vd" if cfg.tie_embeddings else "dv")[0]
+
+
+def check_routes(label, counts, k1_want=None, k2_route="wgmma"):
     """K1's launches took the routes ``decode_plan`` gives the run
-    (``k1_want``, from ``k1_routes``); with ``counts`` given, every K2 and
-    K3 launch of a bf16 main-path run took the wgmma route."""
+    (``k1_want``, from ``k1_routes``); with ``counts`` given, every K3
+    launch of a bf16 main-path run took the wgmma route and every K2
+    launch ``k2_route`` (``stats_route`` of the served config)."""
     routes = read_routes()
     log(f"  routes {routes}")
     if k1_want is not None and routes["K1"] != k1_want:
@@ -486,11 +560,11 @@ def check_routes(label, counts, k1_want=None):
              f"{k1_want}")
     if counts is None:
         return
-    for k in ("K2", "K3"):
+    for k, want in (("K2", k2_route), ("K3", "wgmma")):
         by = routes[k]
-        if by["tile"] or by["wgmma"] != counts[k]:
+        if by[want] != counts[k] or sum(by.values()) != counts[k]:
             fail(f"{label}: {k} launches by route {by}, expected all "
-                 f"{counts[k]} on the wgmma route")
+                 f"{counts[k]} on the {want} route")
 
 
 def read_counts():
@@ -649,7 +723,7 @@ def phase_kernels(dev):
         # the dense family's shapes: gemma-2b (one kv head, D 256, 8 q heads
         # a kv head: R 512 / 8) and qwen1.5-0.5b (16 kv heads, D 64, R 64 /
         # 8, the AR step's one row padded to 8)
-        for name, Hkv, D, rows in FAMILY_K1:
+        for name, Hkv, D, rows in FAMILY_K1 + MOE_VLM_K1:
             for R in rows:
                 folded_case(f"{name} R={R}", 4, 2048, Hkv, R, D, dt, ragged,
                             key=name if R == rows[0] else None)
@@ -795,11 +869,16 @@ def phase_kernel_variants(dev):
                 variant_case(*args, quantized, ps, 4 + ps)
         # the dense family's shapes, every variant: int8, paged (page size
         # 64) and int8 + paged (16), an idle slot on the pools
-        for name, Hkv, D, rows in FAMILY_K1:
+        for name, Hkv, D, rows in FAMILY_K1 + MOE_VLM_K1:
             for R in rows:
                 args = (dev, f"{name} R={R}", 4, 2048, Hkv, R, D, dt)
-                variant_case(*args, [1, 517, 1300, 2048], True, 0, R)
-                variant_case(*args, [0, 517, 1300, 2048], False, 64, R + 1)
+                err = variant_case(*args, [1, 517, 1300, 2048], True, 0, R)
+                if dt == torch.bfloat16 and R == rows[0]:
+                    main[f"{name} int8"] = err
+                err = variant_case(*args, [0, 517, 1300, 2048], False, 64,
+                                   R + 1)
+                if dt == torch.bfloat16 and R == rows[0]:
+                    main[f"{name} paged"] = err
                 variant_case(*args, [0, 517, 1300, 2048], True, 16, R + 2)
     return main
 
@@ -875,8 +954,19 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False, tmax=None,
     # the logits' own units (times tmax), where the tmax 1 tolerance holds
     # (divided by 1e-6, a logit's f32 rounding grows a millionfold)
     t2, t3 = tmax[:, None], tmax[:, None, None]
+    # l is the sum of exp(logit - m) against the kernel's own m.  Where
+    # the two products round a row's top logit to neighbouring bf16 steps
+    # (m one step apart, which the m check allows), the kernel's l is the
+    # sum against its own m, e^(-step) times the plain version's when many
+    # logits share the mass (3.2 % at logits in [4, 8)).  So each row's l
+    # is held to the plain version's l, or to the sum-exp of the plain
+    # logits taken against the kernel's m: the value the kernel computes
+    # by definition; with the two m equal the two agree
+    logits = torch.matmul(h, w).float() / tmax[:, None, None]
+    l_own = torch.exp(logits - m[..., None]).sum(-1)
+    l_err = torch.minimum((l / rl - 1).abs(), (l / l_own - 1).abs())
     err = max(scaled_err(m * t2, rm * t2), scaled_err(cw * t3, rcw * t3),
-              (l / rl - 1).abs().max().item())
+              l_err.max().item())
     abs_err = max((m - rm).abs().max().item(), (cw - rcw).abs().max().item())
     differ = (argm != rargm).nonzero().tolist()
     worst = 0.0
@@ -887,7 +977,6 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False, tmax=None,
         # bf16: the two products may round a logit to a neighbouring step;
         # the plain logit at the kernel's argm must lie within one bf16
         # step of the plain max (both divided by the row's tmax)
-        logits = torch.matmul(h, w).float() / tmax[:, None, None]
         for b, t in differ:
             gap = (rm[b, t] - logits[b, t, argm[b, t]]).item()
             worst = max(worst, gap / bf16_step(rm[b, t].item()))
@@ -904,7 +993,8 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False, tmax=None,
             f"the call)" if table else "")
     log(f"  unembed_verify_stats {name}: B={B} T={T} d={d} V={V} {dt}{at}"
         f"{over}, {route} route: "
-        f"max err {err:.3e} (tol {tol}; abs {abs_err:.3e}); argm differs in "
+        f"max err {err:.3e} (tol {tol}; abs {abs_err:.3e}); m differs in "
+        f"{int((m != rm).sum())} rows; argm differs in "
         f"{len(differ)} of {B * T} rows (largest gap {worst:.2f} bf16 steps)")
     if not err < tol:
         fail(f"unembed_verify_stats {name} disagrees with its plain version: "
@@ -1189,6 +1279,29 @@ def phase_fusion_kernels(dev):
                          bias=True)
             qkv_case(dev, qcfg, f"{arch} spec, biases", 64, dt, ragged,
                      bias=True, ps=64)
+    # the MoE and VLM families: K2 over each lm head at the spec step
+    # (granite-moe's V 49155 and internvl2's 92553 are not multiples of 8,
+    # so their rows take the tile route, asserted; phi3.5-moe's 32064
+    # takes wgmma in bf16); K3 at internvl2's (d 6144, 48 + 8 + 8 heads)
+    # and granite-moe's (d 1024, 16 + 8 + 8 heads of 64) widths, spec and
+    # AR, dense and paged (phi3.5-moe's are openPangu-7B's)
+    ragged = [1, 517, 1300, 1984]
+    for arch in MOE_VLM:
+        mcfg = get_config(arch)
+        for dt in (torch.float32, torch.bfloat16):
+            err = stats_case(dev, arch, 4, 64, mcfg.d_model,
+                             mcfg.vocab_size, dt)
+            if dt == torch.bfloat16:
+                errs[f"K2 {arch}"] = err
+            if arch == "phi3.5-moe-42b-a6.6b":
+                continue
+            err = qkv_case(dev, mcfg, f"{arch} spec", 64, dt, ragged)
+            if dt == torch.bfloat16:
+                errs[f"K3 {arch}"] = err
+            qkv_case(dev, mcfg, f"{arch} AR", 1, dt, ragged)
+            qkv_case(dev, mcfg, f"{arch} spec", 64, dt, ragged, ps=64)
+            qkv_case(dev, mcfg, f"{arch} AR", 1, dt, ragged, ps=16)
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1319,6 +1432,18 @@ def phase_commit_kernels(dev):
     path_case(dev, "qwen1.5-0.5b int8", 24, 16, 64, bf, True, S=512)
     path_case(dev, "qwen1.5-4b paged", 40, 20, 128, bf, ps=64, S=512)
     path_case(dev, "qwen1.5-4b int8", 40, 20, 128, bf, True, S=512)
+    # the MoE and VLM families: granite-moe's 24 units of [8, 64],
+    # internvl2's 48 of [8, 128] (phi3.5-moe's 16 served layers of [8,
+    # 128] are a subset of openPangu-7B's 34)
+    errs["granite-moe-1b-a400m"] = path_case(
+        dev, "granite-moe-1b-a400m", 24, 8, 64, bf, S=512)
+    path_case(dev, "granite-moe-1b-a400m paged", 24, 8, 64, bf, ps=64,
+              S=512)
+    path_case(dev, "granite-moe-1b-a400m int8 paged", 24, 8, 64, bf, True,
+              ps=16, S=512)
+    errs["internvl2-26b"] = path_case(dev, "internvl2-26b", 48, 8, 128, bf,
+                                      S=512)
+    path_case(dev, "internvl2-26b paged", 48, 8, 128, bf, ps=64, S=512)
     return errs
 
 
@@ -1919,17 +2044,9 @@ def phase_family_serve(dev):
             del zero
 
         def summary(run):
-            steps = sum(run.results[g]["steps"]
-                        for g in range(0, REQUESTS, SLOTS))
-            acc = (sum(r["accepted"] for r in run.results)
-                   / sum(r["steps"] for r in run.results))
             wall, dev_ms = step_times(run.engine)
-            return (f"{run.tokens / run.seconds:.1f} tok/s "
-                    f"({run.tokens / (run.seconds - run.capture_s):.1f} "
-                    f"without the capture), {steps} steps, mean accepted "
-                    f"{acc:.3f}, capture {run.capture_s:.3f}s, replayed step "
-                    f"wall {wall:.3f} ms, device {dev_ms:.3f} ms (idle "
-                    f"{1 - dev_ms / wall:.3f})")
+            return (f"{run_summary(run)}, replayed step wall {wall:.3f} ms, "
+                    f"device {dev_ms:.3f} ms (idle {1 - dev_ms / wall:.3f})")
         log(f"  {arch}: unfused {summary(srv)}; fused {summary(fsrv)}; "
             f"{same_answers(fsrv, srv)} of {REQUESTS} fused answers equal to "
             f"unfused; peak memory "
@@ -1938,6 +2055,448 @@ def phase_family_serve(dev):
         del srv, fsrv, weights
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 4m and 14: the MoE and VLM families
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def served_config(fn):
+    """The launcher serves ``fn(config)`` for every ``--arch``
+    (``serve.get_config`` patched): how its MoE runs take the no-drop
+    capacity factor, for which the launcher has no flag (the reference's
+    has none either)."""
+    from repro_torch.launch import serve
+
+    real = serve.get_config
+    serve.get_config = lambda arch, reduced=False: fn(real(arch, reduced))
+    try:
+        yield
+    finally:
+        serve.get_config = real
+
+
+class DropMeter:
+    """The share of (token, expert) assignments the MoE drops, counted on
+    the card inside the captured steps: while entered, ``layers.moe_route``
+    is wrapped so each call adds its kept assignments (the dispatch mask's
+    sum) and its offered ones (tokens x K, padding rows included, as the
+    capacity counts them) to two device counters kept per group shape
+    (G, s).  The adds are kernels of their own, captured with the step and
+    replayed with it; nothing is read until ``line``."""
+
+    def __init__(self):
+        self.kept, self.offered = {}, {}
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.layers, self.real = L, L.moe_route
+
+        def route(p, xg, cfg):
+            out = self.real(p, xg, cfg)
+            key = tuple(xg.shape[:2])
+            if key not in self.kept:
+                self.kept[key] = torch.zeros((), dtype=torch.float64,
+                                             device=xg.device)
+                self.offered[key] = torch.zeros_like(self.kept[key])
+            self.kept[key].add_(out[0].sum(dtype=torch.float32))
+            self.offered[key].add_(xg.shape[0] * xg.shape[1]
+                                   * cfg.experts_per_tok)
+            return out
+
+        L.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.real
+
+    def share(self, key) -> float:
+        return 1 - float(self.kept[key]) / float(self.offered[key])
+
+    def line(self) -> str:
+        return "; ".join(
+            f"groups {g} x {s} tokens: {self.share((g, s)):.4f} of "
+            f"{float(self.offered[g, s]):.0f} assignments dropped"
+            for g, s in sorted(self.kept, key=lambda k: -k[0] * k[1]))
+
+
+def router_gap(cfg, params, tok, plen, prefix, extra) -> str:
+    """At a MoE answer's first divergence from AR: the f32 router's
+    smallest gap between its K-th and (K+1)-th expert logit over the
+    layers, at the token whose logits the two paths part on (the last of
+    the prompt and ``prefix``, the answer's tokens both paths share),
+    from a bf16 prefill of that sequence (``tok`` [1, S] right-padded,
+    ``plen`` [1] counting ``extra``'s prefix rows).  A gap near the
+    rounding of bf16 hidden states is a routing flip's witness: the spec
+    and AR steps may route that token apart."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TT
+
+    dev = tok.device
+    n = int(plen[0]) - (0 if extra is None else extra.shape[1])
+    seq = torch.cat([tok[0, :n], prefix.to(dev, tok.dtype)])[None]
+    lens = plen + len(prefix)
+    seen = []
+    real = L.moe_route
+
+    def route(p, xg, c):
+        out = real(p, xg, c)
+        seen.append(out[2].reshape(-1, out[2].shape[-1]))
+        return out
+
+    dense = dataclasses.replace(cfg, cache_dtype="", cache_layout="dense")
+    L.moe_route = route
+    try:
+        TT.prefill(params, dense, seq, lens,
+                   TT.init_cache(dense, 1, -(-int(lens[0]) // 64) * 64,
+                                 device=dev), extra_embeds=extra)
+    finally:
+        L.moe_route = real
+    K, at = cfg.experts_per_tok, int(lens[0]) - 1
+    gaps = [float(t[0] - t[1]) for t in
+            (torch.topk(rl[at], K + 1).values[K - 1:] for rl in seen)]
+    layer = int(np.argmin(gaps))
+    return (f"; the f32 router's smallest top-{K} gap at the parting token "
+            f"{gaps[layer]:.6f} (layer {layer}; median over layers "
+            f"{float(np.median(gaps)):.4f})")
+
+
+def phase_moe_vlm_f32(dev):
+    """Phase 4m: granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b and
+    internvl2-26b in float32 at full width, 2 layers, at the no-drop
+    capacity factor (``no_drop``): speculative ``generate`` ==
+    ``ar_generate`` token for token through the captured steps, unfused
+    and with verify fusion, every kernel launched exactly as
+    ``expected_counts`` says and K1 on the routes ``decode_plan`` gives;
+    granite-moe also on the int8 + paged cache; internvl2 with its
+    256-row frontend prefix (``frontend_embeds``) ahead of every prompt,
+    in a 1024-row cache."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import ar_generate, build_engine
+    from repro_torch.launch.serve import build_model, make_prompts
+    from repro_torch.models.frontends import frontend_embeds
+
+    max_new = 32
+    for arch in MOE_VLM:
+        base = dataclasses.replace(no_drop(get_config(arch)), num_layers=2,
+                                   dtype="float32", param_dtype="float32",
+                                   name=f"{arch}-2layer-f32")
+        params, mp = build_model(base, 1, 4, dev)
+        prompts = make_prompts(base.vocab_size, 4, 1, 16, 129)
+        tok, plen = (torch.from_numpy(a).to(dev)
+                     for a in padded_batch(prompts, range(4)))
+        extra, max_len = None, 512
+        if base.frontend:
+            extra = frontend_embeds(base, 4,
+                                    torch.Generator(device=dev).manual_seed(2))
+            plen, max_len = plen + base.frontend_len, 1024
+        layouts = [("dense", {})]
+        if arch == "granite-moe-1b-a400m":
+            layouts.append(("int8+paged", dict(cache_dtype="int8",
+                                               cache_layout="paged",
+                                               page_size=16)))
+        for name, kw in layouts:
+            for vf in (False, True):
+                cfg = dataclasses.replace(base, **kw)
+                label = f"{arch} {name}" + (", verify fusion" if vf else "")
+                eng = build_engine(cfg, "medusa", use_kernel=True,
+                                   device=dev, verify_fusion=vf)
+                reset_counts()
+                sp, _, st = eng.generate(params, mp, tok, plen,
+                                         eng.init_cache(4, max_len), max_new,
+                                         extra_embeds=extra)
+                ar, _ = ar_generate(eng.cfg, params, tok, plen,
+                                    eng.init_cache(4, max_len), max_new,
+                                    use_kernel=True, graphs=eng.step_graphs,
+                                    extra_embeds=extra)
+                counts = read_counts()
+                want = expected_counts(eng.cfg, st.steps, max_new)
+                if counts != want:
+                    fail(f"f32 {label}: launches {counts}, expected {want}")
+                ps = cfg.page_size if cfg.paged else 1
+                check_routes(f"f32 {label}", None,
+                             k1_routes(eng.cfg, 4, -(-max_len // ps) * ps,
+                                       st.steps, max_new, T=eng.tb.T))
+                replays = [(k, g.replays) for k, g in kept_graphs(eng)]
+                sp, ar = sp.cpu(), ar.cpu()
+                if not torch.equal(sp, ar):
+                    fail(f"float32 {label}: spec != AR:\nspec {sp.tolist()}"
+                         f"\nAR   {ar.tolist()}")
+                mean_acc = st.accepted_sum.item() / (st.steps * 4)
+                prefix = (f", a {base.frontend_len}-row prefix"
+                          if extra is not None else "")
+                log(f"  f32 {label} (full width, 2 layers, capacity factor "
+                    f"{cfg.capacity_factor}{prefix}): graph spec == graph "
+                    f"AR for 4 x {max_new} tokens; {st.steps} spec steps "
+                    f"(mean accepted {mean_acc:.3f}); graph replays "
+                    f"{replays}; launches {counts} (exact)")
+                del eng
+        del params, mp
+        torch.cuda.empty_cache()
+
+
+def serve_prefix(engine, params, mp, prompts, extras):
+    """``serve.serve_static`` with a frontend prefix: the groups of
+    ``SLOTS`` requests through ``engine.generate``, group g's prompts after
+    ``extras[g]`` [SLOTS, F, fd] (the lengths count its F rows).  Returns
+    the launcher's ``Served``."""
+    from repro_torch.launch.serve import Served
+
+    F = extras[0].shape[1]
+    results = []
+    torch.cuda.synchronize()
+    capture0 = engine.step_graphs.capture_s
+    t0 = time.perf_counter()
+    for g in range(0, REQUESTS, SLOTS):
+        rows = list(range(g, g + SLOTS))
+        tok, plen = padded_batch(prompts, rows)
+        out, n_out, stats = engine.generate(
+            params, mp, torch.from_numpy(tok).to(engine.device),
+            torch.from_numpy(plen + F).to(engine.device),
+            engine.init_cache(SLOTS, MAX_LEN), MAX_NEW,
+            extra_embeds=extras[g // SLOTS])
+        out, n_out = out.cpu().numpy(), n_out.cpu().numpy()
+        acc = stats.accepted_per_slot.cpu().numpy()
+        for j, i in enumerate(rows):
+            results.append({"rid": i, "prompt_len": len(prompts[i]),
+                            "status": "done", "output": out[j, :n_out[j]],
+                            "steps": stats.steps, "accepted": int(acc[j])})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tokens = sum(len(r["output"]) for r in results)
+    return Served(engine.cfg, engine, params, mp, prompts, results, seconds,
+                  tokens, engine.step_graphs.capture_s - capture0)
+
+
+def static_counted(engine, params, mp, prompts, extras=None):
+    """``serve_static`` (or ``serve_prefix`` with ``extras``) on an engine
+    built here, with the counts set to 0 just before it and read just
+    after, checked as ``serve_counted`` checks the launcher's."""
+    from repro_torch.launch.serve import Served, serve_static
+
+    reset_counts()
+    if extras is None:
+        res = serve_static(engine, params, mp, prompts, SLOTS, MAX_NEW,
+                           MAX_LEN)
+        srv = Served(engine.cfg, engine, params, mp, prompts, *res)
+    else:
+        srv = serve_prefix(engine, params, mp, prompts, extras)
+    counts = read_counts()
+    check_served(srv, counts)
+    steps = sum(srv.results[g]["steps"] for g in range(0, REQUESTS, SLOTS))
+    check_routes(srv.cfg.name, counts if srv.cfg.verify_fusion else None,
+                 k1_routes(srv.cfg, SLOTS, MAX_LEN, steps, T=engine.tb.T),
+                 stats_route(srv.cfg))
+    return srv, counts
+
+
+def run_summary(run) -> str:
+    """tokens/s, steps, mean accepted length and capture seconds of a
+    static run."""
+    steps = sum(run.results[g]["steps"] for g in range(0, REQUESTS, SLOTS))
+    acc = (sum(r["accepted"] for r in run.results)
+           / sum(r["steps"] for r in run.results))
+    return (f"{run.tokens / run.seconds:.1f} tok/s "
+            f"({run.tokens / (run.seconds - run.capture_s):.1f} without the "
+            f"capture), {steps} steps, mean accepted {acc:.3f}, capture "
+            f"{run.capture_s:.3f}s")
+
+
+def server_counted(argv, weights):
+    """One launcher run through the continuous-batching server (16
+    requests, max_new 16..64, 4 slots) with the counts set to 0 just
+    before it and read just after: every request finished, launches
+    exact (``serve_expected``), one graph per level."""
+    from repro_torch.launch import serve
+
+    reset_counts()
+    served = serve.main(argv + ["--requests", "16", "--slots", str(SLOTS),
+                                "--max-len", str(MAX_LEN), "--min-new", "16",
+                                "--max-new", str(MAX_NEW), "--min-prompt",
+                                "64", "--max-prompt", "257", "--seed",
+                                str(SEED)], weights=weights)
+    counts = read_counts()
+    want = serve_expected(served.server)
+    label = " ".join(argv)
+    if counts != want:
+        fail(f"server {label}: launches {counts}, expected {want}")
+    caps = check_server_graphs(f"server {label}", served.server)
+    if any(r["status"] != "done" or len(r["output"]) != r["max_new"]
+           for r in served.results):
+        fail(f"server {label}: not every request finished")
+    log(f"  server {label}: {served.tokens} tokens in {served.seconds:.3f}s "
+        f"= {served.tokens / served.seconds:.1f} tok/s; "
+        f"{latency_line(served.results)}; {served.iterations} iterations; "
+        f"capture s by level { {g: round(x, 3) for g, x in caps.items()} }; "
+        f"launches {counts} (exact)")
+    return served
+
+
+def phase_moe_vlm_serve(dev):
+    """Phase 14: the MoE and VLM families in bf16 at full width.
+
+    granite-moe-1b-a400m (24 layers, full depth) through the launcher:
+    at the no-drop capacity factor (``served_config(no_drop)``) with
+    ``--static``, unfused and ``--verify-fusion`` on the same weights
+    (launches exact, K2 on ``stats_route``'s tile route, K3 on wgmma), and
+    through the server (16 requests), unfused and fused, every answer held
+    to ``ar_generate`` under ``near_tie``; then at the config's own 1.25
+    the same four runs reported, not held (a token dropped in the verify
+    forward and not in AR changes the logits): answers equal to AR, drop
+    share per step shape (``DropMeter``), tokens/s, accepted length.
+    internvl2-26b (48 layers, ~40 GB) through ``SpecEngine.generate`` with
+    a 256-row frontend prefix per request, unfused and fused, held to AR
+    under ``near_tie``; then through the launcher with text only, fused.
+    phi3.5-moe-42b-a6.6b cut to ``PHI_LAYERS`` of its 32 layers through
+    ``build_engine`` (the static path): no-drop unfused and fused, held to
+    AR; 1.25 fused, reported.  A MoE's divergences log ``router_gap``.
+    Returns {arch: the fused no-drop static run's launch counts}."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import build_engine
+    from repro_torch.launch.serve import build_model, make_prompts
+    from repro_torch.models.frontends import frontend_embeds
+
+    out = {}
+    arch = "granite-moe-1b-a400m"
+    argv = SERVE_ARGV + ["--arch", arch]
+    torch.cuda.reset_peak_memory_stats()
+    with served_config(no_drop):
+        log(f"  ({arch}) --arch {arch} --static, capacity factor E / K "
+            f"(no drop)")
+        srv, _ = serve_counted(argv)
+        check_against_ar(srv, dev)
+        weights = (srv.params, srv.proposer_params)
+        log(f"  ({arch}) --verify-fusion, no drop")
+        fsrv, out[arch] = serve_counted(argv + ["--verify-fusion"], weights)
+        check_against_ar(fsrv, dev)
+        log(f"  {arch} no drop: unfused {run_summary(srv)}; fused "
+            f"{run_summary(fsrv)}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for flags in ([], ["--verify-fusion"]):
+            served = server_counted(["--arch", arch] + flags, weights)
+            check_server_against_ar(f"{arch} server {flags} no drop",
+                                    served, dev)
+    for flags in ([], ["--verify-fusion"]):
+        with DropMeter() as meter:
+            run, _ = serve_counted(argv + flags, weights)
+        same = check_against_ar(run, dev, gate=False)
+        log(f"  {arch} {flags} at capacity factor 1.25: {run_summary(run)};"
+            f" {same} of {REQUESTS} answers == AR; {meter.line()}")
+        with DropMeter() as meter:
+            served = server_counted(["--arch", arch] + flags, weights)
+        same = check_server_against_ar(f"{arch} server {flags} at 1.25",
+                                       served, dev, gate=False)
+        log(f"  {arch} server {flags} at 1.25: {same} of 16 answers == AR; "
+            f"{meter.line()}")
+    del srv, fsrv, run, served, weights
+    torch.cuda.empty_cache()
+
+    arch = "internvl2-26b"
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, mp = build_model(cfg, SEED, 4, dev)
+    torch.cuda.synchronize()
+    log(f"  ({arch}) 48 layers at full width in bf16, Medusa heads K 4: "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    prompts = make_prompts(cfg.vocab_size, REQUESTS, SEED, 64, 257)
+    extras = [frontend_embeds(cfg, SLOTS,
+                              torch.Generator(device=dev).manual_seed(9 + g))
+              for g in range(REQUESTS // SLOTS)]
+    for vf in (False, True):
+        eng = build_engine(cfg, "medusa", use_kernel=True, device=dev,
+                           verify_fusion=vf)
+        run, counts = static_counted(eng, params, mp, prompts, extras)
+        check_against_ar(run, dev, extras=extras)
+        if vf:
+            out[arch] = counts
+        log(f"  {arch} generate with a {cfg.frontend_len}-row prefix"
+            f"{', verify fusion' if vf else ''}: {run_summary(run)}; "
+            f"launches {counts} (exact); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del eng, run
+    log(f"  ({arch}) the launcher, text only, --verify-fusion")
+    run, _ = serve_counted(SERVE_ARGV + ["--arch", arch, "--verify-fusion"],
+                           (params, mp))
+    check_against_ar(run, dev)
+    log(f"  {arch} launcher, text only, fused: {run_summary(run)}")
+    del params, mp, run
+    torch.cuda.empty_cache()
+
+    arch = "phi3.5-moe-42b-a6.6b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=PHI_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, mp = build_model(cfg, SEED, 4, dev)
+    torch.cuda.synchronize()
+    log(f"  ({arch}) {PHI_LAYERS} of its 32 layers at full width in bf16: "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    prompts = make_prompts(cfg.vocab_size, REQUESTS, SEED, 64, 257)
+    for capacity, vf in ((no_drop, False), (no_drop, True),
+                         (lambda c: c, True)):
+        c = capacity(cfg)
+        eng = build_engine(c, "medusa", use_kernel=True, device=dev,
+                           verify_fusion=vf)
+        with DropMeter() as meter:
+            run, counts = static_counted(eng, params, mp, prompts)
+        held = c.capacity_factor != cfg.capacity_factor
+        same = check_against_ar(run, dev, gate=held)
+        if held and vf:
+            out[arch] = counts
+        log(f"  {arch} ({PHI_LAYERS} layers) capacity factor "
+            f"{c.capacity_factor}{', verify fusion' if vf else ''}: "
+            f"{run_summary(run)}; {same} of {REQUESTS} answers == AR"
+            f"{'' if held else ' (not held)'}; {meter.line()}; launches "
+            f"{counts} (exact); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del eng, run
+    del params, mp
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_moe(dev):
+    """Phase 11 (iv): 8 ``lm_train_step``s of granite-moe-1b-a400m at full
+    width and depth (float32 master weights, bf16 products, remat, the
+    config's capacity factor) on one repeated batch of 8 x 512: the loss
+    falls, the aux loss is finite and above 0 at every step; ms per step
+    and peak memory."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import steps as ST
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("granite-moe-1b-a400m")
+    p = TT.init_params(torch.Generator(device=dev).manual_seed(8), cfg)
+    state = {"p": p, "opt": O.adamw_init(p)}
+    data = D.synthetic_chat(D.SyntheticChatConfig(
+        vocab_size=cfg.vocab_size, seq_len=513, n_samples=8))
+    x = torch.from_numpy(data).to(dev)
+    auxes = []
+
+    def lm_step():
+        state["p"], state["opt"], met = ST.lm_train_step(
+            state["p"], state["opt"], cfg, x[:, :-1], x[:, 1:])
+        auxes.append(float(met["aux"]))
+        return met["loss"]
+
+    losses, ms = timed_steps(8, lm_step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = sum(t.numel() for t in O.tree_leaves(p))
+    log(f"  lm_train_step, granite-moe-1b-a400m at full width and depth "
+        f"({n / 1e9:.3f} B float32 parameters, bf16 products, remat, "
+        f"capacity factor {cfg.capacity_factor}), one batch of 8 x 512 "
+        f"eight times: loss {losses[0]:.4f} -> {losses[-1]:.4f}, aux "
+        f"{auxes[0]:.4f} -> {auxes[-1]:.4f}; {ms:.1f} ms/step (median of "
+        f"steps 2-8); peak memory {peak:.2f} GiB")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"granite-moe training: losses {losses}")
+    if not all(np.isfinite(a) and a > 0 for a in auxes):
+        fail(f"granite-moe training: aux losses {auxes}")
 
 
 # ---------------------------------------------------------------------------
@@ -2004,10 +2563,15 @@ def near_tie(cfg, gap, top, spec_tok, ar_tok):
     return gap < bound or (gap == bound and spec_tok < ar_tok), bound
 
 
-def check_against_ar(srv, dev):
+def check_against_ar(srv, dev, extras=None, gate=True):
     """Each answer matches ``ar_generate`` on the served config up to its
     first divergence, which ``near_tie`` must accept (AR ranks the emitted
-    token less than two bf16 steps below its top logit)."""
+    token less than two bf16 steps below its top logit).  ``extras`` (a
+    VLM's) holds each group's frontend prefix [SLOTS, F, fd], prefilled
+    ahead of its prompts.  With ``gate`` False (a MoE at the capacity
+    factor that drops) the divergences are logged, not held.  For a MoE
+    each divergence logs ``router_gap`` at the parting token.  Returns
+    how many answers equal AR's."""
     from repro_torch.core.engine import ar_generate
     from repro_torch.models.api import init_cache
 
@@ -2017,8 +2581,11 @@ def check_against_ar(srv, dev):
     for g in range(0, REQUESTS, SLOTS):
         rows = list(range(g, g + SLOTS))
         tok, plen = padded_batch(srv.prompts, rows)
+        extra = None if extras is None else extras[g // SLOTS]
         tok = torch.from_numpy(tok).to(dev)
         plen = torch.from_numpy(plen).to(dev)
+        if extra is not None:
+            plen = plen + extra.shape[1]
         spec = torch.from_numpy(np.stack([res[i]["output"] for i in rows]))
         spec = spec.to(dev, torch.long)
         gaps, margins, tops = [], [], []
@@ -2036,12 +2603,14 @@ def check_against_ar(srv, dev):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ar, _ = ar_generate(srv.cfg, srv.params, tok, plen, cache, MAX_NEW,
-                            use_kernel=True, observe=observe)
+                            use_kernel=True, observe=observe,
+                            extra_embeds=extra)
         ar = ar.cpu()
         ar_seconds += time.perf_counter() - t0
         runs.append((rows, spec.cpu(), ar, torch.stack(gaps, 1).cpu(),
-                     torch.stack(margins, 1).cpu(), torch.stack(tops).cpu()))
-    for rows, spec, ar, gaps, margins, tops in runs:
+                     torch.stack(margins, 1).cpu(), torch.stack(tops).cpu(),
+                     tok, plen, extra))
+    for rows, spec, ar, gaps, margins, tops, tok, plen, extra in runs:
         for j, i in enumerate(rows):
             differ = (spec[j] != ar[j]).nonzero()
             if len(differ) == 0:
@@ -2053,11 +2622,14 @@ def check_against_ar(srv, dev):
             ok, bound = near_tie(srv.cfg, gap, top, s_tok, a_tok)
             diverged += 1
             worst = max(worst, gap)
+            gap_r = "" if not srv.cfg.num_experts else router_gap(
+                srv.cfg, srv.params, tok[j:j + 1], plen[j:j + 1],
+                ar[j, :at], None if extra is None else extra[j:j + 1])
             log(f"  req {i}: spec == AR for {at} tokens, then diverges (spec "
                 f"token {s_tok}, AR's {a_tok}); AR ranks the spec token "
                 f"{gap:.5f} below its top {top:.5f} (bound {bound}); AR "
-                f"top-2 margin {float(margins[j, at]):.5f}")
-            if not ok:
+                f"top-2 margin {float(margins[j, at]):.5f}{gap_r}")
+            if gate and not ok:
                 fail(f"request {i} diverges from AR at token {at}, where AR "
                      f"ranks the spec token {s_tok} {gap} below its top "
                      f"{a_tok} (bound {bound})")
@@ -2066,6 +2638,7 @@ def check_against_ar(srv, dev):
         f"(the margin readings included)")
     log(f"  divergences: {diverged} of {REQUESTS} requests "
         f"(largest AR gap to the spec token at a divergence {worst:.5f})")
+    return REQUESTS - diverged
 
 
 def serve_counted(argv, weights=None):
@@ -2082,7 +2655,8 @@ def serve_counted(argv, weights=None):
     check_routes(" ".join(argv[len(SERVE_ARGV):]) or "launcher",
                  counts if srv.cfg.verify_fusion else None,
                  k1_routes(srv.cfg, SLOTS, -(-MAX_LEN // ps) * ps, steps,
-                           T=srv.engine.tb.T, proposer=srv.engine.proposer))
+                           T=srv.engine.tb.T, proposer=srv.engine.proposer),
+                 stats_route(srv.cfg))
     return srv, counts
 
 
@@ -2784,10 +3358,13 @@ class ServedLogits:
         return rows
 
 
-def check_server_against_ar(label, served, dev, witness=None):
+def check_server_against_ar(label, served, dev, witness=None, gate=True):
     """Each answer of a server run matches ``ar_generate`` on its config up
     to its first divergence, where AR ranks the emitted token within
-    ``MARGIN_BOUND`` of its top logit.  With ``witness`` (a
+    ``MARGIN_BOUND`` of its top logit (openPangu-7B; another model's
+    divergence ``near_tie`` must accept, and a MoE's logs ``router_gap``
+    there).  With ``gate`` False (a MoE at the capacity factor that drops)
+    the divergences are logged, not held.  With ``witness`` (a
     ``ServedLogits`` on an unfused prefix-cache run: a request's prompt
     rows were written by another request's prefill, and its suffix's by
     a causal ``suffix_prefill`` pass through K1, each in bf16, where AR
@@ -2795,8 +3372,9 @@ def check_server_against_ar(label, served, dev, witness=None):
     served path's own gap between the two tokens, and one more case is
     accepted: AR's gap exactly two bf16 steps (one rounding each way of
     the two competing logits) where the served logits tie them exactly
-    and the tie went to the lower index, the served token's."""
-    res, prompts = served.results, served.prompts
+    and the tie went to the lower index, the served token's.  Returns how
+    many answers equal AR's."""
+    res, prompts, cfg = served.results, served.prompts, served.cfg
     n_max = max(r["max_new"] for r in res)
     outs = [torch.tensor(r["output"], dtype=torch.long) for r in res]
     gaps = {}
@@ -2809,7 +3387,8 @@ def check_server_against_ar(label, served, dev, witness=None):
             if t < len(outs[i]):
                 gaps[i, t] = (top[j] - lf[j, outs[i][t]], top[j])
 
-    ar = serve_ar(served.cfg, served.params, prompts, n_max, dev, observe)
+    res_params = served.params
+    ar = serve_ar(cfg, res_params, prompts, n_max, dev, observe)
     gaps = {k: (float(g), float(t)) for k, (g, t) in gaps.items()}
     diverged, worst, ties = 0, 0.0, 0
     for i, r in enumerate(res):
@@ -2833,12 +3412,21 @@ def check_server_against_ar(label, served, dev, witness=None):
             else:
                 served = (f"; AR's token is not in the served top two "
                           f"({i1} {v1:.5f}, {i2} {v2:.5f})")
-        ok = gap < MARGIN_BOUND or (tie and gap == MARGIN_BOUND)
+        if cfg.name.startswith("openpangu-7b"):
+            ok = gap < MARGIN_BOUND or (tie and gap == MARGIN_BOUND)
+        else:
+            ok = near_tie(cfg, gap, top, s_tok, a_tok)[0]
         ties += ok and gap >= MARGIN_BOUND
+        if cfg.num_experts:
+            p = torch.from_numpy(prompts[i][None]).to(dev)
+            served += router_gap(
+                cfg, res_params, p,
+                torch.tensor([p.shape[1]], dtype=torch.int32, device=dev),
+                ar[i, :at], None)
         log(f"  {label}: request {i} == AR for {at} tokens, then the served "
             f"token {s_tok} where AR's is {a_tok}, {gap:.5f} below AR's top "
             f"{top:.5f}{served}")
-        if not ok:
+        if gate and not ok:
             fail(f"{label}: request {i} diverges from AR at token {at}, "
                  f"where AR ranks the served token {s_tok} {gap} below its "
                  f"top {a_tok} ({top}; bound {MARGIN_BOUND}{served})")
@@ -2848,6 +3436,7 @@ def check_server_against_ar(label, served, dev, witness=None):
         f"served logits tied"
         + (f", the witness checked on {len(seen)} served tokens)"
            if seen is not None else ")"))
+    return len(res) - diverged
 
 
 PAGED_13B = "paged 64, verify fusion, prefix cache, preemption"
@@ -3668,7 +4257,7 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
 
 
 def time_commit(dev, launches, max_err, paged=False, quantized=False,
-                ps=64):
+                ps=64, nu=34, D=128, suffix=""):
     """The one-launch commit (K4 dense, K5 paged) at the main path's:
     openPangu-7B's 34 units' in-flight k and v [4, 64, 8, 128] bf16 (one
     tensor per unit, as decode leaves them), a best path of K1 5 rows per
@@ -3683,12 +4272,14 @@ def time_commit(dev, launches, max_err, paged=False, quantized=False,
     timed); the yardstick, ``index_put_`` of the pre-gathered (under int8
     pre-quantized) rows into each leaf; and an empty kernel.  The bound
     counts the accepted rows read once and written once (the scales
-    under int8), the lengths, the path and the table entries they use."""
+    under int8), the lengths, the path and the table entries they use.
+    ``nu`` units of [8, ``D``] rows (``suffix`` names another model's
+    widths in the row's name)."""
     from repro_torch.kernels import cache_update as CU
     from repro_torch.kernels import paging as P
     from repro_torch.kernels.quant import quantize_rows
 
-    nu, B, T, K1, H, D, S = 34, 4, 64, 5, 8, 128, 2048
+    B, T, K1, H, S = 4, 64, 5, 8, 2048
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(11)
     src = {n: tuple(torch.randn((B, T, H, D), generator=gen,
@@ -3780,7 +4371,7 @@ def time_commit(dev, launches, max_err, paged=False, quantized=False,
         f"empty kernel {empty_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
         f"{nbytes} bytes); back to back on CUDA events the wrapper issues "
         f"one call per {issue_ms:.4f} ms")
-    return {"name": name, "route": "cuda",
+    return {"name": name + suffix, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/commit_rows.cu",
             "replaces": "src/repro/kernels/cache_update.py:"
                         + {(False, False): "32", (True, False): "86",
@@ -3868,6 +4459,13 @@ def main() -> int:
         "gemma-2b), float32, full width, 2 layers: speculative == AR, "
         "unfused and fused, every layout for qwen1.5-0.5b and gemma-2b")
     phase_family_f32(dev)
+    torch.cuda.empty_cache()
+    phase("phase 4m: the MoE and VLM families (granite-moe-1b-a400m, "
+          "phi3.5-moe-42b-a6.6b, internvl2-26b with its 256-row prefix), "
+          "float32, full width, 2 layers, no-drop capacity: speculative == "
+          "AR, unfused and fused, int8 + paged for granite-moe")
+    phase_moe_vlm_f32(dev)
+    torch.cuda.empty_cache()
 
     phase("phase 5: the launcher on bf16 openPangu-7B, full width and depth, "
         "through the captured step")
@@ -3901,7 +4499,9 @@ def main() -> int:
           "weights: 16 requests, 4 slots, max_new 16..64; unfused, "
           "--verify-fusion, and paged with --prefix-cache --preemption")
     serving = phase_serving_full(dev, srv)
-    paged_server = serving[PAGED_13B].server
+    # the suffix calls' count, not the server, which holds phase 5's
+    # weights (~18 GB) and its pool
+    suffix_calls = serving[PAGED_13B].server.timing["suffix_calls"]
     del serving
     torch.cuda.empty_cache()
     prompt_lens = [len(p) for p in srv.prompts[:4]]
@@ -3916,6 +4516,17 @@ def main() -> int:
     phase("phase 9: the launcher on the dense family at full width and depth "
         "in bf16, unfused and --verify-fusion")
     family = phase_family_serve(dev)
+    torch.cuda.empty_cache()
+    phase("phase 14: the MoE and VLM families in bf16 at full width: "
+          "granite-moe-1b-a400m through the launcher (--static and the "
+          "server, unfused and fused, no drop and 1.25), internvl2-26b "
+          "through generate with its prefix and the launcher, "
+          f"phi3.5-moe-42b-a6.6b at {PHI_LAYERS} layers through build_engine")
+    moe_vlm = phase_moe_vlm_serve(dev)
+    torch.cuda.empty_cache()
+    phase("phase 11: training (iv) granite-moe-1b-a400m LM steps at full "
+          "width and depth")
+    phase_train_moe(dev)
     torch.cuda.empty_cache()
     phase("phase 11: training (i) card against CPU, reduced float32 "
         "openPangu-7B")
@@ -3984,7 +4595,7 @@ def main() -> int:
     # the server's suffix_prefill (13b's paged prefix admissions): K1 at
     # R 512 / 2048 (T 128 / 512) with one slot continuing from 192 cached
     # rows and three outside the mask at capacity, K3 at M 512 / 2048
-    sfx = cfg.num_layers * paged_server.timing["suffix_calls"]
+    sfx = cfg.num_layers * suffix_calls
     rows += [time_flash_decode(dev, prompt_lens, MAX_NEW, sfx,
                                k1_errs_dense["suffix128"],
                                shape=("suffix", 8, 128,
@@ -3993,6 +4604,26 @@ def main() -> int:
              time_fused_qkv(dev, cfg, [192, 2048, 2048, 2048], sfx,
                             errs["K3 suffix128"], Ts=SUFFIX_T,
                             suffix="@suffix")]
+    # the MoE and VLM families' shapes: K1 at their folds, K2 over their
+    # heads (the tile route at granite-moe's and internvl2's unaligned V),
+    # K3 at their widths, the commit over their units
+    for shape in MOE_VLM_K1:
+        rows.append(time_flash_decode(dev, prompt_lens, MAX_NEW,
+                                      moe_vlm[shape[0]]["K1"],
+                                      k1_errs_dense[shape[0]], shape=shape))
+    for arch in MOE_VLM:
+        mcfg = get_config(arch)
+        rows.append(time_verify_stats(dev, mcfg, moe_vlm[arch]["K2"],
+                                      errs[f"K2 {arch}"],
+                                      suffix=f"@{arch}"))
+        if arch != "phi3.5-moe-42b-a6.6b":
+            rows.append(time_fused_qkv(dev, mcfg, mid, moe_vlm[arch]["K3"],
+                                       errs[f"K3 {arch}"]))
+    for arch, nu, D in (("granite-moe-1b-a400m", 24, 64),
+                        ("internvl2-26b", 48, 128)):
+        rows.append(time_commit(dev, moe_vlm[arch]["K4"],
+                                commit_errs[arch], nu=nu, D=D,
+                                suffix=f"@{arch}"))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(smi_line(), flush=True)

@@ -3,8 +3,8 @@
 ``ModelConfig`` keeps every field of the reference dataclass, with the same
 names and defaults, so one architecture reads the same in both packages
 and a test can compare the two field by field.  ``reduce`` derives the
-CPU-test variant exactly as the reference does.  The port runs the dense
-family only; ``models/api.get_model`` rejects the rest.
+CPU-test variant exactly as the reference does.  The port runs the dense,
+MoE and VLM families; ``models/api.get_model`` rejects the rest.
 ``SamplingParams`` is a copy of the reference's sampling controls and
 ``SchedulerParams`` of its serving-scheduler knobs.
 """

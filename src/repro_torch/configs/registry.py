@@ -1,6 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launcher.  It lists the reference registry's dense decoders: the paper's
-own model and the four others of the same family."""
+launchers.  It lists the reference registry's decoders that the port
+carries: the paper's own model, the four other dense decoders, the two
+mixture-of-experts models and the vision-language model (its modality
+frontend a stub)."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +16,9 @@ _MODULES = {
     "qwen1.5-4b": "repro_torch.configs.qwen15_4b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
     "openpangu-7b": "repro_torch.configs.openpangu_7b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe_42b_a66b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
 }
 
 ALL_ARCHS = list(_MODULES)

@@ -69,15 +69,16 @@ class DraftSpecEngine:
                                      device=self.engine.device))
 
     def generate(self, tparams, dparams, tokens, prompt_lengths, tcache,
-                 dcache, max_new: int):
+                 dcache, max_new: int, extra_embeds=None):
         """The draft cache ``dcache`` becomes the proposer state of one
-        ``SpecEngine.generate`` run.  Returns (out [B, max_new] int32,
-        n_out [B] int32, steps)."""
+        ``SpecEngine.generate`` run (``extra_embeds``: a VLM's prefix,
+        which the target and the draft both prefill).  Returns (out
+        [B, max_new] int32, n_out [B] int32, steps)."""
         B = tokens.shape[0]
         state = {"cache": dcache,
                  "len": torch.zeros((B,), dtype=torch.int32,
                                     device=tokens.device)}
         out, n_out, stats = self.engine.generate(
             tparams, dparams, tokens, prompt_lengths, tcache, max_new,
-            state=state)
+            extra_embeds=extra_embeds, state=state)
         return out, n_out, stats.steps

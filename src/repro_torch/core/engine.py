@@ -239,19 +239,31 @@ class SpecEngine:
         return Draws(u, S.gumbel((batch, self.cfg.vocab_size),
                                  self.generator))
 
+    def _tok_lens(self, lengths, extra_embeds):
+        """True token counts inside the prompt tensor: ``lengths`` minus
+        the frontend prefix a VLM prefill prepends."""
+        if extra_embeds is not None and self.cfg.frontend \
+                and self.cfg.family != "encdec":
+            return lengths - self.cfg.frontend_len
+        return lengths
+
     def prefill(self, params, proposer_params, tokens, lengths, cache,
-                state=None, temperature=None, top_p=None):
+                extra_embeds=None, state=None, temperature=None, top_p=None):
         """-> (cache, lengths, base_token [B], proposer state).
 
-        Under ``accept="sample"`` the base token (the first emitted token)
-        is drawn from the warped target logits with noise from the
-        engine's generator, as the sampled AR oracle draws it; otherwise
-        it is the argmax.  ``temperature``/``top_p`` may be per-row [B]
-        tensors.  ``state`` is the proposer state to prime; None allocates
-        one holding as many rows as the cache."""
+        ``extra_embeds`` [B, F, fd] (a config with a frontend) is the stub
+        frontend's prefix, prefilled at rows 0..F-1 ahead of the tokens;
+        ``lengths`` then count its F rows.  Under ``accept="sample"`` the
+        base token (the first emitted token) is drawn from the warped
+        target logits with noise from the engine's generator, as the
+        sampled AR oracle draws it; otherwise it is the argmax.
+        ``temperature``/``top_p`` may be per-row [B] tensors.  ``state``
+        is the proposer state to prime; None allocates one holding as many
+        rows as the cache."""
         B, Sp = tokens.shape
         last_hidden, cache = self.model.prefill(params, self.cfg, tokens,
-                                                lengths, cache)
+                                                lengths, cache,
+                                                extra_embeds=extra_embeds)
         logits = self.model.unembed(params, self.cfg, last_hidden)
         if self.accept == "sample":
             t, k, p = self._sampling_args(temperature, top_p)
@@ -262,7 +274,9 @@ class SpecEngine:
         if state is None:
             state = self.init_proposer_state(B, cache_max_len(cache))
         state = self.proposer.prime(proposer_params, state, tokens, lengths,
-                                    lengths, last_hidden, base)
+                                    self._tok_lens(lengths, extra_embeds),
+                                    last_hidden, base,
+                                    extra_embeds=extra_embeds)
         return cache, lengths, base, state
 
     def step_dtrees(self, levels=()):
@@ -478,11 +492,15 @@ class SpecEngine:
         copy_tree_(c.state, state)
 
     def generate(self, params, proposer_params, tokens, prompt_lengths, cache,
-                 max_new: int, state=None, temperature=None):
+                 max_new: int, extra_embeds=None, state=None,
+                 temperature=None):
         """Full speculative generation loop.
 
         tokens [B, S_p] int32 right-padded prompts, prompt_lengths [B]
         int32, cache from ``init_cache``, all on the engine's device.
+        ``extra_embeds`` [B, F, fd] (a config with a frontend) is the
+        prompts' frontend prefix; ``prompt_lengths`` then count its F
+        rows.
         ``temperature`` (a scalar or a per-row [B] tensor) overrides the
         engine's ``sampling.temperature`` for this call; it and
         ``sampling.top_p`` are carry values, so the captured step replays
@@ -500,7 +518,7 @@ class SpecEngine:
             state = self.init_proposer_state(B, cache_max_len(cache))
         cache, lengths, base, state = self.prefill(
             params, proposer_params, tokens, prompt_lengths, cache,
-            state=state, temperature=t, top_p=p)
+            extra_embeds=extra_embeds, state=state, temperature=t, top_p=p)
         step, c = self.loop_step(params, proposer_params, cache, state,
                                  max_new)
         c.load(lengths, base, state, t, p)
@@ -670,11 +688,12 @@ def _ar_carry_step(cfg, params, c: ARCarry, use_kernel, sampling=None,
 
 
 def _ar_run(cfg, params, tokens, prompt_lengths, cache, max_new, use_kernel,
-            observe, graphs, sampling=None, generator=None):
+            observe, graphs, sampling=None, generator=None,
+            extra_embeds=None):
     """The AR loop of ``ar_generate`` / ``ar_generate_sampled``."""
     model = get_model(cfg)
     last_hidden, cache = model.prefill(params, cfg, tokens, prompt_lengths,
-                                       cache)
+                                       cache, extra_embeds=extra_embeds)
     if not isinstance(graphs, StepGraphs):
         graphs = StepGraphs(tokens.device, capture=graphs)
     step, c = ar_loop_step(cfg, params, cache, max_new, use_kernel, graphs,
@@ -694,7 +713,7 @@ def _ar_run(cfg, params, tokens, prompt_lengths, cache, max_new, use_kernel,
 
 def ar_generate(cfg: ModelConfig, params, tokens, prompt_lengths, cache,
                 max_new: int, use_kernel: bool = False, observe=None,
-                graphs: Union[bool, StepGraphs] = True):
+                graphs: Union[bool, StepGraphs] = True, extra_embeds=None):
     """Greedy autoregressive baseline on the same cache machinery (T=1).
 
     tokens [B, S_p] int32, prompt_lengths [B] int32, cache from
@@ -705,17 +724,20 @@ def ar_generate(cfg: ModelConfig, params, tokens, prompt_lengths, cache,
     reads the near-tie margins there).  ``graphs``: True replays the step
     as a CUDA graph on the card, captured for this call; False runs it
     eagerly; a ``StepGraphs`` (an engine's ``step_graphs``) keeps the
-    graph across calls.  Returns (out [B, max_new] int32, lengths [B]
+    graph across calls.  ``extra_embeds`` [B, F, fd] (a config with a
+    frontend) is prefilled ahead of the tokens, ``prompt_lengths``
+    counting its F rows.  Returns (out [B, max_new] int32, lengths [B]
     final cache lengths)."""
     return _ar_run(cfg, params, tokens, prompt_lengths, cache, max_new,
-                   use_kernel, observe, graphs)
+                   use_kernel, observe, graphs, extra_embeds=extra_embeds)
 
 
 def ar_generate_sampled(cfg: ModelConfig, params, tokens, prompt_lengths,
                         cache, max_new: int, generator: torch.Generator,
                         sampling: Optional[SamplingParams] = None,
                         use_kernel: bool = False,
-                        graphs: Union[bool, StepGraphs] = True):
+                        graphs: Union[bool, StepGraphs] = True,
+                        extra_embeds=None):
     """Stochastic autoregressive baseline on the same cache machinery
     (T=1): every token is drawn from the warped target logits, with noise
     from ``generator`` (on the tokens' device).
@@ -725,11 +747,11 @@ def ar_generate_sampled(cfg: ModelConfig, params, tokens, prompt_lengths,
     this loop's.  At ``sampling.temperature <= 0`` it is token-identical
     to ``ar_generate``.  ``sampling.temperature``/``top_p`` go into the
     carry as [B] tensors (``top_k`` is part of the graph's key);
-    ``use_kernel`` and ``graphs`` as ``ar_generate``.  Returns (out
-    [B, max_new] int32, lengths [B])."""
+    ``use_kernel``, ``graphs`` and ``extra_embeds`` as ``ar_generate``.
+    Returns (out [B, max_new] int32, lengths [B])."""
     sp = sampling if sampling is not None else SamplingParams()
     return _ar_run(cfg, params, tokens, prompt_lengths, cache, max_new,
-                   use_kernel, None, graphs, sp, generator)
+                   use_kernel, None, graphs, sp, generator, extra_embeds)
 
 
 def _squeeze_spec(spec_cache):

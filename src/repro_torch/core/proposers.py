@@ -86,12 +86,15 @@ class Proposer:
         ``primes_from_tokens``; the default keeps the state unchanged."""
         return state
 
-    def prime(self, pp, state, tokens, lengths, tok_lens, hidden, base):
+    def prime(self, pp, state, tokens, lengths, tok_lens, hidden, base,
+              extra_embeds=None):
         """(Re)initialise ``state`` after a target prefill: tokens [B, S_p]
         right-padded prompt, lengths [B] the cache lengths the target
         prefilled at, tok_lens [B] the true token counts inside ``tokens``
-        (the lengths, while the port has no frontends), hidden [B, d] the
-        target's last hidden state, base [B] the first emitted token."""
+        (the lengths minus any frontend prefix), hidden [B, d] the
+        target's last hidden state, base [B] the first emitted token,
+        ``extra_embeds`` the frontend prefix the target prefilled (or
+        None)."""
         raise NotImplementedError
 
     def propose(self, pp, state, base, key=None, temperature=1.0,
@@ -153,7 +156,8 @@ class MedusaProposer(Proposer):
                         dtype=torch.int32, device=self.device)
         return {"mtok": z, "mprob": z.float()}
 
-    def prime(self, pp, state, tokens, lengths, tok_lens, hidden, base):
+    def prime(self, pp, state, tokens, lengths, tok_lens, hidden, base,
+              extra_embeds=None):
         return self._heads(pp, hidden)
 
     def propose(self, pp, state, base, key=None, temperature=1.0,
@@ -172,7 +176,9 @@ def draft_config(cfg: ModelConfig, draft_cfg: Optional[ModelConfig] = None,
                  layers: int = 2) -> ModelConfig:
     """The draft model's config for target ``cfg``: ``draft_cfg`` if given,
     else a ``layers``-layer sibling of ``cfg`` named ``<name>-draft`` (the
-    reference's classic small-draft setup).  Either way it takes the
+    reference's classic small-draft setup: a MoE target's draft is a MoE
+    sibling, a VLM's a VLM with a ``frontend_proj`` of its own).  Either
+    way it takes the
     target's ``verify_fusion``, so the draft's T=1 steps take the write
     side the engine's steps take (the fused one on an fp cache with
     ``use_kernel``)."""
@@ -236,9 +242,13 @@ class DraftModelProposer(Proposer):
     def state_axes(self, state):
         return {"cache": tree_map(lambda _: 1, state["cache"]), "len": 0}
 
-    def prime(self, pp, state, tokens, lengths, tok_lens, hidden, base):
+    def prime(self, pp, state, tokens, lengths, tok_lens, hidden, base,
+              extra_embeds=None):
+        # a VLM's draft is a VLM sibling: it prefills the same prefix
+        # through its own frontend_proj
         _, dcache = self.dm.prefill(pp, self.dc, tokens, lengths,
-                                    state["cache"])
+                                    state["cache"],
+                                    extra_embeds=extra_embeds)
         return {"cache": dcache, "len": lengths}
 
     def propose(self, pp, state, base, key=None, temperature=1.0,
@@ -399,7 +409,8 @@ class NgramProposer(Proposer):
             tab = self._tab_insert(tab, hist, hlen, n, all_s)
         return tab
 
-    def prime(self, pp, state, tokens, lengths, tok_lens, hidden, base):
+    def prime(self, pp, state, tokens, lengths, tok_lens, hidden, base,
+              extra_embeds=None):
         B, Sp = tokens.shape
         H = state["hist"].shape[1]
         rows = torch.arange(B, device=tokens.device)

@@ -47,9 +47,14 @@ and of ``decode``'s stacks of its in-flight rows (``aten::stack`` inside
 ``decode``), each kernel by name.  The script wraps the model module's
 ``decode`` and ``commit`` in ``record_function`` ranges itself (a
 replayed graph carries no ranges), so it reads any tree of the port the
-same way.  ``--cache-dtype``, ``--cache-layout`` and ``--page-size`` (the
-launcher's flags, names and defaults) trace the same steps on the int8
-cache and on the paged pool.  ``--proposer`` and ``--gamma`` (the
+same way.  For a MoE ``--arch`` the eager kinds also print the MoE's
+row: the device ms and launches per step of its four stages
+(``layers.moe_route``: router, top-k, queue positions and the one-hot
+dispatch and combine tensors; ``moe_dispatch``; ``moe_experts``: the
+three expert products and the activation; ``moe_combine``), each
+wrapped in a range the same way.  ``--cache-dtype``, ``--cache-layout``
+and ``--page-size`` (the launcher's flags, names and defaults) trace the
+same steps on the int8 cache and on the paged pool.  ``--proposer`` and ``--gamma`` (the
 launcher's flags) trace the spec kinds of the draft-model or n-gram
 engine instead of the Medusa one (the draft: the launcher's 2-layer
 sibling with its weights from ``proposer_params``); the AR kinds are the
@@ -71,11 +76,12 @@ from repro_torch.configs.registry import ALL_ARCHS, get_config
 from repro_torch.core.engine import ar_loop_step, build_engine
 from repro_torch.launch.serve import (build_model, make_prompts,
                                       proposer_params)
-from repro_torch.models import transformer
+from repro_torch.models import layers, transformer
 from repro_torch.runtime import resolve_device, tree_map
 from repro_torch.serving.scheduler import SpecServer
 
 DECODE_RANGE, COMMIT_RANGE = "model.decode", "model.commit"
+MOE_STAGES = ("moe_route", "moe_dispatch", "moe_experts", "moe_combine")
 
 
 def _port_kernels() -> set:
@@ -106,11 +112,15 @@ def _ranged(name: str, fn):
     return call
 
 
-def range_model(model):
+def range_model(model, layers):
     """Wrap ``model.decode`` and ``model.commit`` (the model module every
-    engine and the AR loop call through) in profiler ranges."""
+    engine and the AR loop call through) and the MoE's stages in
+    ``layers`` (``layers.moe`` calls them through the module) in profiler
+    ranges."""
     model.decode = _ranged(DECODE_RANGE, model.decode)
     model.commit = _ranged(COMMIT_RANGE, model.commit)
+    for name in MOE_STAGES:
+        setattr(layers, name, _ranged(name, getattr(layers, name)))
 
 
 def _within(evt, ranges) -> bool:
@@ -126,14 +136,14 @@ def _inside(evt, name: str) -> bool:
     return False
 
 
-def commit_row(prof, steps: int):
-    """Print the commit's device ms and launches per step: the kernels
-    launched inside the model's ``commit``, and those of ``decode``'s
-    stacks of its in-flight rows, each kernel by name and launches per
-    step.  A kernel is matched to its launch (a CUDA runtime call, by
-    correlation id) and the launch to the range by its host time: the
-    port's kernels launch through ctypes, outside any PyTorch op, so only
-    the runtime call ties them to the range."""
+def range_row(prof, steps: int, title: str, pick):
+    """Print the device ms and launches per step of the kernels launched
+    inside host ranges: ``pick(events)`` -> {label: [time ranges]}; each
+    label's kernels by name and launches per step, under ``title``.  A
+    kernel is matched to its launch (a CUDA runtime call, by correlation
+    id) and the launch to the range by its host time: the port's kernels
+    launch through ctypes, outside any PyTorch op, so only the runtime
+    call ties them to the range."""
     cpu, cuda = (torch.autograd.DeviceType.CPU,
                  torch.autograd.DeviceType.CUDA)
     events = prof.events()
@@ -144,26 +154,40 @@ def commit_row(prof, steps: int):
             kernels[e.id].append(e)
     calls = [e for e in events if e.device_type == cpu
              and e.name.startswith("cu") and e.id in kernels]
-    ranges = {"commit": [e.time_range for e in events
-                         if e.device_type == cpu and e.name == COMMIT_RANGE],
-              "decode's stacks": [e.time_range for e in events
-                                  if e.device_type == cpu
-                                  and e.name == "aten::stack"
-                                  and _inside(e, DECODE_RANGE)]}
     parts = {label: [k for c in calls if _within(c, rs) for k in kernels[c.id]]
-             for label, rs in ranges.items()}
+             for label, rs in pick(events).items()}
     every = [k for ks in parts.values() for k in ks]
 
     def ms(ks):
         return sum(k.time_range.elapsed_us() for k in ks) / 1e3 / steps
 
-    print(f"  commit row: {ms(every):.4f} ms/step device, "
+    print(f"  {title}: {ms(every):.4f} ms/step device, "
           f"{len(every) / steps:.0f} launches/step")
     for label, ks in parts.items():
         names = collections.Counter(_kernel_name(k.name) for k in ks)
         print(f"    {label}: {ms(ks):.4f} ms/step, {len(ks) / steps:.0f} "
               f"launches/step: " + ", ".join(
                   f"{n} {c / steps:.0f}x" for n, c in names.most_common()))
+
+
+def _cpu_ranges(events, name, inside=None):
+    return [e.time_range for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.name == name and (inside is None or _inside(e, inside))]
+
+
+def commit_row(prof, steps: int):
+    """The commit's row: the kernels launched inside the model's
+    ``commit``, and those of ``decode``'s stacks of its in-flight rows."""
+    range_row(prof, steps, "commit row", lambda ev: {
+        "commit": _cpu_ranges(ev, COMMIT_RANGE),
+        "decode's stacks": _cpu_ranges(ev, "aten::stack", DECODE_RANGE)})
+
+
+def moe_row(prof, steps: int):
+    """The MoE's row: the kernels launched inside each of its stages."""
+    range_row(prof, steps, "MoE row", lambda ev: {
+        name: _cpu_ranges(ev, name) for name in MOE_STAGES})
 
 
 def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
@@ -173,7 +197,7 @@ def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and e.key not in (DECODE_RANGE, COMMIT_RANGE)]
+               and e.key not in (DECODE_RANGE, COMMIT_RANGE, *MOE_STAGES)]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels)
     wall_ms = wall_s * 1e3 / steps
@@ -215,7 +239,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
-    range_model(transformer)
+    range_model(transformer, layers)
     cfg = dataclasses.replace(get_config(args.arch),
                               cache_dtype=args.cache_dtype,
                               cache_layout=args.cache_layout,
@@ -340,6 +364,8 @@ def main(argv=None):
                graph.capture_s)
         if not graph.capture:
             commit_row(prof, args.steps)
+            if cfg.num_experts:
+                moe_row(prof, args.steps)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """Core transformer layers in PyTorch: norms, RoPE, GQA attention (prefill
-and the cached tree-decode mask) and the gated MLP.
+and the cached tree-decode mask), the gated MLP and the top-k MoE.
 
-Counterpart of ``repro.models.layers``, dense subset.  Functions keep the
-reference's names, argument order and tensor layouts (``wq [d, Hq, hd]``,
-activations ``[B, S, H, D]``) and repeat its dtype casts in the same
-places, so a float32 run agrees with the reference to rounding.
+Counterpart of ``repro.models.layers``, without its LayerNorm,
+cross-attention and tensor parallelism.  Functions keep the reference's
+names, argument order and tensor layouts (``wq [d, Hq, hd]``, activations
+``[B, S, H, D]``) and repeat its dtype casts in the same places, so a
+float32 run agrees with the reference to rounding.
 Parameters are plain dicts of tensors.
 """
 from __future__ import annotations
@@ -299,3 +300,144 @@ def mlp(p, x, cfg: ModelConfig):
     else:
         h = _act(h, cfg.act)
     return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# MoE (static top-k dispatch with a fixed expert capacity)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, stack: int = 0):
+    """Router [d, E] in float32 (the reference keeps it f32 whatever the
+    parameter dtype), experts ``wi``/``wg`` [E, d, f] and ``wo`` [E, f, d]
+    in ``cfg.param_dtype``, scaled by the reference's fan-in rule for
+    stacked experts (the middle axis)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    dt = torch_dtype(cfg.param_dtype)
+    return {
+        "router": dense_init(gen, (d, e), torch.float32, stack=stack),
+        "wi": dense_init(gen, (e, d, f), dt, 1.0 / math.sqrt(d), stack),
+        "wg": dense_init(gen, (e, d, f), dt, 1.0 / math.sqrt(d), stack),
+        "wo": dense_init(gen, (e, f, d), dt, 1.0 / math.sqrt(f), stack),
+    }
+
+
+def _capacity(group_size: int, k: int, e: int, cf: float) -> int:
+    c = int(math.ceil(group_size * k / e * cf))
+    return max(8, -(-c // 8) * 8)  # round up to 8, floor 8
+
+
+def top_k_first(x, k: int):
+    """(values, indices) of the ``k`` largest entries along the last axis,
+    largest first, a tie going to the lower index (``jax.lax.top_k``'s
+    order).  ``torch.topk`` promises no order among equal values on the
+    card; a stable descending sort keeps equal values in index order.  A
+    hidden row of zeros (padding, an idle slot) routes with uniform
+    probabilities: every expert ties, and this picks experts 0..k-1."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe(p, x, cfg: ModelConfig, group_size: int = 512):
+    """Static-shape top-k MoE with one-hot dispatch and combine einsums,
+    the reference's semantics: tokens in row-major [B, S] order form
+    groups of min(group_size, B * S), the last zero-padded; the router
+    runs in float32; each group queues its (token, slot) assignments per
+    expert, token by token and slot by slot within a token, and an
+    assignment whose queue position reaches the capacity C is dropped.
+    The dispatch and combine tensors [G, s, E, C] are built in the
+    activation dtype (so under bf16 the gates are rounded to bf16 before
+    the combine).  Their shapes never depend on the routing, and nothing
+    here reads a value back to the host, so the step stays capturable.
+    The four stages are functions of their own (``moe_route``,
+    ``moe_dispatch``, ``moe_experts``, ``moe_combine``), which
+    ``launch/trace.py`` times apart.  Returns (y [B, S, d],
+    router_logits [G, s, E] f32)."""
+    B, S, d = x.shape
+    n_tok = B * S
+    g_sz = min(group_size, n_tok)
+    pad = (-n_tok) % g_sz
+    xf = x.reshape(n_tok, d)
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, d))], dim=0)
+    xg = xf.reshape(-1, g_sz, d)
+    dispatch, combine, router_logits = moe_route(p, xg, cfg)
+    eo = moe_experts(p, moe_dispatch(dispatch, xg), cfg)
+    yf = moe_combine(combine, eo).reshape(-1, d)
+    if pad:
+        yf = yf[:n_tok]
+    return yf.reshape(B, S, d), router_logits
+
+
+def moe_route(p, xg, cfg: ModelConfig):
+    """The router over the token groups xg [G, s, d]: (dispatch,
+    combine [G, s, E, C] in xg's dtype, router_logits [G, s, E] f32)."""
+    G, g_sz, _ = xg.shape
+    E, K = cfg.num_experts, cfg.experts_per_tok
+    router_logits = torch.einsum("gsd,de->gse", xg.float(),
+                                 p["router"].float())
+    probs = torch.softmax(router_logits, dim=-1)
+    gate_vals, eids = top_k_first(probs, K)                   # [G, s, K]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    C = _capacity(g_sz, K, E, cfg.capacity_factor)
+    experts = torch.arange(E, device=xg.device)
+    slots = torch.arange(C, device=xg.device)
+    oh = (eids[..., None] == experts).to(torch.int32)         # [G, s, K, E]
+    # each expert's queue position: the exclusive count of its earlier
+    # (token, slot) assignments, token by token, slot by slot; the scan
+    # runs along the innermost axis of an [G, E, s * K] copy (a scan along
+    # an outer axis is one slow serial kernel on the card)
+    ohf = oh.reshape(G, g_sz * K, E).transpose(1, 2).contiguous()
+    pos = (torch.cumsum(ohf, dim=-1, dtype=torch.int32) - ohf)
+    pos = pos.transpose(1, 2).reshape(G, g_sz, K, E)
+
+    dt = xg.dtype
+    dispatch = xg.new_zeros((G, g_sz, E, C))
+    combine = xg.new_zeros((G, g_sz, E, C))
+    for slot in range(K):                                     # K is small
+        slot_pos = torch.sum(pos[:, :, slot] * oh[:, :, slot], dim=-1)
+        in_cap = slot_pos < C                                 # [G, s]
+        # a position at or past C matches no slot: the drop
+        d_slot = ((eids[:, :, slot, None] == experts).to(dt)[..., None]
+                  * (slot_pos[..., None] == slots).to(dt)[:, :, None]
+                  * in_cap[..., None, None].to(dt))
+        # piecewise constant: no gradient flows through the mask
+        d_slot = d_slot.detach()
+        dispatch = dispatch + d_slot
+        combine = combine + d_slot * gate_vals[:, :, slot, None,
+                                               None].to(dt)
+    return dispatch, combine, router_logits
+
+
+def moe_dispatch(dispatch, xg):
+    """Each expert's capacity rows [E, G, C, d] from the groups' tokens."""
+    return torch.einsum("gsec,gsd->egcd", dispatch, xg)
+
+
+def moe_experts(p, expert_in, cfg: ModelConfig):
+    """The experts' gated MLPs on their rows: (x wi) * act(x wg) wo."""
+    wi, wg, wo = (p[n].to(expert_in.dtype) for n in ("wi", "wg", "wo"))
+    h = torch.einsum("egcd,edf->egcf", expert_in, wi)
+    h = h * _act(torch.einsum("egcd,edf->egcf", expert_in, wg), cfg.act)
+    return torch.einsum("egcf,efd->egcd", h, wo)
+
+
+def moe_combine(combine, eo):
+    """The tokens' outputs [G, s, d]: each expert row back to its token,
+    weighted by its renormalised gate."""
+    return torch.einsum("gsec,egcd->gsd", combine, eo)
+
+
+def moe_aux_loss(router_logits, eids_unused=None):
+    """Load-balance auxiliary loss (Switch-style): E * sum(f_e * p_e),
+    f_e the fraction of tokens whose top-1 expert is e, p_e the mean
+    router probability of e (padded rows included, as in the
+    reference)."""
+    probs = torch.softmax(router_logits, dim=-1)
+    E = probs.shape[-1]
+    top1 = torch.argmax(probs, dim=-1)
+    f = torch.mean((top1[..., None] == torch.arange(E, device=probs.device))
+                   .float(), dim=(0, 1))
+    pbar = torch.mean(probs, dim=(0, 1))
+    return E * torch.sum(f * pbar)

@@ -1,5 +1,5 @@
-"""Decoder-only stack in PyTorch, dense family: init, prefill, the static
-speculative decode step and the zero-copy commit.
+"""Decoder-only stack in PyTorch, dense, MoE and VLM families: init,
+prefill, the static speculative decode step and the zero-copy commit.
 
 Counterpart of ``repro.models.transformer``.  Parameters keep the
 reference tree: ``params["units"]["pos0"]`` holds every layer's weights
@@ -10,7 +10,11 @@ two other layouts: int8 values plus ``k_scale``/``v_scale``
 paged pool [n_units, n_blocks, page_size, Hkv, D] with the block table
 under ``cache["_pages"]["table"]`` (``cfg.cache_layout == "paged"``).
 Where the reference scans over units, this module runs a host loop over
-them.
+them.  A MoE config's units carry ``layers.moe`` in place of the dense
+MLP (``params["units"]["pos0"]["ffn"]`` holds the f32 router and the
+stacked experts); a VLM config adds ``params["frontend_proj"]``, which
+projects the stub frontend's prefix embeddings (``extra_embeds``) into
+the stream ahead of the token embeddings.
 
 Unlike the reference's pure functions, ``prefill``, ``decode`` and
 ``commit`` write the cache tensors in place (indexed writes of the rows
@@ -58,9 +62,10 @@ def split_pages(cache):
 
 def unit_structure(cfg: ModelConfig):
     """[(mixer_kind, ffn_kind)] for each position inside the repeating
-    unit: one attention layer with a dense MLP for the dense family."""
+    unit: one attention layer, with the MoE FFN for a config with experts
+    and the dense MLP otherwise."""
     check_supported(cfg)
-    return [("attn", "dense")]
+    return [("attn", "moe" if cfg.num_experts else "dense")]
 
 
 def n_units(cfg: ModelConfig) -> int:
@@ -71,12 +76,10 @@ def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError, naming the later slice, for every branch
     of the reference that the port does not carry yet."""
     later = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         later.append(f"family {cfg.family!r} (ROADMAP queue 1 item 14)")
     if cfg.tp_axis:
         later.append("tensor parallelism (ROADMAP queue 1 item 16)")
-    if cfg.frontend or cfg.num_experts:
-        later.append("frontends and MoE (ROADMAP queue 1 item 14)")
     if later:
         raise NotImplementedError(f"{cfg.name}: " + "; ".join(later))
 
@@ -93,27 +96,41 @@ def unit_params(params, u: int):
 # init
 # ---------------------------------------------------------------------------
 
+def _init_position(gen: torch.Generator, cfg: ModelConfig, ffn: str,
+                   nu: int):
+    """One attention position's weights (``check_supported`` refuses the
+    SSM mixer), with the ``ffn`` kind's FFN, stacked over the ``nu``
+    units."""
+    dev = gen.device
+    return {"norm1": L.init_norm(cfg, dev, stack=nu),
+            "attn": L.init_attention(gen, cfg, stack=nu),
+            "norm2": L.init_norm(cfg, dev, stack=nu),
+            "ffn": (L.init_moe(gen, cfg, stack=nu) if ffn == "moe"
+                    else L.init_mlp(gen, cfg, stack=nu))}
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=None):
     """Full model params on ``gen.device``, drawn from ``gen``.  Shapes and
     init scales follow the reference; the random bits do not (tests carry
-    the reference's weights across with ``bridge.to_torch`` instead)."""
+    the reference's weights across with ``bridge.to_torch`` instead).  A
+    config with a frontend adds ``frontend_proj`` [frontend_dim, d]."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
     nu = n_units(cfg)
     dt = torch_dtype(cfg.param_dtype)
-    dev = gen.device
     params = {
         "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), dt,
                               scale=0.02),
-        "units": {"pos0": {"norm1": L.init_norm(cfg, dev, stack=nu),
-                           "attn": L.init_attention(gen, cfg, stack=nu),
-                           "norm2": L.init_norm(cfg, dev, stack=nu),
-                           "ffn": L.init_mlp(gen, cfg, stack=nu)}},
-        "final_norm": L.init_norm(cfg, dev),
+        "units": {f"pos{i}": _init_position(gen, cfg, ffn, nu)
+                  for i, (_, ffn) in enumerate(unit_structure(cfg))},
+        "final_norm": L.init_norm(cfg, gen.device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                          dt)
+    if cfg.frontend:
+        fd = cfg.frontend_dim or cfg.d_model
+        params["frontend_proj"] = L.dense_init(gen, (fd, cfg.d_model), dt)
     return params
 
 
@@ -162,15 +179,52 @@ def unembed(params, cfg: ModelConfig, hidden):
     return unembed_local(params, cfg, hidden)
 
 
+def frontend_prefix(params, cfg: ModelConfig, extra_embeds):
+    """Project stub modality embeddings [B, F, fd] into the model stream
+    [B, F, d], in the activation dtype."""
+    dt = torch_dtype(cfg.dtype)
+    return torch.einsum("bfe,ed->bfd", extra_embeds.to(dt),
+                        params["frontend_proj"].to(dt))
+
+
+def _embed_input(params, cfg: ModelConfig, tokens, extra_embeds):
+    """The stream's input rows: the token embeddings, after the projected
+    frontend prefix when the config has a frontend and ``extra_embeds``
+    is given ([B, F + S, d]; a config without one ignores it, as the
+    reference does)."""
+    x = embed_tokens(params, cfg, tokens)
+    if cfg.frontend and extra_embeds is not None:
+        x = torch.cat([frontend_prefix(params, cfg, extra_embeds), x], dim=1)
+    return x
+
+
+def _ffn(p, kind: str, x, cfg: ModelConfig):
+    """The position's FFN on the normed stream ``x``: (y, router logits
+    [G, s, E] f32 for the MoE, None for the dense MLP)."""
+    if kind == "moe":
+        return L.moe(p["ffn"], x, cfg)
+    return L.mlp(p["ffn"], x, cfg), None
+
+
 # ---------------------------------------------------------------------------
 # full-sequence forward (training)
 # ---------------------------------------------------------------------------
 
-def _unit_full(unit_p, x, cfg: ModelConfig):
-    """One unit over the full sequence (causal attention, then the MLP)."""
-    p = unit_p["pos0"]
-    x = x + L.attention_full(p["attn"], L.apply_norm(p["norm1"], x, cfg), cfg)
-    return x + L.mlp(p["ffn"], L.apply_norm(p["norm2"], x, cfg), cfg)
+def _unit_full(unit_p, x, cfg: ModelConfig, collect_router: bool = False):
+    """One unit over the full sequence (causal attention, then the FFN).
+    Returns (x, aux): the sum of ``moe_aux_loss`` over the unit's MoE
+    positions when ``collect_router``, else 0."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (_, ffn) in enumerate(unit_structure(cfg)):
+        p = unit_p[f"pos{i}"]
+        x = x + L.attention_full(p["attn"], L.apply_norm(p["norm1"], x, cfg),
+                                 cfg)
+        y, router_logits = _ffn(p, ffn, L.apply_norm(p["norm2"], x, cfg),
+                                cfg)
+        if collect_router and router_logits is not None:
+            aux = aux + L.moe_aux_loss(router_logits)
+        x = x + y
+    return x, aux
 
 
 def _unbound_units(params, cfg: ModelConfig) -> list:
@@ -192,25 +246,27 @@ def _unbound_units(params, cfg: ModelConfig) -> list:
 
 def forward_hidden(params, cfg: ModelConfig, tokens, extra_embeds=None,
                    remat: bool = False, collect_router: bool = False):
-    """Token ids [B, S] -> (final hidden states [B, S, d], aux loss).
+    """Token ids [B, S] -> (final hidden states [B, F + S, d], aux loss).
 
-    Differentiable (plain PyTorch, autograd).  ``remat`` recomputes each
-    unit's activations in the backward pass
+    Differentiable (plain PyTorch, autograd).  ``extra_embeds`` [B, F, fd]
+    (a config with a frontend) prepends the projected prefix.  ``remat``
+    recomputes each unit's activations in the backward pass
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
-    scan body).  The dense family has no router, so the aux loss is 0;
-    frontends and MoE routing raise."""
-    if extra_embeds is not None or collect_router:
-        raise NotImplementedError("frontends and MoE routing are ROADMAP "
-                                  "queue 1 item 14")
-    x = embed_tokens(params, cfg, tokens)
+    scan body).  With ``collect_router`` the aux loss is the sum of every
+    MoE layer's ``moe_aux_loss``; otherwise (and for a model without
+    experts) it is 0."""
+    x = _embed_input(params, cfg, tokens, extra_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for unit_p in _unbound_units(params, cfg):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(_unit_full, unit_p, x, cfg,
-                                                  use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(
+                _unit_full, unit_p, x, cfg, collect_router,
+                use_reentrant=False)
         else:
-            x = _unit_full(unit_p, x, cfg)
+            x, a = _unit_full(unit_p, x, cfg, collect_router)
+        aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward_train(params, cfg: ModelConfig, tokens, extra_embeds=None,
@@ -283,26 +339,31 @@ def cache_max_len(cache, table=None) -> int:
 # prefill
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg: ModelConfig, tokens, lengths, cache):
+def prefill(params, cfg: ModelConfig, tokens, lengths, cache,
+            extra_embeds=None):
     """Process right-padded prompts, fill the cache, return the last hidden
     state of each row.
 
-    tokens [B, S_p], lengths [B] true lengths.  Writes cache rows [0, S_p)
-    of every unit in place (through the block table under the paged
-    layout, quantized under int8).  Returns (hidden_last [B, d], cache).
+    tokens [B, S_p], lengths [B] true lengths, the frontend prefix
+    included when ``extra_embeds`` [B, F, fd] is given (the prefix takes
+    rows 0..F-1, the tokens F..).  Writes cache rows [0, F + S_p) of
+    every unit in place (through the block table under the paged layout,
+    quantized under int8).  Returns (hidden_last [B, d], cache).
     """
     layers, pages = split_pages(cache)
     table = None if pages is None else pages["table"]
-    B, S_p = tokens.shape
-    if S_p > cache_max_len(cache):
-        raise ValueError(f"prompt window {S_p} exceeds the cache's "
+    B = tokens.shape[0]
+    x = _embed_input(params, cfg, tokens, extra_embeds)
+    S_tot = x.shape[1]
+    if S_tot > cache_max_len(cache):
+        raise ValueError(f"prompt window {S_tot} exceeds the cache's "
                          f"{cache_max_len(cache)} rows")
-    x = embed_tokens(params, cfg, tokens)
+    (_, ffn), = unit_structure(cfg)
     entry = layers["pos0"]
     phys = None
     if table is not None:
         zero = torch.zeros((B,), dtype=torch.int32, device=x.device)
-        phys = P.phys_rows(table, zero, S_p, cfg.page_size).reshape(-1)
+        phys = P.phys_rows(table, zero, S_tot, cfg.page_size).reshape(-1)
     for u in range(n_units(cfg)):
         p = unit_params(params, u)["pos0"]
         hh = L.apply_norm(p["norm1"], x, cfg)
@@ -310,7 +371,7 @@ def prefill(params, cfg: ModelConfig, tokens, lengths, cache):
         _write_prefix({n: t[u] for n, t in entry.items()}, k, v, phys=phys)
         x = x + y
         hh = L.apply_norm(p["norm2"], x, cfg)
-        x = x + L.mlp(p["ffn"], hh, cfg)
+        x = x + _ffn(p, ffn, hh, cfg)[0]
     x = L.apply_norm(params["final_norm"], x, cfg)
     rows = torch.arange(B, device=x.device)
     last = x[rows, lengths.long() - 1]
@@ -375,6 +436,7 @@ def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
     masks = phys = None
     if not (use_kernel or deferred):
         masks = L.decode_mask(tree_mask, lengths, T, S_max)       # [B, T, S]
+    (_, ffn), = unit_structure(cfg)
     entry = layers["pos0"]
     if table is not None and not (deferred
                                   or _fused_write(cfg, entry, use_kernel)):
@@ -391,7 +453,7 @@ def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
         v_new.append(rows["v_new"])
         x = x + y
         hh = L.apply_norm(p["norm2"], x, cfg)
-        x = x + L.mlp(p["ffn"], hh, cfg)
+        x = x + _ffn(p, ffn, hh, cfg)[0]
     x = L.apply_norm(params["final_norm"], x, cfg)
     spec_cache = {"pos0": dict(entry, k_new=tuple(k_new),
                                v_new=tuple(v_new))}

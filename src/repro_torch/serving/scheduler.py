@@ -57,8 +57,10 @@ exhausted with no victim to preempt); every other error propagates.
 
 The cache and the proposer state are opaque to the scheduler: the int8
 cache, the deferred write, verify fusion and every proposer ride through
-unchanged.  Encoder-decoder requests (``extra_embeds``) are ROADMAP queue
-1 item 14 and raise.
+unchanged, and so do the MoE and VLM families' models (a VLM served on
+its tokens alone, as the reference serves it).  A request's
+``extra_embeds`` raises: the reference takes them from encoder-decoder
+requests only, a family that is ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -343,14 +345,17 @@ class SpecServer:
         """``temperature``/``top_p`` take effect when the engine verifies
         with ``accept="sample"``; omitted values fall back to the engine's
         ``SamplingParams``, and temperature 0.0 reproduces greedy output
-        exactly.  ``extra_embeds`` (an encoder-decoder request's frames)
-        raises: that family is ROADMAP queue 1 item 14."""
+        exactly.  ``extra_embeds`` is refused, as the reference refuses it
+        for every family but the encoder-decoder (whose frames are
+        ROADMAP queue 1 item 14): a decoder-only model's frontend prefix
+        is not per-request state in the server."""
         sp = self.engine.sampling
         if extra_embeds is not None:
             raise ValueError(
-                "extra_embeds carries an encoder-decoder request's frames; "
-                "the port serves the dense family only (encoder-decoder is "
-                "ROADMAP queue 1 item 14)")
+                f"extra_embeds is encdec-only; {self.cfg.family!r} requests "
+                f"carry token ids (decoder-only frontends fold their prefix "
+                f"in at prefill, outside the server; encoder-decoder serving "
+                f"is ROADMAP queue 1 item 14)")
         if (self.cfg.verify_fusion and self.engine.accept == "sample"
                 and top_p is not None and top_p != 1.0):
             # the fused epilogue keeps only Verdict-sized statistics; a

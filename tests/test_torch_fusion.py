@@ -54,6 +54,18 @@ from repro_torch.kernels.tree_attention import (unembed_verify_stats,
 from repro_torch.launch import serve
 from repro_torch.models import transformer as TT
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several workers on a few cores, and each worker's default pool
+    oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 B, S_P, MAX_NEW, S_MAX = 2, 8, 16, 256

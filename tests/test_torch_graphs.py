@@ -44,6 +44,18 @@ from repro_torch.kernels import cache_update as CU
 from repro_torch.kernels import tree_attention as TA
 from test_torch_cuda import _expected_counts
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several workers on a few cores, and each worker's default pool
+    oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B, S_P, MAX_NEW, S_MAX, PS = 2, 8, 16, 256, 16
 # name: (cache_dtype, cache_layout, verify_fusion)
 LAYOUTS = {"dense": ("", "dense", False), "paged": ("", "paged", False),

@@ -54,6 +54,18 @@ from repro_torch.kernels import ref as TR
 from repro_torch.kernels.tree_attention import flash_decode
 from repro_torch.models import transformer as TT
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several workers on a few cores, and each worker's default pool
+    oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # B, S, Hq, Hkv, D, tree, dtype — tests/test_kernels.py::CASES
 CASES = [
     (2, 1024, 8, 2, 64, "medusa", "float32"),

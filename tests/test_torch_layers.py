@@ -74,7 +74,8 @@ def test_config_matches_reference():
 
 def test_unsupported_branches_raise():
     cfg = get_config("openpangu-7b", reduced=True)
-    for change in ({"family": "moe"}, {"tp_axis": "model"}):
+    for change in ({"family": "ssm"}, {"family": "hybrid"},
+                   {"family": "encdec"}, {"tp_axis": "model"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(dataclasses.replace(cfg, **change))
 
