@@ -294,6 +294,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -355,6 +356,16 @@ PHI_LAYERS = 16
 # openPangu-7B's fold)
 MOE_VLM_K1 = [("internvl2-26b", 8, 128, (384, 24)),
               ("granite-moe-1b-a400m", 8, 64, (128, 8))]
+# the SSM and hybrid families, chain-mode (Medusa heads on chain_tree(4),
+# T 5): mamba2-2.7b has no attention (K2 alone on its path); jamba's
+# attention position folds its G 8 x T 5 into R 40, the AR step's one row
+# into R 8, at head_dim 128.  Jamba runs at full width cut to one
+# 4-position unit (``ONE_UNIT``); the f32 phase also cuts its 16 experts
+# to 4 (top-2), since sixteen f32 experts of d_ff 24576 at d 8192 (~77 GB
+# a MoE layer) do not fit the card
+SSM_HYBRID = ["mamba2-2.7b", "jamba-1.5-large-398b"]
+JAMBA_K1 = [("jamba-1.5-large-398b", 8, 128, (40, 8))]
+JAMBA_F32_EXPERTS = 4
 
 
 def no_drop(cfg):
@@ -439,26 +450,47 @@ def host_ms(fn, iters: int, warmup: int = 3) -> float:
     return t * 1e3 / iters
 
 
-def device_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` in ms: the CUDA kernels' own time
-    under ``torch.profiler`` over ``iters`` runs.  For work shorter than
-    the host's cost of issuing it, where CUDA events around back-to-back
-    runs time the host instead of the card."""
+def device_profile(fn, iters: int, warmup: int = 3, expect=None):
+    """(mean device ms, mean kernel launches) of one ``fn()`` call: the
+    CUDA kernels' own time and count under ``torch.profiler`` over
+    ``iters`` runs (a replayed graph's kernels each count).  The profiler
+    can drop records, more often the longer a run of big captured graphs
+    has gone: a session may record a part of its kernels or none.  A session that records none, or fewer than ``expect``
+    kernels a call where the caller knows its count, is run again; after
+    three, the time comes from CUDA events around the calls queued
+    behind a spin kernel (``queued_ms``, logged) and the count is
+    None."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        n = sum(e.count for e in kernels)
+        if n and (expect is None or n >= expect * iters):
+            us = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                     for e in kernels)
+            return us / 1e3 / iters, n / iters
+    log(f"    (the profiler recorded {n} kernels for {iters} calls three "
+        f"times; CUDA events around the calls queued behind a spin kernel "
+        f"instead)")
+    return queued_ms(fn, iters, warmup=1), None
+
+
+def device_ms(fn, iters: int, warmup: int = 3, expect=None) -> float:
+    """Mean device time of ``fn()`` in ms: the CUDA kernels' own time
+    under ``torch.profiler`` over ``iters`` runs (``device_profile``).
+    For work shorter than the host's cost of issuing it, where CUDA
+    events around back-to-back runs time the host instead of the card."""
+    return device_profile(fn, iters, warmup, expect)[0]
 
 
 def scaled_err(got, ref) -> float:
@@ -512,7 +544,7 @@ def draft_t1_launches(proposer, steps: int) -> int:
 
     if not isinstance(proposer, DraftModelProposer):
         return 0
-    return steps * (proposer.dtree.K + 1) * proposer.dc.num_layers
+    return steps * (proposer.dtree.K + 1) * proposer.dc.num_attn_layers
 
 
 def k1_routes(cfg, B, S, steps, ar_steps=0, T=64, proposer=None):
@@ -524,11 +556,13 @@ def k1_routes(cfg, B, S, steps, ar_steps=0, T=64, proposer=None):
     from repro_torch.kernels.tree_attention import decode_plan
     from repro_torch.runtime import torch_dtype
 
+    want = {"single": 0, "split": 0, "merge": 0}
+    if not cfg.num_attn_layers:           # a pure SSM stack launches none
+        return want
     G = cfg.num_heads // cfg.num_kv_heads
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    want = {"single": 0, "split": 0, "merge": 0}
-    for t, n in ((T, steps * cfg.num_layers),
-                 (1, ar_steps * cfg.num_layers
+    for t, n in ((T, steps * cfg.num_attn_layers),
+                 (1, ar_steps * cfg.num_attn_layers
                   + draft_t1_launches(proposer, steps))):
         route = decode_plan(B, cfg.num_kv_heads, folded_rows(G, t), S,
                             torch_dtype(cfg.dtype), n_sm).route
@@ -723,7 +757,7 @@ def phase_kernels(dev):
         # the dense family's shapes: gemma-2b (one kv head, D 256, 8 q heads
         # a kv head: R 512 / 8) and qwen1.5-0.5b (16 kv heads, D 64, R 64 /
         # 8, the AR step's one row padded to 8)
-        for name, Hkv, D, rows in FAMILY_K1 + MOE_VLM_K1:
+        for name, Hkv, D, rows in FAMILY_K1 + MOE_VLM_K1 + JAMBA_K1:
             for R in rows:
                 folded_case(f"{name} R={R}", 4, 2048, Hkv, R, D, dt, ragged,
                             key=name if R == rows[0] else None)
@@ -869,7 +903,7 @@ def phase_kernel_variants(dev):
                 variant_case(*args, quantized, ps, 4 + ps)
         # the dense family's shapes, every variant: int8, paged (page size
         # 64) and int8 + paged (16), an idle slot on the pools
-        for name, Hkv, D, rows in FAMILY_K1 + MOE_VLM_K1:
+        for name, Hkv, D, rows in FAMILY_K1 + MOE_VLM_K1 + JAMBA_K1:
             for R in rows:
                 args = (dev, f"{name} R={R}", 4, 2048, Hkv, R, D, dt)
                 err = variant_case(*args, [1, 517, 1300, 2048], True, 0, R)
@@ -1302,6 +1336,28 @@ def phase_fusion_kernels(dev):
             qkv_case(dev, mcfg, f"{arch} spec", 64, dt, ragged, ps=64)
             qkv_case(dev, mcfg, f"{arch} AR", 1, dt, ragged, ps=16)
         torch.cuda.empty_cache()
+    # the SSM and hybrid families' chain step (T 5, N 20): K2 over
+    # mamba2-2.7b's [2560, 50280] head and jamba's [8192, 65536]; K3 at
+    # jamba's attention widths (d 8192, 64 + 8 + 8 heads of 128), the spec
+    # step's M 20 and the AR step's M 4, dense and paged
+    for arch in SSM_HYBRID:
+        mcfg = get_config(arch)
+        for dt in (torch.float32, torch.bfloat16):
+            err = stats_case(dev, f"{arch} chain N {4 * CHAIN_T}", 4,
+                             CHAIN_T, mcfg.d_model, mcfg.vocab_size, dt)
+            if dt == torch.bfloat16:
+                errs[f"K2 {arch}"] = err
+            if not mcfg.num_attn_layers:
+                continue
+            err = qkv_case(dev, mcfg, f"{arch} chain T={CHAIN_T} (M 20)",
+                           CHAIN_T, dt, ragged)
+            if dt == torch.bfloat16:
+                errs[f"K3 {arch}"] = err
+            qkv_case(dev, mcfg, f"{arch} AR", 1, dt, ragged)
+            qkv_case(dev, mcfg, f"{arch} chain T={CHAIN_T} (M 20)", CHAIN_T,
+                     dt, ragged, ps=64)
+            qkv_case(dev, mcfg, f"{arch} AR", 1, dt, ragged, ps=16)
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1444,6 +1500,15 @@ def phase_commit_kernels(dev):
     errs["internvl2-26b"] = path_case(dev, "internvl2-26b", 48, 8, 128, bf,
                                       S=512)
     path_case(dev, "internvl2-26b paged", 48, 8, 128, bf, ps=64, S=512)
+    # the hybrid's one attention position a unit (jamba's one-unit cut:
+    # one unit of [8, 128]) at the chain step: T 5 in-flight rows, every
+    # layout
+    jamba = "jamba-1.5-large-398b"
+    errs[jamba] = path_case(dev, jamba, 1, 8, 128, bf, T=CHAIN_T, S=512)
+    path_case(dev, f"{jamba} paged", 1, 8, 128, bf, T=CHAIN_T, ps=64, S=512)
+    path_case(dev, f"{jamba} int8", 1, 8, 128, bf, True, T=CHAIN_T, S=512)
+    path_case(dev, f"{jamba} int8 paged", 1, 8, 128, bf, True, T=CHAIN_T,
+              ps=16, S=512)
     return errs
 
 
@@ -1458,14 +1523,16 @@ def expected_counts(cfg, steps: int, ar_steps: int = 0,
     once per spec step and, on an fp cache, K3 once per layer and step
     (never under ``deferred``, which writes no tree row); the commit once
     per spec step (every unit and cache leaf in one launch, int8 too),
-    through K4 on the dense cache and K5 on the paged pool.  A draft-model
-    ``proposer`` adds its gamma + 1 T=1 decodes a step on each of its
+    through K4 on the dense cache and K5 on the paged pool.  Only the
+    attention layers count (an SSM layer launches none of these kernels,
+    and a stack without attention commits without a launch).  A
+    draft-model ``proposer`` adds its gamma + 1 T=1 decodes a step on each of its
     layers: K1 each, and K3 each on its fused fp write side (its cache is
     dense, in the target's cache dtype; ``deferred`` is the target's
     alone)."""
-    per_layer = cfg.num_layers * (steps + ar_steps)
+    per_layer = cfg.num_attn_layers * (steps + ar_steps)
     quantized = cfg.resolved_cache_dtype == "int8"
-    commits = steps
+    commits = steps if cfg.num_attn_layers else 0
     fused = cfg.verify_fusion
     t1 = draft_t1_launches(proposer, steps)
     draft_k3 = t1 if t1 and proposer.dc.verify_fusion and not quantized \
@@ -2499,6 +2566,354 @@ def phase_train_moe(dev):
         fail(f"granite-moe training: aux losses {auxes}")
 
 
+def ssm_f32_config(arch):
+    """Phase 4s's float32 config of ``arch`` at full width: mamba2-2.7b at
+    2 layers; jamba in its one-unit cut (``ONE_UNIT``) with its experts
+    cut to ``JAMBA_F32_EXPERTS`` (top-2) at no drop."""
+    from repro_torch.configs.jamba_15_large_398b import ONE_UNIT
+    from repro_torch.configs.registry import get_config
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    if arch == "mamba2-2.7b":
+        return dataclasses.replace(get_config(arch), num_layers=2,
+                                   name=f"{arch}-2layer-f32", **f32)
+    return no_drop(dataclasses.replace(
+        ONE_UNIT, num_experts=JAMBA_F32_EXPERTS,
+        name=f"{arch}-1unit-{JAMBA_F32_EXPERTS}experts-f32", **f32))
+
+
+SSM_F32_LAYOUTS = {"dense": {}, "paged": dict(cache_layout="paged",
+                                              page_size=16),
+                   "int8": dict(cache_dtype="int8"),
+                   "int8+paged": dict(cache_dtype="int8",
+                                      cache_layout="paged", page_size=16)}
+
+
+def phase_ssm_f32(dev):
+    """Phase 4s: mamba2-2.7b (2 layers) and jamba-1.5-large-398b (one
+    4-position unit, 4 experts, no drop) in float32 at full width, chain
+    mode (gamma 4): speculative ``generate`` == ``ar_generate`` token for
+    token through the captured steps for Medusa on the chain and n-gram,
+    unfused and with verify fusion, on the dense and paged caches, and
+    for jamba on int8 and int8 + paged too; launches exact
+    (``expected_counts``: K2 alone on mamba2's path, K1-K5 on jamba's)
+    and K1 on ``decode_plan``'s routes; on the dense cache the eager
+    engine (``graphs=False``) gives the graph's tokens with the same
+    launches.  Returns {arch: the dense fused Medusa run's counts}."""
+    from repro_torch.core.engine import ar_generate, build_engine
+    from repro_torch.launch.serve import build_model, make_prompts
+    from repro_torch.models.transformer import unit_structure
+
+    max_new, max_len = 32, 512
+    out = {}
+    for arch in SSM_HYBRID:
+        base = ssm_f32_config(arch)
+        t0 = time.perf_counter()
+        params, mp = build_model(base, 1, GAMMA, dev)
+        torch.cuda.synchronize()
+        log(f"  ({arch}) {base.name}: {base.num_layers} layers "
+            f"{unit_structure(base)}, {base.num_experts} experts, built in "
+            f"{time.perf_counter() - t0:.1f}s; memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        prompts = make_prompts(base.vocab_size, 4, 1, 16, 129)
+        tok, plen = (torch.from_numpy(a).to(dev)
+                     for a in padded_batch(prompts, range(4)))
+        layouts = ["dense", "paged"] + (["int8", "int8+paged"]
+                                        if base.num_attn_layers else [])
+        ars = {}
+        for name in layouts:
+            for vf in (False, True):
+                cfg = dataclasses.replace(base, **SSM_F32_LAYOUTS[name])
+                label = f"{arch} {name}" + (", verify fusion" if vf else "")
+                ar = None
+                for kind in ("medusa", "ngram"):
+                    eng = build_engine(cfg, kind, gamma=GAMMA,
+                                       use_kernel=True, device=dev,
+                                       verify_fusion=vf)
+                    pp = mp if kind == "medusa" else None
+                    reset_counts()
+                    sp, _, st = eng.generate(params, pp, tok, plen,
+                                             eng.init_cache(4, max_len),
+                                             max_new)
+                    ar_steps = 0
+                    if ar is None:
+                        ar, _ = ar_generate(
+                            eng.cfg, params, tok, plen,
+                            eng.init_cache(4, max_len), max_new,
+                            use_kernel=True, graphs=eng.step_graphs)
+                        ar, ar_steps = ar.cpu(), max_new
+                        ars[name, vf] = ar
+                    counts = read_counts()
+                    want = expected_counts(eng.cfg, st.steps, ar_steps)
+                    if counts != want:
+                        fail(f"f32 {label} {kind}: launches {counts}, "
+                             f"expected {want}")
+                    ps = cfg.page_size if cfg.paged else 1
+                    check_routes(f"f32 {label} {kind}", None,
+                                 k1_routes(eng.cfg, 4,
+                                           -(-max_len // ps) * ps, st.steps,
+                                           ar_steps, T=eng.tb.T))
+                    replays = [(k, g.replays) for k, g in kept_graphs(eng)]
+                    sp = sp.cpu()
+                    if not torch.equal(sp, ar):
+                        fail(f"float32 {label} {kind}: spec != AR:\nspec "
+                             f"{sp.tolist()}\nAR   {ar.tolist()}")
+                    mean_acc = st.accepted_sum.item() / (st.steps * 4)
+                    log(f"  f32 {label}, {kind}: graph spec == graph AR "
+                        f"for 4 x {max_new} tokens; {st.steps} spec steps "
+                        f"(mean accepted {mean_acc:.3f}); graph replays "
+                        f"{replays}; launches {counts} (exact)")
+                    if name == "dense" and kind == "medusa":
+                        if vf:
+                            out[arch] = counts
+                        eager = build_engine(cfg, kind, gamma=GAMMA,
+                                             use_kernel=True, device=dev,
+                                             verify_fusion=vf, graphs=False)
+                        reset_counts()
+                        ep, _, est = eager.generate(
+                            params, pp, tok, plen,
+                            eager.init_cache(4, max_len), max_new)
+                        ecounts = read_counts()
+                        if not torch.equal(ep.cpu(), sp) or \
+                                est.steps != st.steps or ecounts != \
+                                expected_counts(eng.cfg, st.steps):
+                            fail(f"f32 {label}: the eager step's tokens, "
+                                 f"steps or launches ({ecounts}) differ "
+                                 f"from the graph's")
+                        log(f"  f32 {label}, medusa: eager == graph tokens "
+                            f"and steps; eager launches {ecounts}")
+                        del eager
+                    del eng
+        # a self-draft (the target as its own draft model) proposes the
+        # target's greedy chain: whole chains are accepted, so the commit's
+        # select past the chain's first token runs on the card
+        cfg = dataclasses.replace(base, verify_fusion=True)
+        eng = build_engine(cfg, "draft", draft_cfg=cfg, gamma=GAMMA,
+                           use_kernel=True, device=dev)
+        reset_counts()
+        sp, _, st = eng.generate(params, params, tok, plen,
+                                 eng.init_cache(4, max_len), max_new)
+        counts = read_counts()
+        want = expected_counts(eng.cfg, st.steps, proposer=eng.proposer)
+        mean_acc = st.accepted_sum.item() / (st.steps * 4)
+        log(f"  f32 {arch} dense, verify fusion, self-draft: {st.steps} "
+            f"spec steps, mean accepted {mean_acc:.3f}; launches {counts} "
+            f"(expected {want})")
+        if counts != want:
+            fail(f"f32 {arch} self-draft: launches {counts}, expected {want}")
+        if not torch.equal(sp.cpu(), ars["dense", True]) or mean_acc <= 2:
+            fail(f"f32 {arch} self-draft: spec != AR or whole chains not "
+                 f"accepted (mean accepted {mean_acc})")
+        del eng, params, mp
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_step_line(run, profile: bool = False) -> str:
+    """The replayed spec step of a static run's engine: wall ms a step
+    (each replay followed by the exit test's host read) and device ms a
+    step, from CUDA events around 10 replays queued back to back; with
+    ``profile`` also the kernel launches a step and their device ms from
+    ``torch.profiler`` over 2 replays.  Profiled once a model: profiles
+    of graphs of ~10^4 nodes a replay leave later profiles recording
+    fewer kernels (``device_profile``)."""
+    graph, c = run.engine.step_graphs.kept()[0]
+
+    def step():
+        graph()
+        bool(torch.any(c.n_out < 0))
+
+    wall = host_ms(step, 10, warmup=1)
+    line = (f"replayed step wall {wall:.3f} ms, device "
+            f"{cuda_ms(graph, 10, warmup=1):.3f} ms (CUDA events)")
+    if profile:
+        dms, n = device_profile(step, 2, warmup=1)
+        line += (f" ({dms:.3f} ms of kernels, idle {1 - dms / wall:.3f}, "
+                 + ("launches not recorded" if n is None else
+                    f"{n:.0f} kernel launches a step") + ": the profiler)")
+    return line
+
+
+def phase_ssm_serve(dev):
+    """Phase 15: the SSM and hybrid families in bf16 at full width.
+
+    mamba2-2.7b at full depth (64 layers, ~5.4 GB) through the launcher:
+    ``--static`` with Medusa on the chain, unfused and ``--verify-fusion``
+    (K2 its only kernel), and ``--proposer ngram``, each held to
+    ``ar_generate`` under ``near_tie``; then the server (16 requests),
+    unfused and fused, held the same way.  jamba-1.5-large-398b in its
+    one-unit cut (``ONE_UNIT``, all 16 experts, at the no-drop capacity
+    factor) through ``build_engine`` on the dense cache unfused and
+    fused, the paged pool fused and the int8 cache, held to AR with
+    ``router_gap`` at each divergence; then through the launcher's server
+    (``served_config``), unfused, fused and with ``--chunk-size 64`` (the
+    suffix prefill's kept SSM state, masked slots restored).  Logged:
+    tok/s, tokens a step, the replayed step's wall and device ms and
+    launches a step, capture seconds, peak memory and ``ssm_restores``.
+    Returns {arch: the fused static run's launch counts}."""
+    out = {"mamba2-2.7b": serve_mamba2(dev)}
+    gc.collect()            # the servers' weights and the graphs' pools
+    torch.cuda.empty_cache()
+    out["jamba-1.5-large-398b"] = serve_jamba(dev)
+    return out
+
+
+def serve_mamba2(dev):
+    """Phase 15's mamba2-2.7b runs; returns the fused static run's
+    counts."""
+    from repro_torch.core.engine import build_engine
+
+    arch = "mamba2-2.7b"
+    argv = SERVE_ARGV + ["--arch", arch]
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  ({arch}) --arch {arch} --static, 64 layers at full width")
+    srv = serve_counted(argv, drift=True)[0]
+    check_against_ar(srv, dev)
+    weights = (srv.params, srv.proposer_params)
+    fsrv, counts = serve_counted(argv + ["--verify-fusion"], weights)
+    check_against_ar(fsrv, dev)
+    nsrv, _ = serve_counted(argv + ["--proposer", "ngram"],
+                            (srv.params, None))
+    check_against_ar(nsrv, dev)
+    # a self-draft accepts whole chains at full depth: the commit's select
+    # past the chain's first token, on bf16 states
+    eng = build_engine(fsrv.cfg, "draft", draft_cfg=fsrv.cfg, gamma=GAMMA,
+                       use_kernel=True, device=dev)
+    dsrv, _ = static_counted(eng, srv.params, srv.params, srv.prompts)
+    check_against_ar(dsrv, dev)
+    for label, run in (("medusa", srv), ("medusa fused", fsrv),
+                       ("ngram", nsrv), ("self-draft fused", dsrv)):
+        log(f"  {arch} --static {label}: {run_summary(run)}; "
+            f"{ssm_step_line(run, profile=run is fsrv)}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del fsrv, nsrv, dsrv, eng, run
+    for flags in ([], ["--verify-fusion"]):
+        served = server_counted(["--arch", arch] + flags, weights)
+        check_server_against_ar(f"{arch} server {flags}", served, dev)
+        log(f"  {arch} server {flags}: ssm_restores "
+            f"{served.server.stats['ssm_restores']}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del served
+    return counts
+
+
+def serve_jamba(dev):
+    """Phase 15's runs of jamba's one-unit cut; returns the dense fused
+    static run's counts."""
+    from repro_torch.configs.jamba_15_large_398b import ONE_UNIT
+    from repro_torch.core.engine import build_engine
+    from repro_torch.launch.serve import build_model, make_prompts
+
+    arch = "jamba-1.5-large-398b"
+    cfg = no_drop(ONE_UNIT)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, mp = build_model(cfg, SEED, GAMMA, dev)
+    torch.cuda.synchronize()
+    log(f"  ({arch}) full width cut to one 4-position unit "
+        f"(num_layers 4, hybrid_period 4, attn_index 1: SSM + dense, "
+        f"attention + MoE, SSM + dense, SSM + MoE; 16 experts, capacity "
+        f"factor {cfg.capacity_factor}) in bf16, Medusa heads K 4 on the "
+        f"chain: built in {time.perf_counter() - t0:.1f}s; memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompts = make_prompts(cfg.vocab_size, REQUESTS, SEED, 64, 257)
+    measure_drift(cfg, params, prompts, dev)
+    for name, kw, vf in (("dense", {}, False), ("dense", {}, True),
+                         ("paged 64", dict(cache_layout="paged"), True),
+                         ("int8", dict(cache_dtype="int8"), False)):
+        c = dataclasses.replace(cfg, **kw)
+        eng = build_engine(c, "medusa", use_kernel=True, device=dev,
+                           verify_fusion=vf)
+        run, counts = static_counted(eng, params, mp, prompts)
+        check_against_ar(run, dev)
+        if name == "dense" and vf:
+            out = counts
+        log(f"  {arch} {name}{', verify fusion' if vf else ''}: "
+            f"{run_summary(run)}; {ssm_step_line(run, profile=vf and not kw)}"
+            f"; launches {counts} "
+            f"(exact); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del eng, run
+    with served_config(lambda c: cfg if c.family == "hybrid" else c):
+        for flags in ([], ["--verify-fusion"], ["--chunk-size", "64"]):
+            served = server_counted(["--arch", arch] + flags, (params, mp))
+            check_server_against_ar(f"{arch} server {flags}", served, dev)
+            st = served.server.stats
+            log(f"  {arch} server {flags}: ssm_restores "
+                f"{st['ssm_restores']}, chunk calls {st['chunk_calls']}; "
+                f"peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if flags and flags[0] == "--chunk-size" and not (
+                    st["chunk_calls"] and st["ssm_restores"]):
+                fail(f"{arch} chunked server: no chunk call or no masked "
+                     f"slot restored ({st})")
+            del served
+    del params, mp
+    # a SpecServer holds itself through its bound device calls, so the
+    # ~51 GB of weights its servers hold go with the cyclic collector
+    gc.collect()
+    return out
+
+
+def measure_drift(cfg, params, prompts, dev):
+    """``step_drift`` of ``cfg`` (bf16) on the first 4 ``prompts`` into
+    ``SSM_DRIFT``, held below ``DRIFT_STEPS`` bf16 steps at the top logit
+    for a model without experts.  A MoE's drift is logged, not bounded:
+    a token whose router nearly ties between two experts can route apart
+    in the two steps, which moves its logits by more than any rounding;
+    ``router_gap`` witnesses it at each divergence."""
+    t0 = time.perf_counter()
+    D, flips, top = step_drift(cfg, params, prompts, dev)
+    bound = DRIFT_STEPS * bf16_step(top)
+    log(f"  ({cfg.name}) the spec and AR steps on the same tokens, 4 x "
+        f"{MAX_NEW} teacher-forced: logits over AR's top 8 differ by up to "
+        f"{D:.5f} (bound {bound:.5f}: {DRIFT_STEPS} bf16 steps at the top "
+        f"{top:.3f}), argmaxes part at {flips} of {4 * MAX_NEW} positions "
+        f"({time.perf_counter() - t0:.1f}s)")
+    if not (cfg.num_experts or D <= bound):
+        fail(f"{cfg.name}: the spec and AR steps' logits drift {D} apart "
+             f"on the same tokens, beyond {bound}")
+    SSM_DRIFT[cfg.name] = D
+
+
+def phase_train_ssm(dev):
+    """Phase 11 (v): 6 ``lm_train_step``s of mamba2-2.7b at full width
+    and depth (float32 master weights, bf16 products, remat; batch and
+    length cut to 4 x 512) on one repeated batch: the loss falls; ms per
+    step and peak memory."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import steps as ST
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("mamba2-2.7b")
+    p = TT.init_params(torch.Generator(device=dev).manual_seed(8), cfg)
+    state = {"p": p, "opt": O.adamw_init(p)}
+    data = D.synthetic_chat(D.SyntheticChatConfig(
+        vocab_size=cfg.vocab_size, seq_len=513, n_samples=4))
+    x = torch.from_numpy(data).to(dev)
+
+    def lm_step():
+        state["p"], state["opt"], met = ST.lm_train_step(
+            state["p"], state["opt"], cfg, x[:, :-1], x[:, 1:])
+        return met["loss"]
+
+    losses, ms = timed_steps(6, lm_step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = sum(t.numel() for t in O.tree_leaves(p))
+    log(f"  lm_train_step, mamba2-2.7b at full width and depth "
+        f"({n / 1e9:.3f} B float32 parameters, bf16 products, remat), one "
+        f"batch of 4 x 512 six times: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {ms:.1f} ms/step (median of steps 2-6); peak "
+        f"memory {peak:.2f} GiB")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"mamba2 training: losses {losses}")
+    del state, p
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the launcher on bf16 openPangu-7B, full width and depth,
 # unfused and then with verify fusion on the same weights
@@ -2546,6 +2961,60 @@ def check_served(srv, counts):
              f"steps (one eager warm-up step, then replays)")
 
 
+# the spec and AR steps' measured bf16 logit drift of a model with SSM
+# layers (``step_drift``), by config name: a recurrence carries every
+# rounding difference of the two steps' products into all later tokens
+SSM_DRIFT = {}
+# ``step_drift``'s sanity bound, in bf16 steps at the top logit
+DRIFT_STEPS = 8
+
+
+def step_drift(cfg, params, prompts, dev, n: int = MAX_NEW,
+               K: int = 8):
+    """The spec step's and the AR step's bf16 logits on the same tokens,
+    teacher-forced: one prefill of 4 prompts copied into two caches, then
+    ``n`` tokens (AR's own greedy choices) fed to both, the AR step
+    (``ar_step``, T 1) and a spec-shaped step (a chain of T 5 over the
+    token, committing its first: the served steps' shapes when nothing is
+    accepted).  Returns (D, flips, top): the largest |difference| of the
+    two steps' logits over AR's top ``K`` tokens at any position and row,
+    the positions where their argmaxes differ, and the largest top
+    logit.  In float32 the two agree bit for bit (phase 4s); in bf16 the
+    products' row counts (B x 5 against B) round apart, and an SSM's
+    recurrence carries that into every later token."""
+    from repro_torch.core.engine import ar_step
+    from repro_torch.core.tree import chain_tree
+    from repro_torch.models import transformer as TT
+
+    tok, plen = (torch.from_numpy(a).to(dev)
+                 for a in padded_batch(prompts, range(4)))
+    rows = -(-(tok.shape[1] + n + CHAIN_T + 8) // 64) * 64
+    ca = TT.init_cache(cfg, 4, rows, device=dev)
+    last, _ = TT.prefill(params, cfg, tok, plen, ca)
+    cs = {p: {k: v.clone() for k, v in e.items()} for p, e in ca.items()}
+    nxt = torch.argmax(TT.unembed(params, cfg, last), -1).to(torch.int32)
+    tb = chain_tree(CHAIN_T - 1)
+    mask = torch.from_numpy(tb.mask).to(dev)
+    depths = torch.from_numpy(tb.depths).to(dev)
+    path = torch.arange(CHAIN_T, dtype=torch.int32,
+                        device=dev)[None].expand(4, CHAIN_T)
+    one = torch.ones((4,), dtype=torch.int32, device=dev)
+    la, ls = plen.clone(), plen.clone()
+    D, flips, top = 0.0, 0, 0.0
+    for _ in range(n):
+        a, ca, la = ar_step(cfg, params, ca, nxt, la, use_kernel=True)
+        h, spec = TT.decode(params, cfg, cs, nxt[:, None].expand(
+            4, CHAIN_T).contiguous(), ls, mask, depths, use_kernel=True)
+        cs, ls = TT.commit(cfg, spec, ls, path, one)
+        a, sl = a.float(), TT.unembed(params, cfg, h[:, 0]).float()
+        vals, idx = torch.topk(a, K, dim=-1)
+        D = max(D, float((vals - sl.gather(1, idx)).abs().max()))
+        flips += int((sl.argmax(-1) != idx[:, 0]).sum())
+        top = max(top, float(vals[:, 0].max()))
+        nxt = idx[:, 0].to(torch.int32)
+    return D, flips, top
+
+
 def near_tie(cfg, gap, top, spec_tok, ar_tok):
     """(accepted, bound) of a bf16 divergence where AR's top logit ``top``
     (token ``ar_tok``) lies ``gap`` above its logit for the speculative
@@ -2556,10 +3025,20 @@ def near_tie(cfg, gap, top, spec_tok, ar_tok):
     round to a neighbouring step, in opposite directions, so the
     speculative step can tie them at an AR gap of exactly 2 s; a tie goes
     to the lower index (first wins), so that divergence is accepted only
-    when the speculative token's index is below AR's."""
+    when the speculative token's index is below AR's.  A model with SSM
+    layers whose drift ``SSM_DRIFT`` holds (``step_drift``: the two
+    steps' logits on the same tokens differ by up to D over AR's top
+    tokens) also accepts an AR gap up to 2 D: the spec token won, so its
+    logit and AR's top moved apart by the gap, each by at most D."""
     if cfg.name.startswith("openpangu-7b"):
         return gap < MARGIN_BOUND, MARGIN_BOUND
     bound = 2 * bf16_step(top)
+    drift = SSM_DRIFT.get(cfg.name)
+    if drift is not None and gap <= 2 * drift:
+        # a model with SSM layers: the two steps' logits on the same
+        # tokens differ by up to ``drift`` over AR's top tokens, so a
+        # divergence whose AR gap is within twice that is theirs
+        return True, 2 * drift
     return gap < bound or (gap == bound and spec_tok < ar_tok), bound
 
 
@@ -2641,14 +3120,18 @@ def check_against_ar(srv, dev, extras=None, gate=True):
     return REQUESTS - diverged
 
 
-def serve_counted(argv, weights=None):
+def serve_counted(argv, weights=None, drift=False):
     """One launcher run with the counts set to 0 just before it and read
-    just after; returns (Served, counts)."""
+    just after; returns (Served, counts).  With ``drift`` the served
+    model's ``measure_drift`` runs first, on the run's own weights and
+    prompts (after the run, which made them)."""
     from repro_torch.launch import serve
 
     reset_counts()
     srv = serve.main(argv, weights=weights)
     counts = read_counts()
+    if drift:
+        measure_drift(srv.cfg, srv.params, srv.prompts, srv.engine.device)
     check_served(srv, counts)
     steps = sum(srv.results[g]["steps"] for g in range(0, REQUESTS, SLOTS))
     ps = srv.cfg.page_size if srv.cfg.paged else 1
@@ -2999,14 +3482,15 @@ def serve_expected(srv, failed_steps: int = 0):
     chunks); with verify fusion K2 once a decode step and, on an fp cache,
     K3 once a layer for each decode step (unless deferred) and each
     suffix call (which never defers); one commit a decode step and a
-    suffix call, K4 dense, K5 paged; a draft-model proposer's gamma + 1
-    T=1 decodes a step on each of its layers.  ``failed_steps`` are
+    suffix call, K4 dense, K5 paged (none without an attention layer:
+    only attention layers count); a draft-model proposer's gamma + 1
+    T=1 decodes a step on each of its attention layers.  ``failed_steps`` are
     decode steps that ran and then failed (not in the stats).  Group
     prefills launch none of these kernels."""
     cfg, eng = srv.cfg, srv.engine
     steps = srv.stats["steps"] + failed_steps
     sfx = srv.timing["suffix_calls"]
-    L = cfg.num_layers
+    L = cfg.num_attn_layers
     quantized = cfg.resolved_cache_dtype == "int8"
     fused = cfg.verify_fusion
     t1 = draft_t1_launches(eng.proposer, steps)
@@ -3014,9 +3498,10 @@ def serve_expected(srv, failed_steps: int = 0):
         else 0
     k3 = (L * (steps * (not eng.deferred) + sfx) if fused and not quantized
           else 0) + draft_k3
+    commits = steps + sfx if L else 0
     return {"K1": L * (steps + sfx) + t1, "K2": steps if fused else 0,
-            "K3": k3, "K4": 0 if cfg.paged else steps + sfx,
-            "K5": steps + sfx if cfg.paged else 0}
+            "K3": k3, "K4": 0 if cfg.paged else commits,
+            "K5": commits if cfg.paged else 0}
 
 
 def add_counts(*counts):
@@ -4257,7 +4742,7 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
 
 
 def time_commit(dev, launches, max_err, paged=False, quantized=False,
-                ps=64, nu=34, D=128, suffix=""):
+                ps=64, nu=34, D=128, T=64, suffix=""):
     """The one-launch commit (K4 dense, K5 paged) at the main path's:
     openPangu-7B's 34 units' in-flight k and v [4, 64, 8, 128] bf16 (one
     tensor per unit, as decode leaves them), a best path of K1 5 rows per
@@ -4274,12 +4759,13 @@ def time_commit(dev, launches, max_err, paged=False, quantized=False,
     counts the accepted rows read once and written once (the scales
     under int8), the lengths, the path and the table entries they use.
     ``nu`` units of [8, ``D``] rows (``suffix`` names another model's
-    widths in the row's name)."""
+    widths in the row's name), from ``T`` in-flight rows a slot (the
+    chain step's 5)."""
     from repro_torch.kernels import cache_update as CU
     from repro_torch.kernels import paging as P
     from repro_torch.kernels.quant import quantize_rows
 
-    B, T, K1, H, S = 4, 64, 5, 8, 2048
+    B, K1, H, S = 4, 5, 8, 2048
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(11)
     src = {n: tuple(torch.randn((B, T, H, D), generator=gen,
@@ -4341,16 +4827,14 @@ def time_commit(dev, launches, max_err, paged=False, quantized=False,
     # each call is shorter than the host's cost of issuing it: device
     # times from the profiler, and the host's rate beside them
     issue_ms = cuda_ms(kernel, 200)
-    ms = device_ms(kernel, 50)
+    ms = device_ms(kernel, 50, expect=1)
     plain_ms = device_ms(lambda: CU.commit_path_stacked_plain(
         leaves, src, path, lengths, table), 50)
     old_ms = device_ms(old, 50)
     given_ms = device_ms(lambda: uncounted(rows_given, leaves["k"], *extra,
-                                           pre["k"], lengths), 50)
+                                           pre["k"], lengths), 50, expect=1)
     lib_ms = device_ms(lib, 50)
-    # a window in which the profiler caught no kernel reads 0: read again
-    empty_ms = device_ms(lambda: torch.cuda._sleep(0), 50) \
-        or device_ms(lambda: torch.cuda._sleep(0), 50)
+    empty_ms = device_ms(lambda: torch.cuda._sleep(0), 50, expect=1)
     moved = sum(r.numel() * r.element_size() for r in pre.values())
     read = 2 * nu * B * K1 * H * D * 2
     blocks = len({(b, (n + j) // ps) for b, n in enumerate(lengths.tolist())
@@ -4466,6 +4950,14 @@ def main() -> int:
           "AR, unfused and fused, int8 + paged for granite-moe")
     phase_moe_vlm_f32(dev)
     torch.cuda.empty_cache()
+    phase("phase 4s: the SSM and hybrid families (mamba2-2.7b at 2 layers, "
+          "jamba-1.5-large-398b cut to one 4-position unit with "
+          f"{JAMBA_F32_EXPERTS} of its 16 experts, no drop), float32, full "
+          "width, chain mode: speculative == AR for Medusa on the chain and "
+          "n-gram, unfused and fused, dense and paged (jamba int8 and int8 + "
+          "paged too), graph == eager")
+    phase_ssm_f32(dev)
+    torch.cuda.empty_cache()
 
     phase("phase 5: the launcher on bf16 openPangu-7B, full width and depth, "
         "through the captured step")
@@ -4524,9 +5016,21 @@ def main() -> int:
           f"phi3.5-moe-42b-a6.6b at {PHI_LAYERS} layers through build_engine")
     moe_vlm = phase_moe_vlm_serve(dev)
     torch.cuda.empty_cache()
+    phase("phase 15: the SSM and hybrid families in bf16 at full width: "
+          "mamba2-2.7b at full depth through the launcher (--static: Medusa "
+          "on the chain unfused and fused, n-gram; the server unfused and "
+          "fused), jamba-1.5-large-398b cut to one 4-position unit at no "
+          "drop through build_engine (dense unfused and fused, paged fused, "
+          "int8) and the server (unfused, fused, chunked)")
+    ssm = phase_ssm_serve(dev)
+    torch.cuda.empty_cache()
     phase("phase 11: training (iv) granite-moe-1b-a400m LM steps at full "
           "width and depth")
     phase_train_moe(dev)
+    torch.cuda.empty_cache()
+    phase("phase 11: training (v) mamba2-2.7b LM steps at full width and "
+          "depth")
+    phase_train_ssm(dev)
     torch.cuda.empty_cache()
     phase("phase 11: training (i) card against CPU, reduced float32 "
         "openPangu-7B")
@@ -4624,6 +5128,21 @@ def main() -> int:
         rows.append(time_commit(dev, moe_vlm[arch]["K4"],
                                 commit_errs[arch], nu=nu, D=D,
                                 suffix=f"@{arch}"))
+    # the SSM and hybrid families' chain step (phase 15's fused static
+    # runs): K2 over mamba2-2.7b's head (its only kernel) and jamba's; K1
+    # at jamba's fold (R 40, the AR step's R 8), K3 at its widths (M 20
+    # and M 4), the commit of its one unit of [8, 128] from T 5 rows
+    for arch in SSM_HYBRID:
+        rows.append(time_verify_stats(dev, get_config(arch), ssm[arch]["K2"],
+                                      errs[f"K2 {arch}"], T=CHAIN_T,
+                                      suffix=f"@{arch}"))
+    jamba = "jamba-1.5-large-398b"
+    rows += [time_flash_decode(dev, prompt_lens, MAX_NEW, ssm[jamba]["K1"],
+                               k1_errs_dense[jamba], shape=JAMBA_K1[0]),
+             time_fused_qkv(dev, get_config(jamba), mid, ssm[jamba]["K3"],
+                            errs[f"K3 {jamba}"], Ts=(CHAIN_T, 1)),
+             time_commit(dev, ssm[jamba]["K4"], commit_errs[jamba], nu=1,
+                         D=128, T=CHAIN_T, suffix=f"@{jamba}")]
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(smi_line(), flush=True)

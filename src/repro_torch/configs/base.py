@@ -4,7 +4,8 @@
 names and defaults, so one architecture reads the same in both packages
 and a test can compare the two field by field.  ``reduce`` derives the
 CPU-test variant exactly as the reference does.  The port runs the dense,
-MoE and VLM families; ``models/api.get_model`` rejects the rest.
+MoE, VLM, SSM and hybrid families; ``models/api.get_model`` rejects the
+encoder-decoder and tensor parallelism.
 ``SamplingParams`` is a copy of the reference's sampling controls and
 ``SchedulerParams`` of its serving-scheduler knobs.
 """

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
 launchers.  It lists the reference registry's decoders that the port
 carries: the paper's own model, the four other dense decoders, the two
-mixture-of-experts models and the vision-language model (its modality
-frontend a stub)."""
+mixture-of-experts models, the vision-language model (its modality
+frontend a stub), the state-space model and the hybrid."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +19,8 @@ _MODULES = {
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe_42b_a66b",
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_27b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_15_large_398b",
 }
 
 ALL_ARCHS = list(_MODULES)

@@ -45,7 +45,8 @@ from repro_torch.kernels import ops as KO
 from repro_torch.kernels import paging as P
 from repro_torch.models import api as model_api
 from repro_torch.models.api import get_model
-from repro_torch.models.transformer import PAGES_KEY, cache_max_len
+from repro_torch.models.transformer import (PAGES_KEY, cache_max_len,
+                                             is_attn_entry)
 from repro_torch.runtime import (StepGraphs, binding, copy_tree_,
                                  resolve_device, torch_dtype, tree_map,
                                  tree_spec)
@@ -211,6 +212,20 @@ class SpecEngine:
                     t.zero_()
         return cache
 
+    def _capacity(self, cache, fallback: int) -> int:
+        """Rows a proposer state allocated for ``cache`` holds: the
+        cache's per-slot capacity; for a cache without attention rows (a
+        pure SSM stack's) the ``max_len`` this engine made it with, so
+        every group on the engine's cache has one state shape (one
+        graph); else ``fallback`` (the reference's prompt-sized rule)."""
+        rows = cache_max_len(cache)
+        if rows:
+            return rows
+        for (_, max_len, _), mine in self._caches.items():
+            if mine is cache:
+                return max_len
+        return fallback
+
     def init_proposer_state(self, batch: int, capacity: int):
         return self.proposer.init_state(batch, capacity)
 
@@ -272,7 +287,8 @@ class SpecEngine:
         else:
             base = torch.argmax(logits, dim=-1).to(torch.int32)
         if state is None:
-            state = self.init_proposer_state(B, cache_max_len(cache))
+            state = self.init_proposer_state(
+                B, self._capacity(cache, Sp + self.dtree.T + 2))
         state = self.proposer.prime(proposer_params, state, tokens, lengths,
                                     self._tok_lens(lengths, extra_embeds),
                                     last_hidden, base,
@@ -320,12 +336,16 @@ class SpecEngine:
         dev = tokens.device
         causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
         depths = torch.arange(T, dtype=torch.int32, device=dev)
+        nv = torch.clamp(n_valid, 1, T).to(torch.int32)
+        # an SSM position keeps, inside its loop over the T tokens, only
+        # the state after each row's valid suffix (the root on a masked
+        # row): never the [B, T, ...] per-token states of a whole chunk
         hidden, spec_cache = self.model.decode(
             params, self.cfg, cache, tokens, lengths, causal, depths,
-            use_kernel=self.use_kernel)
+            use_kernel=self.use_kernel,
+            ssm_keep=torch.where(active, nv, torch.zeros_like(nv)))
         path = torch.arange(T, dtype=torch.int32,
                             device=dev)[None].expand(B, T)
-        nv = torch.clamp(n_valid, 1, T).to(torch.int32)
         cache, new_lengths = self.model.commit(self.cfg, spec_cache, lengths,
                                                path, nv, active=active)
         rows = torch.arange(B, device=dev)
@@ -338,7 +358,8 @@ class SpecEngine:
         else:
             base = torch.argmax(logits, dim=-1).to(torch.int32)
         if state is None:
-            state = self.init_proposer_state(B, cache_max_len(cache))
+            state = self.init_proposer_state(
+                B, self._capacity(cache, T + self.dtree.T + 2))
         state = self.proposer.prime(proposer_params, state, tokens,
                                     new_lengths, nv, h_last, base)
         return cache, new_lengths, base, state
@@ -515,7 +536,8 @@ class SpecEngine:
         B = tokens.shape[0]
         t, _, p = self._sampling_args(temperature)
         if state is None:
-            state = self.init_proposer_state(B, cache_max_len(cache))
+            state = self.init_proposer_state(
+                B, self._capacity(cache, tokens.shape[1] + max_new + dt.T + 2))
         cache, lengths, base, state = self.prefill(
             params, proposer_params, tokens, prompt_lengths, cache,
             extra_embeds=extra_embeds, state=state, temperature=t, top_p=p)
@@ -549,10 +571,12 @@ def _write_out(c: SpecCarry, toks):
 
 
 def _cache_batch(cache) -> int:
-    """Slots of a cache: the table's rows (paged) or the B axis (dense)."""
+    """Slots of a cache: the table's rows (paged) or the B axis of its
+    first entry's leaves (dense; an SSM position's state is per slot
+    under every layout)."""
     if PAGES_KEY in cache:
         return cache[PAGES_KEY]["table"].shape[0]
-    return cache["pos0"]["k"].shape[1]
+    return next(iter(cache["pos0"].values())).shape[1]
 
 
 def build_engine(cfg: ModelConfig, proposer: str = "medusa", *,
@@ -755,9 +779,17 @@ def ar_generate_sampled(cfg: ModelConfig, params, tokens, prompt_lengths,
 
 
 def _squeeze_spec(spec_cache):
-    """Drop the in-flight ``*_new`` rows of a T=1 spec cache, keeping the
-    persistent leaves (k/v and, under int8, k_scale/v_scale) and the paged
-    layout's ``_pages`` block table."""
-    return {pos: entry if pos == PAGES_KEY else
+    """Settle a T=1 spec cache: drop the in-flight ``*_new`` rows, keeping
+    the persistent leaves (k/v and, under int8, k_scale/v_scale) and the
+    paged layout's ``_pages`` block table.  An SSM position's state after
+    the one token (a T=1 step always accepts it) is copied over its
+    persistent state first: the reference's collapse of the T=1 axis."""
+    out = {}
+    for pos, entry in spec_cache.items():
+        if pos != PAGES_KEY and not is_attn_entry(entry):
+            for name, x in entry.items():
+                for u, states in enumerate(entry.get(name + "_new", ())):
+                    x[u].copy_(states[:, 0])
+        out[pos] = entry if pos == PAGES_KEY else \
             {n: x for n, x in entry.items() if not n.endswith("_new")}
-            for pos, entry in spec_cache.items()}
+    return out

@@ -32,9 +32,12 @@ parallelism, which stays a later slice).
 It serves openPangu-7B at full width on the card by default, or with
 ``--arch`` any architecture of the registry: the dense decoders
 granite-8b, qwen1.5-0.5b, qwen1.5-4b and gemma-2b, the mixture-of-experts
-granite-moe-1b-a400m and phi3.5-moe-42b-a6.6b, and internvl2-26b, served
-on its text alone as the reference launcher serves it (random weights
-from ``--seed``, in the config's bf16); ``--reduced`` takes the reference's reduced CPU-test config and
+granite-moe-1b-a400m and phi3.5-moe-42b-a6.6b, internvl2-26b, served
+on its text alone as the reference launcher serves it, the state-space
+mamba2-2.7b and the hybrid jamba-1.5-large-398b (both chain-mode: their
+Medusa heads verify a chain of 4; the prefix cache is refused for them)
+(random weights from ``--seed``, in the config's bf16); ``--reduced``
+takes the reference's reduced CPU-test config and
 ``--device cpu`` the plain PyTorch versions of the kernels.  On the card
 every decode step is a CUDA graph, captured at its second run and
 replayed after it (one graph a speculation level for the server; the

@@ -5,7 +5,7 @@ eagerly and as the captured CUDA graph the engine replays.
   PYTHONPATH=src python -m repro_torch.launch.trace [--arch openpangu-7b] \
       [--steps 4] [--cache-dtype int8] [--cache-layout paged] \
       [--page-size 64] [--temperature 0.7] [--only KIND,KIND] \
-      [--proposer medusa|draft|ngram] [--gamma 4]
+      [--proposer medusa|draft|ngram] [--gamma 4] [--one-unit]
 
 Builds the launcher's model (bf16 ``--arch``, by default openPangu-7B,
 at full width and depth, random weights from seed 0), prefills 4 prompts
@@ -52,7 +52,14 @@ row: the device ms and launches per step of its four stages
 (``layers.moe_route``: router, top-k, queue positions and the one-hot
 dispatch and combine tensors; ``moe_dispatch``; ``moe_experts``: the
 three expert products and the activation; ``moe_combine``), each
-wrapped in a range the same way.  ``--cache-dtype``, ``--cache-layout``
+wrapped in a range the same way.  For an arch with SSM positions
+(``--arch mamba2-2.7b``, or the hybrid) the eager kinds print the SSM
+mixer's row: the device ms and launches per step of the kernels issued
+inside ``ssm.mamba2_decode`` (the projections, the loop over the chain's
+tokens, the gated norm and the output projection), wrapped in a range
+the same way.  ``--one-unit`` traces jamba-1.5-large-398b at full width
+cut to one 4-position unit (``configs.jamba_15_large_398b.ONE_UNIT``),
+the depth one card holds.  ``--cache-dtype``, ``--cache-layout``
 and ``--page-size`` (the launcher's flags, names and defaults) trace the
 same steps on the int8 cache and on the paged pool.  ``--proposer`` and ``--gamma`` (the
 launcher's flags) trace the spec kinds of the draft-model or n-gram
@@ -72,16 +79,18 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs.base import SamplingParams
+from repro_torch.configs.jamba_15_large_398b import ONE_UNIT
 from repro_torch.configs.registry import ALL_ARCHS, get_config
 from repro_torch.core.engine import ar_loop_step, build_engine
 from repro_torch.launch.serve import (build_model, make_prompts,
                                       proposer_params)
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, ssm, transformer
 from repro_torch.runtime import resolve_device, tree_map
 from repro_torch.serving.scheduler import SpecServer
 
 DECODE_RANGE, COMMIT_RANGE = "model.decode", "model.commit"
 MOE_STAGES = ("moe_route", "moe_dispatch", "moe_experts", "moe_combine")
+SSM_RANGE = "mamba2_decode"
 
 
 def _port_kernels() -> set:
@@ -112,15 +121,17 @@ def _ranged(name: str, fn):
     return call
 
 
-def range_model(model, layers):
+def range_model(model, layers, ssm):
     """Wrap ``model.decode`` and ``model.commit`` (the model module every
-    engine and the AR loop call through) and the MoE's stages in
-    ``layers`` (``layers.moe`` calls them through the module) in profiler
+    engine and the AR loop call through), the MoE's stages in ``layers``
+    (``layers.moe`` calls them through the module) and the SSM mixer's
+    ``ssm.mamba2_decode`` (called through its module too) in profiler
     ranges."""
     model.decode = _ranged(DECODE_RANGE, model.decode)
     model.commit = _ranged(COMMIT_RANGE, model.commit)
     for name in MOE_STAGES:
         setattr(layers, name, _ranged(name, getattr(layers, name)))
+    ssm.mamba2_decode = _ranged(SSM_RANGE, ssm.mamba2_decode)
 
 
 def _within(evt, ranges) -> bool:
@@ -190,6 +201,13 @@ def moe_row(prof, steps: int):
         name: _cpu_ranges(ev, name) for name in MOE_STAGES})
 
 
+def ssm_row(prof, steps: int):
+    """The SSM mixer's row: the kernels launched inside
+    ``mamba2_decode``."""
+    range_row(prof, steps, "SSM row", lambda ev: {
+        SSM_RANGE: _cpu_ranges(ev, SSM_RANGE)})
+
+
 def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
            replays: int, capture_s: float, top: int = 12):
     """Print one traced phase's per-step breakdown, with the graph
@@ -197,7 +215,8 @@ def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and e.key not in (DECODE_RANGE, COMMIT_RANGE, *MOE_STAGES)]
+               and e.key not in (DECODE_RANGE, COMMIT_RANGE, SSM_RANGE,
+                                 *MOE_STAGES)]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels)
     wall_ms = wall_s * 1e3 / steps
@@ -236,11 +255,17 @@ def main(argv=None):
                     help="the spec kinds' draft policy")
     ap.add_argument("--gamma", type=int, default=4,
                     help="chain length for the draft/ngram proposers")
+    ap.add_argument("--one-unit", action="store_true",
+                    help="jamba-1.5-large-398b at full width cut to one "
+                         "4-position unit (the depth one card holds)")
     args = ap.parse_args(argv)
+    if args.one_unit and args.arch != "jamba-1.5-large-398b":
+        ap.error("--one-unit cuts jamba-1.5-large-398b")
 
     dev = resolve_device("cuda")
-    range_model(transformer, layers)
-    cfg = dataclasses.replace(get_config(args.arch),
+    range_model(transformer, layers, ssm)
+    base = ONE_UNIT if args.one_unit else get_config(args.arch)
+    cfg = dataclasses.replace(base,
                               cache_dtype=args.cache_dtype,
                               cache_layout=args.cache_layout,
                               page_size=args.page_size)
@@ -366,6 +391,8 @@ def main(argv=None):
             commit_row(prof, args.steps)
             if cfg.num_experts:
                 moe_row(prof, args.steps)
+            if cfg.num_ssm_layers:
+                ssm_row(prof, args.steps)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Uniform model API (counterpart of ``repro.models.api``).
 
 ``init_cache`` here is the one cache factory the engine builds through.
-The port carries the decoder-only stack of the dense, MoE and VLM
-families, under every cache dtype and layout of the reference; every
-other family raises ``NotImplementedError`` naming its later slice.
+The port carries the decoder-only stack of the dense, MoE, VLM, SSM and
+hybrid families, under every cache dtype and layout of the reference;
+the encoder-decoder and tensor parallelism raise
+``NotImplementedError`` naming their later slice.
 """
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer

@@ -1,26 +1,39 @@
-"""Decoder-only stack in PyTorch, dense, MoE and VLM families: init,
-prefill, the static speculative decode step and the zero-copy commit.
+"""Decoder-only stack in PyTorch, dense, MoE, VLM, SSM and hybrid
+families: init, prefill, the static speculative decode step and the
+zero-copy commit.
 
-Counterpart of ``repro.models.transformer``.  Parameters keep the
-reference tree: ``params["units"]["pos0"]`` holds every layer's weights
-stacked on a leading ``n_units`` axis, and the cache is
-``{"pos0": {"k", "v": [n_units, B, S, Hkv, D]}}``, with the reference's
+Counterpart of ``repro.models.transformer``.  The stack is a repeating
+unit of positions (``unit_structure``): one attention position for the
+dense, MoE and VLM families, one Mamba2 position without an FFN for the
+SSM family, and ``hybrid_period`` positions for the hybrid (attention at
+``attn_index``, Mamba2 elsewhere, the MoE FFN where ``pos % moe_every ==
+moe_offset``).  Parameters keep the reference tree:
+``params["units"]["pos<i>"]`` holds every unit's weights of position i
+stacked on a leading ``n_units`` axis.  An attention position's cache
+entry is ``{"k", "v": [n_units, B, S, Hkv, D]}``, with the reference's
 two other layouts: int8 values plus ``k_scale``/``v_scale``
 [n_units, B, S, Hkv, 1] f32 (``cfg.cache_dtype == "int8"``), and the
 paged pool [n_units, n_blocks, page_size, Hkv, D] with the block table
 under ``cache["_pages"]["table"]`` (``cfg.cache_layout == "paged"``).
+An SSM position's entry is its recurrent state per slot under every
+layout: ``conv_x`` [n_units, B, d_inner, W-1], ``conv_bc`` [n_units, B,
+2N, W-1] (the activation dtype) and ``ssm`` [n_units, B, H, P, N] f32.
 Where the reference scans over units, this module runs a host loop over
-them.  A MoE config's units carry ``layers.moe`` in place of the dense
-MLP (``params["units"]["pos0"]["ffn"]`` holds the f32 router and the
-stacked experts); a VLM config adds ``params["frontend_proj"]``, which
-projects the stub frontend's prefix embeddings (``extra_embeds``) into
-the stream ahead of the token embeddings.
+them.  A MoE position carries ``layers.moe`` in place of the dense MLP
+(``ffn`` holds the f32 router and the stacked experts); a VLM config
+adds ``params["frontend_proj"]``, which projects the stub frontend's
+prefix embeddings (``extra_embeds``) into the stream ahead of the token
+embeddings.
 
 Unlike the reference's pure functions, ``prefill``, ``decode`` and
 ``commit`` write the cache tensors in place (indexed writes of the rows
 that change), so one step never copies the cache.  The caller's cache
 dict is therefore updated by these calls, and the dict they return holds
-the same tensors.
+the same tensors.  An SSM position's state is the speculation root
+until ``commit``: ``decode`` leaves it untouched and returns the state
+after each chain token beside it, and ``commit`` copies the selected one
+in (the root itself, bit for bit, on a masked row), which is the
+reference's checkpointed rollback without its checkpoint leaves.
 """
 from __future__ import annotations
 
@@ -39,6 +52,7 @@ from repro_torch.kernels.cache_update import (commit_path_stacked,
 from repro_torch.kernels.cache_update import commit_rows_plain as _update_rows
 from repro_torch.kernels.ops import tree_attention
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.runtime import resolve_device, torch_dtype
 
 # cache-dict key holding the paged layout's block table; it is not a layer
@@ -62,21 +76,36 @@ def split_pages(cache):
 
 def unit_structure(cfg: ModelConfig):
     """[(mixer_kind, ffn_kind)] for each position inside the repeating
-    unit: one attention layer, with the MoE FFN for a config with experts
-    and the dense MLP otherwise."""
+    unit (the reference's rule): ("ssm", "none") for the SSM family; for
+    the hybrid ``hybrid_period`` positions, attention at ``attn_index``
+    and Mamba2 elsewhere, each with the MoE FFN where ``pos % moe_every
+    == moe_offset`` and the dense MLP otherwise; else one attention
+    position, with the MoE FFN for a config with experts."""
     check_supported(cfg)
+    if cfg.family == "ssm":
+        return [("ssm", "none")]
+    if cfg.family == "hybrid" and cfg.hybrid_period:
+        return [("attn" if pos == cfg.attn_index else "ssm",
+                 "moe" if (cfg.num_experts
+                           and pos % cfg.moe_every == cfg.moe_offset)
+                 else "dense")
+                for pos in range(cfg.hybrid_period)]
     return [("attn", "moe" if cfg.num_experts else "dense")]
 
 
 def n_units(cfg: ModelConfig) -> int:
-    return cfg.num_layers // len(unit_structure(cfg))
+    u = len(unit_structure(cfg))
+    if cfg.num_layers % u:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not a "
+                         f"whole number of {u}-position units")
+    return cfg.num_layers // u
 
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError, naming the later slice, for every branch
     of the reference that the port does not carry yet."""
     later = []
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         later.append(f"family {cfg.family!r} (ROADMAP queue 1 item 14)")
     if cfg.tp_axis:
         later.append("tensor parallelism (ROADMAP queue 1 item 16)")
@@ -96,17 +125,22 @@ def unit_params(params, u: int):
 # init
 # ---------------------------------------------------------------------------
 
-def _init_position(gen: torch.Generator, cfg: ModelConfig, ffn: str,
-                   nu: int):
-    """One attention position's weights (``check_supported`` refuses the
-    SSM mixer), with the ``ffn`` kind's FFN, stacked over the ``nu``
-    units."""
+def _init_position(gen: torch.Generator, cfg: ModelConfig, mix: str,
+                   ffn: str, nu: int):
+    """One position's weights, stacked over the ``nu`` units: the
+    ``mix`` mixer (attention or Mamba2) and, unless ``ffn`` is "none",
+    the second norm and the ``ffn`` kind's FFN."""
     dev = gen.device
-    return {"norm1": L.init_norm(cfg, dev, stack=nu),
-            "attn": L.init_attention(gen, cfg, stack=nu),
-            "norm2": L.init_norm(cfg, dev, stack=nu),
-            "ffn": (L.init_moe(gen, cfg, stack=nu) if ffn == "moe"
-                    else L.init_mlp(gen, cfg, stack=nu))}
+    p = {"norm1": L.init_norm(cfg, dev, stack=nu)}
+    if mix == "attn":
+        p["attn"] = L.init_attention(gen, cfg, stack=nu)
+    else:
+        p["ssm"] = SSM.init_mamba2(gen, cfg, stack=nu)
+    if ffn != "none":
+        p["norm2"] = L.init_norm(cfg, dev, stack=nu)
+        p["ffn"] = (L.init_moe(gen, cfg, stack=nu) if ffn == "moe"
+                    else L.init_mlp(gen, cfg, stack=nu))
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=None):
@@ -121,8 +155,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=None):
     params = {
         "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), dt,
                               scale=0.02),
-        "units": {f"pos{i}": _init_position(gen, cfg, ffn, nu)
-                  for i, (_, ffn) in enumerate(unit_structure(cfg))},
+        "units": {f"pos{i}": _init_position(gen, cfg, mix, ffn, nu)
+                  for i, (mix, ffn) in enumerate(unit_structure(cfg))},
         "final_norm": L.init_norm(cfg, gen.device),
     }
     if not cfg.tie_embeddings:
@@ -206,19 +240,31 @@ def _ffn(p, kind: str, x, cfg: ModelConfig):
     return L.mlp(p["ffn"], x, cfg), None
 
 
+def _ffn_residual(p, kind: str, x, cfg: ModelConfig):
+    """``x`` plus the position's FFN on its second norm (``x`` itself for
+    an SSM position without one)."""
+    if kind == "none":
+        return x
+    return x + _ffn(p, kind, L.apply_norm(p["norm2"], x, cfg), cfg)[0]
+
+
 # ---------------------------------------------------------------------------
 # full-sequence forward (training)
 # ---------------------------------------------------------------------------
 
 def _unit_full(unit_p, x, cfg: ModelConfig, collect_router: bool = False):
-    """One unit over the full sequence (causal attention, then the FFN).
-    Returns (x, aux): the sum of ``moe_aux_loss`` over the unit's MoE
-    positions when ``collect_router``, else 0."""
+    """One unit over the full sequence: each position's mixer (causal
+    attention or the chunked SSD), then its FFN.  Returns (x, aux): the
+    sum of ``moe_aux_loss`` over the unit's MoE positions when
+    ``collect_router``, else 0."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (_, ffn) in enumerate(unit_structure(cfg)):
+    for i, (mix, ffn) in enumerate(unit_structure(cfg)):
         p = unit_p[f"pos{i}"]
-        x = x + L.attention_full(p["attn"], L.apply_norm(p["norm1"], x, cfg),
-                                 cfg)
+        h = L.apply_norm(p["norm1"], x, cfg)
+        x = x + (L.attention_full(p["attn"], h, cfg) if mix == "attn"
+                 else SSM.mamba2_full(p["ssm"], h, cfg))
+        if ffn == "none":
+            continue
         y, router_logits = _ffn(p, ffn, L.apply_norm(p["norm2"], x, cfg),
                                 cfg)
         if collect_router and router_logits is not None:
@@ -285,17 +331,25 @@ def forward_train(params, cfg: ModelConfig, tokens, extra_embeds=None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                n_blocks=None):
     """Zeroed decode cache on ``device`` (the card unless the caller asks
-    for ``"cpu"``), in ``cfg.resolved_cache_dtype``.
+    for ``"cpu"``): one entry per position of the unit.
 
-    Dense: ``{"pos0": {"k", "v": [nu, B, S, Hkv, D]}}``.  int8 adds
-    ``k_scale``/``v_scale`` [nu, B, S, Hkv, 1] f32.  Paged
-    (``cfg.cache_layout == "paged"``): the leaves become pools
-    [nu, n_blocks, page_size, Hkv, D] (scales [nu, n_blocks, page_size,
-    Hkv, 1]) and ``"_pages": {"table": [B, max_blocks] int32}`` holds the
-    one table of every layer, max_blocks = ceil(max_len / page_size).
-    With ``n_blocks=None`` the pool is sized for the identity table (one
-    contiguous run of blocks per slot after trash block 0); an explicit
-    ``n_blocks`` starts with all-zero tables for an allocator to fill.
+    Attention positions, in ``cfg.resolved_cache_dtype``: dense
+    ``{"k", "v": [nu, B, S, Hkv, D]}``; int8 adds ``k_scale``/``v_scale``
+    [nu, B, S, Hkv, 1] f32.  Paged (``cfg.cache_layout == "paged"``): the
+    leaves become pools [nu, n_blocks, page_size, Hkv, D] (scales
+    [nu, n_blocks, page_size, Hkv, 1]) and ``"_pages": {"table":
+    [B, max_blocks] int32}`` holds the one table of every layer,
+    max_blocks = ceil(max_len / page_size).  With ``n_blocks=None`` the
+    pool is sized for the identity table (one contiguous run of blocks
+    per slot after trash block 0); an explicit ``n_blocks`` starts with
+    all-zero tables for an allocator to fill.
+
+    SSM positions stay per slot under every layout: ``conv_x``
+    [nu, B, d_inner, W-1] and ``conv_bc`` [nu, B, 2N, W-1] in the
+    activation dtype ``cfg.dtype`` (the reference allocates them in the
+    cache dtype, an int8 placeholder that its prefill replaces with
+    activation-dtype tensors; the port writes in place), and ``ssm``
+    [nu, B, H, P, N] f32.
     """
     device = resolve_device(device)
     dt = torch_dtype(cfg.resolved_cache_dtype)
@@ -313,26 +367,51 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
         cache[PAGES_KEY] = {"table": table}
     else:
         lead = (nu, batch, max_len)
-    entry = {"k": torch.zeros(lead + (hkv, hd), dtype=dt, device=device),
-             "v": torch.zeros(lead + (hkv, hd), dtype=dt, device=device)}
-    if Q.is_quantized(dt):
-        for name in ("k_scale", "v_scale"):
-            entry[name] = torch.zeros(lead + (hkv, 1), dtype=torch.float32,
-                                      device=device)
-    cache["pos0"] = entry
+    act = torch_dtype(cfg.dtype)
+    W = cfg.ssm_conv
+    for i, (mix, _) in enumerate(unit_structure(cfg)):
+        if mix == "attn":
+            entry = {n: torch.zeros(lead + (hkv, hd), dtype=dt, device=device)
+                     for n in ("k", "v")}
+            if Q.is_quantized(dt):
+                for name in ("k_scale", "v_scale"):
+                    entry[name] = torch.zeros(lead + (hkv, 1),
+                                              dtype=torch.float32,
+                                              device=device)
+        else:
+            entry = {
+                "conv_x": torch.zeros((nu, batch, cfg.d_inner, W - 1),
+                                      dtype=act, device=device),
+                "conv_bc": torch.zeros((nu, batch, 2 * cfg.ssm_state, W - 1),
+                                       dtype=act, device=device),
+                "ssm": torch.zeros((nu, batch, cfg.ssm_heads,
+                                    cfg.ssm_head_dim, cfg.ssm_state),
+                                   dtype=torch.float32, device=device)}
+        cache[f"pos{i}"] = entry
     return cache
+
+
+def is_attn_entry(entry) -> bool:
+    """Whether a cache entry is an attention position's (k/v rows, pooled
+    under the paged layout) rather than an SSM position's per-slot
+    state."""
+    return "k" in entry
 
 
 def cache_max_len(cache, table=None) -> int:
     """Per-slot capacity in rows.  Dense: the S axis.  Paged: the table's
     reach, max_blocks * page_size (found under ``_pages`` when not
-    given)."""
+    given).  0 for a cache without an attention position (a pure SSM
+    stack holds no rows), the reference's rule."""
     if table is None and PAGES_KEY in cache:
         table = cache[PAGES_KEY]["table"]
-    per_block_or_s = cache["pos0"]["k"].shape[-3]
-    if table is not None:
-        return table.shape[1] * per_block_or_s
-    return per_block_or_s
+    for pos, entry in cache.items():
+        if pos != PAGES_KEY and is_attn_entry(entry):
+            per_block_or_s = entry["k"].shape[-3]
+            if table is not None:
+                return table.shape[1] * per_block_or_s
+            return per_block_or_s
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -347,31 +426,45 @@ def prefill(params, cfg: ModelConfig, tokens, lengths, cache,
     tokens [B, S_p], lengths [B] true lengths, the frontend prefix
     included when ``extra_embeds`` [B, F, fd] is given (the prefix takes
     rows 0..F-1, the tokens F..).  Writes cache rows [0, F + S_p) of
-    every unit in place (through the block table under the paged layout,
-    quantized under int8).  Returns (hidden_last [B, d], cache).
+    every attention position in place (through the block table under the
+    paged layout, quantized under int8), and every SSM position's state
+    at each row's true length (the recurrence frozen on the padding).
+    Returns (hidden_last [B, d], cache).
     """
     layers, pages = split_pages(cache)
     table = None if pages is None else pages["table"]
     B = tokens.shape[0]
     x = _embed_input(params, cfg, tokens, extra_embeds)
     S_tot = x.shape[1]
-    if S_tot > cache_max_len(cache):
+    cap = cache_max_len(cache)
+    if cap and S_tot > cap:
         raise ValueError(f"prompt window {S_tot} exceeds the cache's "
-                         f"{cache_max_len(cache)} rows")
-    (_, ffn), = unit_structure(cfg)
-    entry = layers["pos0"]
-    phys = None
-    if table is not None:
+                         f"{cap} rows")
+    struct = unit_structure(cfg)
+    phys = valid = None
+    if table is not None and cap:
         zero = torch.zeros((B,), dtype=torch.int32, device=x.device)
         phys = P.phys_rows(table, zero, S_tot, cfg.page_size).reshape(-1)
+    if any(mix == "ssm" for mix, _ in struct):
+        valid = (torch.arange(S_tot, device=x.device)[None, :]
+                 < lengths[:, None])
     for u in range(n_units(cfg)):
-        p = unit_params(params, u)["pos0"]
-        hh = L.apply_norm(p["norm1"], x, cfg)
-        y, (k, v) = L.attention_full(p["attn"], hh, cfg, return_kv=True)
-        _write_prefix({n: t[u] for n, t in entry.items()}, k, v, phys=phys)
-        x = x + y
-        hh = L.apply_norm(p["norm2"], x, cfg)
-        x = x + _ffn(p, ffn, hh, cfg)[0]
+        up = unit_params(params, u)
+        for i, (mix, ffn) in enumerate(struct):
+            p, entry = up[f"pos{i}"], layers[f"pos{i}"]
+            hh = L.apply_norm(p["norm1"], x, cfg)
+            if mix == "attn":
+                y, (k, v) = L.attention_full(p["attn"], hh, cfg,
+                                             return_kv=True)
+                _write_prefix({n: t[u] for n, t in entry.items()}, k, v,
+                              phys=phys)
+            else:
+                y, states = SSM.mamba2_full(p["ssm"], hh, cfg,
+                                            return_state=True, valid=valid,
+                                            lengths=lengths)
+                for name, st in zip(SSM.STATE_LEAVES, states):
+                    entry[name][u].copy_(st)
+            x = _ffn_residual(p, ffn, x + y, cfg)
     x = L.apply_norm(params["final_norm"], x, cfg)
     rows = torch.arange(B, device=x.device)
     last = x[rows, lengths.long() - 1]
@@ -415,48 +508,75 @@ def _read_cache(entry, dtype, table=None):
 # ---------------------------------------------------------------------------
 
 def decode(params, cfg: ModelConfig, cache, tokens, lengths, tree_mask, depths,
-           use_kernel: bool = False, deferred: bool = False):
+           use_kernel: bool = False, deferred: bool = False, ssm_keep=None):
     """One static speculative step over T tree/chain tokens.
 
     tokens [B, T]; lengths [B]; tree_mask [T, T] bool; depths [T] int.
-    Writes the T tree rows into the cache at [lengths, lengths+T) in place,
-    unless ``deferred``: then no row is written this step, attention runs
-    as the sweep of the committed cache merged with the in-flight block,
-    and commit's write is the only one.
+    Writes the T tree rows into every attention position's cache at
+    [lengths, lengths+T) in place, unless ``deferred``: then no row is
+    written this step, attention runs as the sweep of the committed cache
+    merged with the in-flight block, and commit's write is the only one.
+    SSM positions run the chain through the linear recurrence from their
+    cached state, which stays the speculation root: it is left as it is
+    and the state after each token is returned for ``commit`` to select.
+    ``ssm_keep`` [B] int (optional) is each row's count of tokens to
+    commit when it is known before the step (a suffix prefill's valid
+    rows, 0 on a masked row): the SSM positions then keep only the state
+    after that many tokens inside their loop and write it in place, and
+    the spec cache carries no per-token state for them.
     Returns (hidden [B, T, d], spec_cache), where spec_cache holds the
-    cache tensors (and ``_pages``) plus the in-flight rows
-    ``k_new``/``v_new``, tuples of nu [B, T, Hkv, D] tensors, one per unit
-    where its layer left them (never stacked), that ``commit`` reads.
+    cache tensors (and ``_pages``) plus, per attention position, the
+    in-flight rows ``k_new``/``v_new``, tuples of nu [B, T, Hkv, D]
+    tensors, one per unit where its layer left them (never stacked), and
+    per SSM position (without ``ssm_keep``) ``conv_x_new`` /
+    ``conv_bc_new`` / ``ssm_new``, tuples of nu per-token states
+    [B, T, ...], all of which ``commit`` reads.
     """
     layers, pages = split_pages(cache)
     table = None if pages is None else pages["table"]
     B, T = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     S_max = cache_max_len(cache)
+    struct = unit_structure(cfg)
     masks = phys = None
-    if not (use_kernel or deferred):
+    if S_max and not (use_kernel or deferred):
         masks = L.decode_mask(tree_mask, lengths, T, S_max)       # [B, T, S]
-    (_, ffn), = unit_structure(cfg)
-    entry = layers["pos0"]
-    if table is not None and not (deferred
-                                  or _fused_write(cfg, entry, use_kernel)):
+    attn = [layers[f"pos{i}"] for i, (mix, _) in enumerate(struct)
+            if mix == "attn"]
+    if table is not None and attn and not (
+            deferred or _fused_write(cfg, attn[0], use_kernel)):
         phys = P.phys_rows(table, lengths, T, cfg.page_size).reshape(-1)
-    k_new, v_new = [], []
+    inflight = {f"pos{i}": {n + "_new": [] for n in (
+        ("k", "v") if mix == "attn" else
+        () if ssm_keep is not None else SSM.STATE_LEAVES)}
+        for i, (mix, _) in enumerate(struct)}
     for u in range(n_units(cfg)):
-        p = unit_params(params, u)["pos0"]
-        hh = L.apply_norm(p["norm1"], x, cfg)
-        y, rows = attention_decode_batched(
-            p["attn"], hh, cfg, {n: t[u] for n, t in entry.items()}, lengths,
-            masks, tree_mask, depths, use_kernel, deferred, table=table,
-            phys=phys)
-        k_new.append(rows["k_new"])
-        v_new.append(rows["v_new"])
-        x = x + y
-        hh = L.apply_norm(p["norm2"], x, cfg)
-        x = x + _ffn(p, ffn, hh, cfg)[0]
+        up = unit_params(params, u)
+        for i, (mix, ffn) in enumerate(struct):
+            p, entry = up[f"pos{i}"], layers[f"pos{i}"]
+            new = inflight[f"pos{i}"]
+            view = {n: t[u] for n, t in entry.items()}
+            hh = L.apply_norm(p["norm1"], x, cfg)
+            if mix == "attn":
+                y, rows = attention_decode_batched(
+                    p["attn"], hh, cfg, view, lengths, masks, tree_mask,
+                    depths, use_kernel, deferred, table=table, phys=phys)
+                new["k_new"].append(rows["k_new"])
+                new["v_new"].append(rows["v_new"])
+            else:
+                y, states = SSM.mamba2_decode(
+                    p["ssm"], hh, cfg, *(view[n] for n in SSM.STATE_LEAVES),
+                    keep=ssm_keep)
+                for name, st in zip(SSM.STATE_LEAVES, states):
+                    if ssm_keep is None:
+                        new[name + "_new"].append(st)
+                    else:
+                        view[name].copy_(st)
+            x = _ffn_residual(p, ffn, x + y, cfg)
     x = L.apply_norm(params["final_norm"], x, cfg)
-    spec_cache = {"pos0": dict(entry, k_new=tuple(k_new),
-                               v_new=tuple(v_new))}
+    spec_cache = {pos: dict(layers[pos], **{n: tuple(ts) for n, ts in
+                                            inflight[pos].items()})
+                  for pos in inflight}
     if pages is not None:
         spec_cache[PAGES_KEY] = pages
     return x, spec_cache
@@ -556,27 +676,67 @@ def _commit_attn_entry(entry, lengths, path_slots, table=None):
         lengths, table=table)
 
 
+def prefix_index(eff):
+    """(rows, index into the per-token states, rows kept at the root) of
+    a select of the state after ``eff`` [B] tokens, made once for every
+    leaf a commit selects."""
+    rows = torch.arange(eff.shape[0], device=eff.device)
+    return rows, torch.clamp(eff - 1, min=0).long(), eff == 0
+
+
+def select_prefix(root, states, index):
+    """The state after ``eff`` tokens of the chain (``index`` =
+    ``prefix_index(eff)``): ``root`` [B, ...] (the state before it) where
+    ``eff`` is 0, else ``states`` [B, T, ...] at eff - 1; the reference's
+    select over the root prepended to the per-token states, as a copy of
+    the values it picks."""
+    rows, idx, at_root = index
+    at_root = at_root.reshape((-1,) + (1,) * (root.dim() - 1))
+    return torch.where(at_root, root, states[rows, idx].to(root.dtype))
+
+
+def _commit_ssm_entry(entry, eff):
+    """Commit one SSM position: each unit's state becomes the state after
+    ``eff`` [B] tokens of the chain (the speculation root, bit for bit,
+    where ``eff`` is 0), copied in place.  An entry whose decode kept its
+    state already (``decode(ssm_keep=)``) has nothing to select."""
+    index = prefix_index(eff)
+    for name in SSM.STATE_LEAVES:
+        for u, states in enumerate(entry.get(name + "_new", ())):
+            root = entry[name][u]
+            root.copy_(select_prefix(root, states, index))
+    return {n: entry[n] for n in SSM.STATE_LEAVES}
+
+
 def commit(cfg: ModelConfig, spec_cache, lengths, path_slots, acc,
            active=None):
     """Zero-copy compaction: keep exactly the accepted prefix.
 
     path_slots [B, K+1]: tree-node slots of the best path (0..T-1); acc [B]
-    in [1, K+1].  Writes the best path's KV rows at [len, len+K+1) in place
-    (rows past ``acc`` are dead and are overwritten later).  ``active``
-    [B] bool (optional) is the serving scheduler's masked commit: rows of
-    inactive slots do not advance their lengths.  Their rows are still
+    in [1, K+1].  Attention positions: the best path's KV rows land at
+    [len, len+K+1) in place (rows past ``acc`` are dead and are
+    overwritten later).  SSM positions: the state after ``acc`` tokens of
+    the chain is copied over the speculation root.  ``active`` [B] bool
+    (optional) is the serving scheduler's masked commit: rows of inactive
+    slots do not advance their lengths.  Their attention rows are still
     written by the same launch (the reference's dead-write rule): a dense
     slot's rows are replaced whole at its next admission, and a paged
     slot that is inactive has a zeroed table row, so its rows land in
-    trash block 0.  Returns (cache, lengths + where(active, acc, 0)); the
-    cache keeps ``_pages``.
+    trash block 0.  An SSM state has no such sink, so an inactive row
+    keeps its root state (effective acc 0), bit for bit.  Returns (cache,
+    lengths + where(active, acc, 0)); the cache keeps ``_pages``.
     """
     layers, pages = split_pages(spec_cache)
     table = None if pages is None else pages["table"]
-    cache = {"pos0": _commit_attn_entry(layers["pos0"], lengths, path_slots,
-                                        table=table)}
-    if pages is not None:
-        cache[PAGES_KEY] = pages
     adv = acc if active is None else torch.where(active, acc,
                                                  torch.zeros_like(acc))
+    cache = {}
+    for pos, entry in layers.items():
+        if is_attn_entry(entry):
+            cache[pos] = _commit_attn_entry(entry, lengths, path_slots,
+                                            table=table)
+        else:
+            cache[pos] = _commit_ssm_entry(entry, adv)
+    if pages is not None:
+        cache[PAGES_KEY] = pages
     return cache, lengths + adv

@@ -58,9 +58,16 @@ exhausted with no victim to preempt); every other error propagates.
 The cache and the proposer state are opaque to the scheduler: the int8
 cache, the deferred write, verify fusion and every proposer ride through
 unchanged, and so do the MoE and VLM families' models (a VLM served on
-its tokens alone, as the reference serves it).  A request's
-``extra_embeds`` raises: the reference takes them from encoder-decoder
-requests only, a family that is ROADMAP queue 1 item 14.
+its tokens alone, as the reference serves it).  The SSM and hybrid
+families' recurrent state is per slot under every layout: paged
+admission writes it into the admitted slots as dense admission writes
+every leaf, copy-on-write touches only the attention pools, and every
+masked slot of a step or a chunk call keeps its state bit for bit (the
+model's commit restores the speculation root there; ``ssm_restores``
+counts those slot-steps).  The prefix cache is refused for them, as the
+reference refuses it: a shared KV block carries no recurrent state.  A
+request's ``extra_embeds`` raises: the reference takes them from
+encoder-decoder requests only, a family that is ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -78,7 +85,7 @@ from repro_torch.configs.base import SchedulerParams
 from repro_torch.core.engine import SpecEngine
 from repro_torch.kernels.paging import blocks_for
 from repro_torch.models import api as model_api
-from repro_torch.models.transformer import PAGES_KEY
+from repro_torch.models.transformer import PAGES_KEY, is_attn_entry
 from repro_torch.runtime import binding, copy_tree_, tree_map
 from repro_torch.serving.block_pool import BlockPool, PrefixCache
 
@@ -249,6 +256,15 @@ class SpecServer:
                          if n_blocks is None else int(n_blocks))
         if prefix_cache and not self.paged:
             raise ValueError("prefix_cache requires cache_layout='paged'")
+        if prefix_cache and self.cfg.num_ssm_layers:
+            # prefix-cache admission skips the prefill of matched tokens;
+            # a shared KV block carries no recurrent state to restore
+            # from, so a hit would leave the slot's state cold (the
+            # reference's message)
+            raise ValueError(
+                "prefix_cache shares KV blocks only; SSM/encdec state "
+                "cannot be reconstructed from them (DESIGN.md §17 — use "
+                "chunked prefill / preemption for these families)")
         if prefix_cache and not engine.proposer.supports_prefix:
             raise ValueError(
                 f"prefix_cache needs a proposer that can be primed from a "
@@ -327,8 +343,8 @@ class SpecServer:
                 "chunk_calls": 0, "preemptions": 0, "resumed": 0,
                 "reclaimed_blocks": 0, "grown_blocks": 0,
                 "gamma_steps": {g: 0 for g, _ in self._levels},
-                # slot-steps whose SSM recurrent state was restored (the
-                # reference's hybrid families; 0 for the dense family)
+                # slot-steps whose SSM recurrent state was restored (0
+                # for a family without SSM positions)
                 "ssm_restores": 0}
 
     @staticmethod
@@ -477,19 +493,32 @@ class SpecServer:
 
     def _prefill_group_paged(self, toks, plens, gtemp, gtopp, slots, rows,
                           gtable):
-        """Paged variant of ``_prefill_group``: the prefill writes
-        land in the global pool through ``gtable`` [n, max_blocks] (the
-        admitted slots' table rows; padding rows are all-zero, so their
-        writes sink into the trash block), so only the [B]-sized step
+        """Paged variant of ``_prefill_group``: the attention positions'
+        prefill writes land in the global pool through ``gtable``
+        [n, max_blocks] (the admitted slots' table rows; padding rows are
+        all-zero, so their writes sink into the trash block).  An SSM
+        position's state is per slot: it is prefilled into fresh n-row
+        leaves and its rows ``rows`` written into the slots ``slots``, as
+        ``_prefill_group`` writes every leaf; then the [B]-sized step
         state and the proposer state merge."""
         n = toks.shape[0]
-        view = {pos: entry for pos, entry in self.cache.items()
-                if pos != PAGES_KEY}
+        view = {}
+        for pos, entry in self.cache.items():
+            if pos == PAGES_KEY or is_attn_entry(entry):
+                view[pos] = entry               # the shared pool
+            else:
+                view[pos] = {name: t.new_zeros((t.shape[0], n)
+                                               + t.shape[2:])
+                             for name, t in entry.items()}
         view[PAGES_KEY] = {"table": gtable}
         st_n = self.engine.init_proposer_state(n, self.max_len)
         _, len_n, base_n, st_n = self.engine.prefill(
             self.params, self.proposer_params, toks, plens, view,
             state=st_n, temperature=gtemp, top_p=gtopp)
+        for pos, entry in self.cache.items():
+            if pos != PAGES_KEY and not is_attn_entry(entry):
+                for name, t in entry.items():
+                    _put_rows(t, view[pos][name], slots, rows, 1)
         self._merge_state(st_n, slots, rows, len_n, base_n)
 
     def _merge_state(self, st_n, slots, rows, len_n, base_n):
@@ -519,6 +548,7 @@ class SpecServer:
         past the cache's end (dense: dropped), and its real length stays."""
         cap = (self.blocks_per_slot * self.page_size if self.paged
                else self.max_len)
+        self._fresh_recurrent_state(smask & (mlen == 0))
         lens_in = torch.where(smask, mlen, torch.full_like(mlen, cap))
         st_n = self.engine.init_proposer_state(self.B, self.max_len)
         _, lens_new, base_n, st_n = self.engine.suffix_prefill(
@@ -532,13 +562,25 @@ class SpecServer:
         self.n_out.copy_(torch.where(smask, torch.zeros_like(self.n_out),
                                      self.n_out))
 
+    def _fresh_recurrent_state(self, rows):
+        """Zero the SSM positions' state of the slots ``rows`` [B] bool
+        marks: a suffix call from no cached row (a chunked prefill's first
+        chunk) starts from the state before any token, not from the last
+        tenant's.  (The reference starts it from the last tenant's state,
+        so its chunked answers on a reused slot are not AR's.)"""
+        for pos, entry in self.cache.items():
+            if pos != PAGES_KEY and not is_attn_entry(entry):
+                for t in entry.values():
+                    t.masked_fill_(_along(rows, t, 1), 0)
+
     def _copy_blocks(self, src, dst):
         """Copy-on-write: pool rows of physical blocks ``src`` [m] copy
-        into blocks ``dst`` [m] across every pool leaf (values and int8
-        scales share one block id space).  Padding pairs are (0, 0): a
+        into blocks ``dst`` [m] across every attention pool leaf (values
+        and int8 scales share one block id space; an SSM position's
+        per-slot state is no pool).  Padding pairs are (0, 0): a
         trash-to-trash no-op."""
         for pos, entry in self.cache.items():
-            if pos == PAGES_KEY:
+            if pos == PAGES_KEY or not is_attn_entry(entry):
                 continue
             for name, x in entry.items():
                 x.index_copy_(1, dst, x.index_select(1, src))
@@ -966,6 +1008,10 @@ class SpecServer:
                         self._tensor(self._temp), self._tensor(self._topp))
         self.stats["chunk_calls"] += 1
         self.stats["prefill_calls"] += 1
+        if self.cfg.num_ssm_layers:
+            # every slot outside the chunk mask ran this call masked: its
+            # recurrent state is the one it had (the restore)
+            self.stats["ssm_restores"] += int(self.B - smask.sum())
         for i, cs in self._chunk_state.items():
             self._len_host[i] = cs["pos"]
             self.stats["prefill_tokens"] += int(nv[i])
@@ -1092,6 +1138,10 @@ class SpecServer:
         sync = self._step_fn(self._level)
         self.stats["steps"] += 1
         self.stats["gamma_steps"][gamma] += 1
+        if self.cfg.num_ssm_layers:
+            # masked slots (empty or mid-chunk) kept their recurrent state
+            # through the commit's restore of the speculation root
+            self.stats["ssm_restores"] += int((~self._active).sum())
         # one transfer for the whole sync tensor
         raw = sync.cpu().numpy()
         self.timing["step_s"] += time.perf_counter() - t0

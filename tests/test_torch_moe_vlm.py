@@ -35,8 +35,9 @@ reference's own reduced configs.
 * The server: the port's ``SpecServer`` equals the reference's on one
   trace of the reduced granite-moe at 1.25 (tokens, statuses, stats), and
   refuses ``extra_embeds`` as the reference does; the launchers serve and
-  train the new archs; ``check_supported`` still refuses SSM, hybrid,
-  encoder-decoder and tensor parallelism.
+  train the new archs; ``check_supported`` still refuses the
+  encoder-decoder and tensor parallelism (and, since their slice, takes
+  the SSM and hybrid families).
 """
 import dataclasses
 import types
@@ -258,6 +259,9 @@ def test_check_supported_refuses_the_rest():
         tcfg = dataclasses.replace(get_config("granite-moe-1b-a400m",
                                               reduced=True),
                                    family=cfg.family)
+        if cfg.family in ("ssm", "hybrid"):    # carried since their slice
+            T.check_supported(tcfg)
+            continue
         with pytest.raises(NotImplementedError, match="item 14"):
             T.check_supported(tcfg)
     tp = dataclasses.replace(get_config("internvl2-26b", reduced=True),
