@@ -26,7 +26,8 @@ non-zero exit:
    rows: the "split" route), dense, int8, paged and int8 + paged; and at
    the MoE and VLM families' folds (``MOE_VLM_K1``: internvl2-26b's GQA
    group of 6, R 384 / 24 at D 128; granite-moe-1b-a400m's group of 2,
-   R 128 / 8 at D 64), every variant;
+   R 128 / 8 at D 64), jamba's (R 40 / 8) and whisper-tiny's
+   (``WHISPER_K1``: group 1, R 64 / 8 / 1 at D 64), every variant;
 3. hold the verify-fusion kernels against their plain versions on the
    card, f32 and bf16: ``unembed_verify_stats`` (K2) at the spec step's
    shape (B 4, T 64, d 4096, V 153376, which is not a multiple of the
@@ -75,6 +76,9 @@ non-zero exit:
    kernel's m); K3 at internvl2's and granite-moe's widths, spec and AR,
    dense and paged; the one-launch commit over granite-moe's 24 units of
    [8, 64] (dense, paged, int8 paged) and internvl2's 48 of [8, 128];
+   K2 over whisper-tiny's [384, 51865] head (tile route), greedy and at
+   ``TMAX_ROWS``, and the commit over its 4 decoder units of [6, 64] on
+   every layout;
 4. float32 openPangu-7B at full width, 2 layers: speculative ``generate``
    == ``ar_generate`` token for token, dense, with verify fusion, paged,
    paged with verify fusion, int8, int8 paged and int8 with verify fusion
@@ -256,6 +260,26 @@ non-zero exit:
    layers at the parting token; 11 (iv), after it: 8 ``lm_train_step``s
    of granite-moe at full width and depth on 8 x 512 (the loss falls, the
    aux loss finite and > 0);
+4s, 15, 11 (v). the SSM and hybrid families (chain mode, T 5): f32 spec
+   == AR (mamba2-2.7b at 2 layers, jamba-1.5-large-398b cut to one
+   4-position unit), bf16 at full width through the launcher, the server
+   and ``build_engine``, held to AR under ``near_tie`` and the measured
+   drift (``step_drift``); mamba2-2.7b LM steps;
+4w. the encoder-decoder: whisper-tiny in float32 at full width and depth
+   (4 + 4 layers, 1500 frames a request): spec == AR with frames on the
+   dense, int8, paged and int8 + paged caches, Medusa unfused, fused and
+   sampled at temperature 0 and the n-gram lookup, graph == eager on the
+   dense cache, launches exact (no K3: its decode keeps the unfused write
+   side, as the reference's does);
+16. (run after 15) whisper-tiny in bf16 at full width through the
+   launcher with 1500 random frames a request: ``--static`` unfused and
+   fused, the server dense unfused and fused and paged with
+   ``--preemption`` (which must fire), launches exact, every answer held
+   to ``ar_generate`` on its frames under ``near_tie``; tok/s, latency and
+   time to first token p50/p99, the replayed step's device ms; 11 (vi),
+   after 11 (v): reduced whisper LM steps on the card against the CPU
+   within ``TRAIN_TOL`` (the key biases' gradients, which the softmax
+   cancels, held to rounding), then 8 steps at full width;
 8. time every kernel and variant, its plain version, and one PyTorch call
    as a yardstick the port never calls where one computes the same
    function (``scaled_dot_product_attention`` for K1, its backend pinned
@@ -285,7 +309,11 @@ non-zero exit:
    the MoE and VLM families' shapes (rows named ``@<arch>``): K1 at their
    folds, K2 over their heads (the tile route at granite-moe's and
    internvl2's vocabularies), K3 at their widths, the commit over their
-   units, their launches from phase 14's fused no-drop runs.
+   units, their launches from phase 14's fused no-drop runs; the SSM
+   and hybrid families' (``@<arch>``, phase 15's fused static runs); and
+   whisper-tiny's (``@whisper-tiny``: K1 at R 64 / 8 over 6 kv heads of
+   64, K2 over its [384, 51865] head on the tile route, the commit over
+   4 units of [6, 64]; launches from phase 16's fused static run).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -366,6 +394,15 @@ MOE_VLM_K1 = [("internvl2-26b", 8, 128, (384, 24)),
 SSM_HYBRID = ["mamba2-2.7b", "jamba-1.5-large-398b"]
 JAMBA_K1 = [("jamba-1.5-large-398b", 8, 128, (40, 8))]
 JAMBA_F32_EXPERTS = 4
+# the encoder-decoder, whisper-tiny (4 encoder and 4 decoder layers, d 384,
+# 6 heads of 64, group 1, 1500 frames a request): K1 at the tree step's
+# R 64 (T 64 x 1), the AR step's one row padded to R 8, and one unpadded
+# row (R 1); K2 over its [384, 51865] lm head, whose unaligned V takes the
+# tile route; the commit over its 4 decoder units of [6, 64] (the cross
+# k/v is written at admission, never committed); no K3 (the reference's
+# encdec decode keeps the unfused write side)
+WHISPER = "whisper-tiny"
+WHISPER_K1 = [(WHISPER, 6, 64, (64, 8, 1))]
 
 
 def no_drop(cfg):
@@ -757,7 +794,8 @@ def phase_kernels(dev):
         # the dense family's shapes: gemma-2b (one kv head, D 256, 8 q heads
         # a kv head: R 512 / 8) and qwen1.5-0.5b (16 kv heads, D 64, R 64 /
         # 8, the AR step's one row padded to 8)
-        for name, Hkv, D, rows in FAMILY_K1 + MOE_VLM_K1 + JAMBA_K1:
+        for name, Hkv, D, rows in (FAMILY_K1 + MOE_VLM_K1 + JAMBA_K1
+                                   + WHISPER_K1):
             for R in rows:
                 folded_case(f"{name} R={R}", 4, 2048, Hkv, R, D, dt, ragged,
                             key=name if R == rows[0] else None)
@@ -903,7 +941,8 @@ def phase_kernel_variants(dev):
                 variant_case(*args, quantized, ps, 4 + ps)
         # the dense family's shapes, every variant: int8, paged (page size
         # 64) and int8 + paged (16), an idle slot on the pools
-        for name, Hkv, D, rows in FAMILY_K1 + MOE_VLM_K1 + JAMBA_K1:
+        for name, Hkv, D, rows in (FAMILY_K1 + MOE_VLM_K1 + JAMBA_K1
+                                   + WHISPER_K1):
             for R in rows:
                 args = (dev, f"{name} R={R}", 4, 2048, Hkv, R, D, dt)
                 err = variant_case(*args, [1, 517, 1300, 2048], True, 0, R)
@@ -1358,6 +1397,17 @@ def phase_fusion_kernels(dev):
                      dt, ragged, ps=64)
             qkv_case(dev, mcfg, f"{arch} AR", 1, dt, ragged, ps=16)
         torch.cuda.empty_cache()
+    # the encoder-decoder: K2 over whisper-tiny's [384, 51865] lm head at
+    # the tree step (its unaligned V takes the tile route, asserted),
+    # greedy and at the sampled step's per-row temperatures
+    wcfg = get_config(WHISPER)
+    for dt in (torch.float32, torch.bfloat16):
+        err = stats_case(dev, WHISPER, 4, 64, wcfg.d_model, wcfg.vocab_size,
+                         dt)
+        if dt == torch.bfloat16:
+            errs[f"K2 {WHISPER}"] = err
+        stats_case(dev, f"{WHISPER}, per-row tmax", 4, 64, wcfg.d_model,
+                   wcfg.vocab_size, dt, tmax=TMAX_ROWS)
     return errs
 
 
@@ -1509,6 +1559,13 @@ def phase_commit_kernels(dev):
     path_case(dev, f"{jamba} int8", 1, 8, 128, bf, True, T=CHAIN_T, S=512)
     path_case(dev, f"{jamba} int8 paged", 1, 8, 128, bf, True, T=CHAIN_T,
               ps=16, S=512)
+    # the encoder-decoder's self entry: whisper-tiny's 4 decoder units of
+    # [6, 64], every layout (its cross k/v is never committed)
+    errs[WHISPER] = path_case(dev, WHISPER, 4, 6, 64, bf, S=512)
+    path_case(dev, f"{WHISPER} paged", 4, 6, 64, bf, ps=64, S=512)
+    path_case(dev, f"{WHISPER} int8", 4, 6, 64, bf, True, S=512)
+    path_case(dev, f"{WHISPER} int8 paged", 4, 6, 64, bf, True, ps=16,
+              S=512)
     return errs
 
 
@@ -1529,17 +1586,20 @@ def expected_counts(cfg, steps: int, ar_steps: int = 0,
     draft-model ``proposer`` adds its gamma + 1 T=1 decodes a step on each of its
     layers: K1 each, and K3 each on its fused fp write side (its cache is
     dense, in the target's cache dtype; ``deferred`` is the target's
-    alone)."""
+    alone).  The encoder-decoder never launches K3: its decode keeps the
+    unfused write side, as the reference's does."""
     per_layer = cfg.num_attn_layers * (steps + ar_steps)
     quantized = cfg.resolved_cache_dtype == "int8"
     commits = steps if cfg.num_attn_layers else 0
     fused = cfg.verify_fusion
     t1 = draft_t1_launches(proposer, steps)
-    draft_k3 = t1 if t1 and proposer.dc.verify_fusion and not quantized \
+    # the encoder-decoder's decode keeps the unfused write side
+    unfused_write = quantized or cfg.family == "encdec"
+    draft_k3 = t1 if t1 and proposer.dc.verify_fusion and not unfused_write \
         else 0
     return {"K1": per_layer + t1, "K2": steps if fused else 0,
-            "K3": (per_layer if fused and not (quantized or deferred) else 0)
-            + draft_k3,
+            "K3": (per_layer if fused and not (unfused_write or deferred)
+                   else 0) + draft_k3,
             "K4": 0 if cfg.paged else commits,
             "K5": commits if cfg.paged else 0}
 
@@ -2915,6 +2975,301 @@ def phase_train_ssm(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 4w, 16 and 11 (vi): the encoder-decoder (whisper-tiny)
+# ---------------------------------------------------------------------------
+
+WHISPER_LAYOUTS = [("dense", {}), ("int8", dict(cache_dtype="int8")),
+                   ("paged", dict(cache_layout="paged", page_size=64)),
+                   ("int8+paged", dict(cache_dtype="int8",
+                                       cache_layout="paged", page_size=16))]
+
+
+def phase_whisper_f32(dev):
+    """Phase 4w: whisper-tiny in float32 at full width and depth (4
+    encoder and 4 decoder layers, d 384, 1500 frames a request from
+    ``frontend_embeds``): speculative ``generate`` == ``ar_generate``
+    token for token on the dense, int8, paged and int8 + paged caches,
+    each with Medusa unfused, fused and sampled at temperature 0, and
+    with the n-gram lookup (gamma 4), through the captured steps; on the
+    dense cache also Medusa fused and n-gram through the eager steps
+    (graph == eager); every run's launches exact (K1 a decoder layer and
+    step, K2 a fused step, K3 never, one commit a spec step) and K1 on
+    the routes ``decode_plan`` gives; the fp layouts give the dense
+    tokens and the int8 ones the int8 tokens."""
+    from repro_torch.configs.base import SamplingParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import ar_generate, build_engine
+    from repro_torch.launch.serve import build_model, make_prompts
+    from repro_torch.models.frontends import frontend_embeds
+
+    base = dataclasses.replace(get_config(WHISPER), dtype="float32",
+                               param_dtype="float32", name=f"{WHISPER}-f32")
+    params, mp = build_model(base, 1, 4, dev)
+    prompts = make_prompts(base.vocab_size, 4, 1, 16, 129)
+    tok, plen = (torch.from_numpy(a).to(dev)
+                 for a in padded_batch(prompts, range(4)))
+    frames = frontend_embeds(base, 4,
+                             torch.Generator(device=dev).manual_seed(2))
+    max_new, max_len = 32, 512
+    want = {}
+    for name, kw in WHISPER_LAYOUTS:
+        cfg = dataclasses.replace(base, **kw)
+        runs = [("medusa", False, "greedy", True),
+                ("medusa", True, "greedy", True),
+                ("medusa", False, "sample", True),
+                ("ngram", False, "greedy", True)]
+        if name == "dense":
+            runs += [("medusa", True, "greedy", False),
+                     ("ngram", False, "greedy", False)]
+        for kind, vf, accept, graphs in runs:
+            label = (f"{WHISPER} {name} {kind}"
+                     + (", verify fusion" if vf else "")
+                     + (", sampled at temperature 0" if accept == "sample"
+                        else "") + ("" if graphs else ", eager"))
+            eng = build_engine(cfg, kind, gamma=GAMMA, use_kernel=True,
+                               device=dev, verify_fusion=vf, accept=accept,
+                               graphs=graphs, seed=3,
+                               sampling=SamplingParams(temperature=0.0))
+            reset_counts()
+            sp, n_out, st = eng.generate(
+                params, mp if kind == "medusa" else None, tok, plen,
+                eng.init_cache(4, max_len), max_new, extra_embeds=frames)
+            ar, _ = ar_generate(eng.cfg, params, tok, plen,
+                                eng.init_cache(4, max_len), max_new,
+                                use_kernel=True, graphs=eng.step_graphs,
+                                extra_embeds=frames)
+            counts = read_counts()
+            expect = expected_counts(eng.cfg, st.steps, max_new)
+            if counts != expect:
+                fail(f"f32 {label}: launches {counts}, expected {expect}")
+            ps = cfg.page_size if cfg.paged else 1
+            check_routes(f"f32 {label}", None,
+                         k1_routes(eng.cfg, 4, -(-max_len // ps) * ps,
+                                   st.steps, max_new, T=eng.tb.T))
+            captured = sorted(k for k, g in kept_graphs(eng)
+                              if g.graph is not None)
+            if captured != (["AR", "spec"] if graphs else []):
+                fail(f"f32 {label}: captured {captured}")
+            sp, ar = sp.cpu(), ar.cpu()
+            key = "int8" if "int8" in name else "fp"
+            ref = want.setdefault(key, ar)
+            if not (torch.equal(sp, ar) and torch.equal(ar, ref)
+                    and bool((n_out == max_new).all())):
+                fail(f"float32 {label}: spec != AR (or AR != the dense "
+                     f"{key} AR):\nspec {sp.tolist()}\nAR   {ar.tolist()}"
+                     f"\nref  {ref.tolist()}")
+            mean_acc = st.accepted_sum.item() / (st.steps * 4)
+            log(f"  f32 {label} (full width and depth, 1500 frames): spec "
+                f"== AR for 4 x {max_new} tokens; {st.steps} spec steps "
+                f"(mean accepted {mean_acc:.3f}); launches {counts} (exact)"
+                + (f"; capture {eng.step_graphs.capture_s:.3f}s"
+                   if graphs else ""))
+            del eng
+    log(f"  f32 {WHISPER}: paged spec == dense spec; int8 paged == int8 "
+        f"({int(torch.sum(want['int8'] == want['fp']))} of "
+        f"{want['fp'].numel()} int8 tokens equal to the fp ones)")
+    del params, mp
+    torch.cuda.empty_cache()
+
+
+def server_timed(argv, weights):
+    """``server_counted`` with each replay of the serve step bracketed by
+    CUDA events; returns (Served, median device ms of the replayed
+    step)."""
+    from repro_torch.launch import serve
+
+    pairs = []
+    real = serve.SpecServer
+
+    class Timed(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            pairs.append(event_timed_steps(self))
+    serve.SpecServer = Timed
+    try:
+        served = server_counted(argv, weights)
+    finally:
+        serve.SpecServer = real
+    return served, float(np.median([a.elapsed_time(b) for a, b in pairs[0]]))
+
+
+def phase_whisper_serve(dev):
+    """Phase 16: whisper-tiny in bf16 at full width and depth through the
+    launcher, each request with its own 1500 random frames
+    (``serve.request_frames``).  ``--static`` unfused and
+    ``--verify-fusion`` on the same weights (8 requests; launches exact,
+    K2 on ``stats_route``'s tile route, K3 never), each answer held to
+    ``ar_generate`` on its frames under ``near_tie``; then the server (16
+    requests, max_new 16..64) unfused and fused on the dense cache, and
+    paged (page 64) with ``--preemption`` in a pool of two requests' worst
+    case, unfused and fused (each must preempt), every answer held to AR
+    the same way.  Logs tok/s, latency and time to first token p50/p99,
+    the replayed step's device ms (the static step by ``step_times``, the
+    server's by CUDA events around each replay).  Returns the fused
+    static run's launch counts."""
+    argv = SERVE_ARGV + ["--arch", WHISPER]
+    torch.cuda.reset_peak_memory_stats()
+    srv, _ = serve_counted(argv)
+    check_against_ar(srv, dev, extras=frame_groups(srv, dev))
+    weights = (srv.params, srv.proposer_params)
+    fsrv, counts = serve_counted(argv + ["--verify-fusion"], weights)
+    check_against_ar(fsrv, dev, extras=frame_groups(fsrv, dev))
+    wall, device = step_times(fsrv.engine)
+    log(f"  {WHISPER} static: unfused {run_summary(srv)}; fused "
+        f"{run_summary(fsrv)}; the replayed fused step {wall:.3f} ms wall, "
+        f"{device:.3f} ms device ({smi_line()}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del srv, fsrv
+    worst = -(-(257 + MAX_NEW + 66) // 64)      # blocks a request, worst
+    paged = ["--cache-layout", "paged", "--page-size", "64", "--preemption",
+             "--n-blocks", str(1 + 2 * worst)]
+    for label, flags in (("dense", []), ("dense, verify fusion",
+                                         ["--verify-fusion"]),
+                         ("paged, preemption", paged),
+                         ("paged, preemption, verify fusion",
+                          paged + ["--verify-fusion"])):
+        served, step_ms = server_timed(["--arch", WHISPER] + flags, weights)
+        st = served.server.stats
+        log(f"  {WHISPER} server {label}: the replayed serve step "
+            f"{step_ms:.3f} ms median on the card (CUDA events; "
+            f"{smi_line()}); {st['preemptions']} preemptions, peak "
+            f"{st['peak_blocks']} blocks")
+        if flags and flags[0] == "--cache-layout" and not (
+                st["preemptions"] >= 1
+                and served.server.pool.in_use == 0):
+            fail(f"{WHISPER} server {label}: no preemption, or the pool "
+                 f"did not drain: {st}")
+        check_server_against_ar(f"{WHISPER} server {label}", served, dev)
+    del served, weights
+    torch.cuda.empty_cache()
+    return counts
+
+
+def frame_groups(run, dev):
+    """A static run's frames as ``check_against_ar``'s ``extras``: each
+    group's [SLOTS, F, fd] on ``dev``."""
+    return [torch.from_numpy(np.stack(run.frames[g:g + SLOTS])).to(dev)
+            for g in range(0, REQUESTS, SLOTS)]
+
+
+def phase_train_whisper(dev):
+    """Phase 11 (vi): whisper-tiny LM steps.  Reduced float32 (the
+    reference's CPU config, 16 frames), on the card and on the CPU from
+    the same weights, frames and batch, as phase 11 (i): the gradients
+    within ``TRAIN_TOL`` of each leaf's largest magnitude, except the key
+    biases ``bk``, whose gradient the softmax cancels (a key bias shifts
+    all of a query row's scores alike): there both sides must be rounding,
+    below 1e-6 of the largest gradient; the card's first step's
+    parameters and moments against the CPU's optimizer (clip + AdamW) run
+    on the card's gradients; three steps' losses.  Then full width and
+    depth (1500 frames): 8 steps on one batch of 8 x 128, the loss falls;
+    ms per step and peak memory."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec as ED
+    from repro_torch.models.frontends import frontend_embeds
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import steps as ST
+    from repro_torch.training.checkpoint import _flatten
+
+    cpu = torch.device("cpu")
+    cfg = get_config(WHISPER, reduced=True)
+    gen = torch.Generator().manual_seed(5)
+    params = ED.init_params(gen, cfg)
+    for u in ("enc_units", "dec_units"):        # biases away from 0
+        for p in params[u].values():
+            for n in ("bq", "bk", "bv"):
+                if n in p:
+                    p[n].normal_(generator=gen).mul_(0.1)
+    frames = frontend_embeds(cfg, 8, gen)
+    corpus = torch.from_numpy(D.synthetic_chat(D.SyntheticChatConfig(
+        vocab_size=cfg.vocab_size, seq_len=33, n_samples=8, noise=0.05)))
+    opt_kw = dict(lr=3e-4, weight_decay=0.1)
+
+    def on(tree, d):
+        return O.tree_map(lambda t: t.to(d, copy=True), tree)
+
+    def run(d):
+        p = on(params, d)
+        o = O.adamw_init(p)
+        x, f = corpus.to(d), frames.to(d)
+        (_, _), g = ST.value_and_grad(ST.lm_loss, on(p, d), cfg, x[:, :-1],
+                                      x[:, 1:], f)
+        losses, first = [], None
+        for _ in range(3):
+            p, o, met = ST.lm_train_step(p, o, cfg, x[:, :-1], x[:, 1:], f,
+                                         **opt_kw)
+            losses.append(float(met["loss"]))
+            first = first or (on(p, cpu), on(o.mu, cpu), on(o.nu, cpu))
+        return g, losses, first
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        g_d, loss_d, (p_d, mu_d, nu_d) = run(dev)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    g_c, loss_c, _ = run(cpu)
+    # the CPU's optimizer on the card's gradients
+    g_ref, _ = O.clip_by_global_norm(on(g_d, cpu), 1.0)
+    p_r, o_r = O.adamw_update(g_ref, O.adamw_init(params), on(params, cpu),
+                              **opt_kw)
+    top = max(float(t.abs().max()) for _, t in _flatten(g_c))
+    gaps = {"gradients": {k: v for k, v in tree_gap(g_d, g_c).items()
+                          if not k.endswith("bk")},
+            "parameters (CPU optimizer, card gradients)":
+                tree_gap(p_d, p_r),
+            "first moments": tree_gap(mu_d, o_r.mu),
+            "second moments": tree_gap(nu_d, o_r.nu)}
+    cancelled = {k: (float(a.abs().max()), float(b.abs().max()))
+                 for (k, a), (_, b) in zip(_flatten(g_d), _flatten(g_c))
+                 if k.endswith("bk")}
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(loss_d, loss_c))
+    log(f"  lm_train_step, reduced {WHISPER} with frames, card against CPU: "
+        f"losses {[round(x, 6) for x in loss_d]} vs "
+        f"{[round(x, 6) for x in loss_c]} (largest relative gap "
+        f"{loss_gap:.2e}); largest gaps in units of each leaf's largest "
+        f"magnitude: "
+        + ", ".join(f"{k} {max(v.values()):.2e}" for k, v in gaps.items())
+        + f"; the key biases' gradients (card, CPU) "
+        f"{ {k: (f'{a:.2e}', f'{b:.2e}') for k, (a, b) in cancelled.items()} }"
+        f" against the largest {top:.3e}")
+    bad = {k: {n: x for n, x in v.items() if not x <= TRAIN_TOL}
+           for k, v in gaps.items()}
+    if not loss_gap <= TRAIN_TOL or any(bad.values()):
+        fail(f"{WHISPER} training: card against CPU beyond {TRAIN_TOL}: "
+             f"loss gap {loss_gap}, leaves {bad}")
+    if any(max(a, b) >= 1e-6 * top for a, b in cancelled.values()):
+        fail(f"{WHISPER} training: the key biases' gradients {cancelled} "
+             f"are not rounding (largest gradient {top})")
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(WHISPER)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    p = ED.init_params(gen, cfg)
+    state = {"p": p, "opt": O.adamw_init(p)}
+    f = frontend_embeds(cfg, 8, gen)
+    x = torch.from_numpy(D.synthetic_chat(D.SyntheticChatConfig(
+        vocab_size=cfg.vocab_size, seq_len=129, n_samples=8))).to(dev)
+
+    def lm_step():
+        state["p"], state["opt"], met = ST.lm_train_step(
+            state["p"], state["opt"], cfg, x[:, :-1], x[:, 1:], f)
+        return met["loss"]
+
+    losses, ms = timed_steps(8, lm_step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = sum(t.numel() for t in O.tree_leaves(p))
+    log(f"  lm_train_step, {WHISPER} at full width and depth ({n / 1e6:.1f} "
+        f"M float32 parameters, bf16 products, remat, 1500 frames), one "
+        f"batch of 8 x 128 eight times: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {ms:.1f} ms/step (median of steps 2-8; "
+        f"{smi_line()}); peak memory {peak:.2f} GiB")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"{WHISPER} training: losses {losses}")
+
+
+# ---------------------------------------------------------------------------
 # phases 5 and 6: the launcher on bf16 openPangu-7B, full width and depth,
 # unfused and then with verify fusion on the same weights
 # ---------------------------------------------------------------------------
@@ -3047,7 +3402,8 @@ def check_against_ar(srv, dev, extras=None, gate=True):
     first divergence, which ``near_tie`` must accept (AR ranks the emitted
     token less than two bf16 steps below its top logit).  ``extras`` (a
     VLM's) holds each group's frontend prefix [SLOTS, F, fd], prefilled
-    ahead of its prompts.  With ``gate`` False (a MoE at the capacity
+    ahead of its prompts, or (the encoder-decoder's) each group's frames,
+    which take no row.  With ``gate`` False (a MoE at the capacity
     factor that drops) the divergences are logged, not held.  For a MoE
     each divergence logs ``router_gap`` at the parting token.  Returns
     how many answers equal AR's."""
@@ -3063,7 +3419,7 @@ def check_against_ar(srv, dev, extras=None, gate=True):
         extra = None if extras is None else extras[g // SLOTS]
         tok = torch.from_numpy(tok).to(dev)
         plen = torch.from_numpy(plen).to(dev)
-        if extra is not None:
+        if extra is not None and srv.cfg.family != "encdec":
             plen = plen + extra.shape[1]
         spec = torch.from_numpy(np.stack([res[i]["output"] for i in rows]))
         spec = spec.to(dev, torch.long)
@@ -3484,20 +3840,22 @@ def serve_expected(srv, failed_steps: int = 0):
     suffix call (which never defers); one commit a decode step and a
     suffix call, K4 dense, K5 paged (none without an attention layer:
     only attention layers count); a draft-model proposer's gamma + 1
-    T=1 decodes a step on each of its attention layers.  ``failed_steps`` are
+    T=1 decodes a step on each of its attention layers; no K3 for the
+    encoder-decoder.  ``failed_steps`` are
     decode steps that ran and then failed (not in the stats).  Group
     prefills launch none of these kernels."""
     cfg, eng = srv.cfg, srv.engine
     steps = srv.stats["steps"] + failed_steps
     sfx = srv.timing["suffix_calls"]
     L = cfg.num_attn_layers
-    quantized = cfg.resolved_cache_dtype == "int8"
+    unfused_write = (cfg.resolved_cache_dtype == "int8"
+                     or cfg.family == "encdec")
     fused = cfg.verify_fusion
     t1 = draft_t1_launches(eng.proposer, steps)
-    draft_k3 = t1 if t1 and eng.proposer.dc.verify_fusion and not quantized \
-        else 0
-    k3 = (L * (steps * (not eng.deferred) + sfx) if fused and not quantized
-          else 0) + draft_k3
+    draft_k3 = t1 if t1 and eng.proposer.dc.verify_fusion \
+        and not unfused_write else 0
+    k3 = (L * (steps * (not eng.deferred) + sfx) if fused
+          and not unfused_write else 0) + draft_k3
     commits = steps + sfx if L else 0
     return {"K1": L * (steps + sfx) + t1, "K2": steps if fused else 0,
             "K3": k3, "K4": 0 if cfg.paged else commits,
@@ -3528,10 +3886,11 @@ def check_server_graphs(label, srv, failed_steps: int = 0):
     return {g: graphs[g].capture_s for g in got}
 
 
-def serve_ar(cfg, params, prompts, max_new, dev, observe=None):
+def serve_ar(cfg, params, prompts, max_new, dev, observe=None, frames=None):
     """``ar_generate`` answers of ``prompts`` on ``cfg`` in groups of 4
     (padded as the launcher pads), ``max_new`` tokens each: [n, max_new]
-    int64 on the host."""
+    int64 on the host.  ``frames`` (the encoder-decoder's) holds each
+    request's [F, fd] frames."""
     from repro_torch.core.engine import ar_generate
     from repro_torch.models.api import init_cache
 
@@ -3540,13 +3899,16 @@ def serve_ar(cfg, params, prompts, max_new, dev, observe=None):
         rows = list(range(g, min(g + 4, len(prompts))))
         tok, plen = padded_batch(prompts, rows)
         S = -(-(tok.shape[1] + max_new + 8) // 64) * 64
+        extra = None if frames is None else torch.from_numpy(
+            np.stack([frames[i] for i in rows])).to(dev)
         ar, _ = ar_generate(cfg, params, torch.from_numpy(tok).to(dev),
                             torch.from_numpy(plen).to(dev),
                             init_cache(cfg, len(rows), S, device=dev),
                             max_new, use_kernel=True,
                             observe=None if observe is None
                             else (lambda t, lg, rows=rows:
-                                  observe(rows, t, lg)))
+                                  observe(rows, t, lg)),
+                            extra_embeds=extra)
         outs.append(ar.cpu().long())
     return torch.cat(outs)
 
@@ -3873,7 +4235,8 @@ def check_server_against_ar(label, served, dev, witness=None, gate=True):
                 gaps[i, t] = (top[j] - lf[j, outs[i][t]], top[j])
 
     res_params = served.params
-    ar = serve_ar(cfg, res_params, prompts, n_max, dev, observe)
+    ar = serve_ar(cfg, res_params, prompts, n_max, dev, observe,
+                  served.frames)
     gaps = {k: (float(g), float(t)) for k, (g, t) in gaps.items()}
     diverged, worst, ties = 0, 0.0, 0
     for i, r in enumerate(res):
@@ -4742,7 +5105,7 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
 
 
 def time_commit(dev, launches, max_err, paged=False, quantized=False,
-                ps=64, nu=34, D=128, T=64, suffix=""):
+                ps=64, nu=34, D=128, T=64, suffix="", H=8):
     """The one-launch commit (K4 dense, K5 paged) at the main path's:
     openPangu-7B's 34 units' in-flight k and v [4, 64, 8, 128] bf16 (one
     tensor per unit, as decode leaves them), a best path of K1 5 rows per
@@ -4758,14 +5121,14 @@ def time_commit(dev, launches, max_err, paged=False, quantized=False,
     pre-quantized) rows into each leaf; and an empty kernel.  The bound
     counts the accepted rows read once and written once (the scales
     under int8), the lengths, the path and the table entries they use.
-    ``nu`` units of [8, ``D``] rows (``suffix`` names another model's
+    ``nu`` units of [``H``, ``D``] rows (``suffix`` names another model's
     widths in the row's name), from ``T`` in-flight rows a slot (the
     chain step's 5)."""
     from repro_torch.kernels import cache_update as CU
     from repro_torch.kernels import paging as P
     from repro_torch.kernels.quant import quantize_rows
 
-    B, K1, H, S = 4, 5, 8, 2048
+    B, K1, S = 4, 5, 2048
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(11)
     src = {n: tuple(torch.randn((B, T, H, D), generator=gen,
@@ -4958,6 +5321,12 @@ def main() -> int:
           "paged too), graph == eager")
     phase_ssm_f32(dev)
     torch.cuda.empty_cache()
+    phase("phase 4w: the encoder-decoder (whisper-tiny, 4 + 4 layers, 1500 "
+          "frames a request), float32, full width and depth: speculative "
+          "== AR on four cache layouts, Medusa unfused, fused and sampled "
+          "at temperature 0, n-gram, graph == eager")
+    phase_whisper_f32(dev)
+    torch.cuda.empty_cache()
 
     phase("phase 5: the launcher on bf16 openPangu-7B, full width and depth, "
         "through the captured step")
@@ -5024,6 +5393,12 @@ def main() -> int:
           "int8) and the server (unfused, fused, chunked)")
     ssm = phase_ssm_serve(dev)
     torch.cuda.empty_cache()
+    phase("phase 16: the encoder-decoder in bf16 at full width and depth: "
+          "whisper-tiny through the launcher with 1500 frames a request "
+          "(--static and the server, unfused and fused, dense and paged "
+          "with preemption)")
+    whisper = phase_whisper_serve(dev)
+    torch.cuda.empty_cache()
     phase("phase 11: training (iv) granite-moe-1b-a400m LM steps at full "
           "width and depth")
     phase_train_moe(dev)
@@ -5031,6 +5406,10 @@ def main() -> int:
     phase("phase 11: training (v) mamba2-2.7b LM steps at full width and "
           "depth")
     phase_train_ssm(dev)
+    torch.cuda.empty_cache()
+    phase("phase 11: training (vi) whisper-tiny LM steps with frames: card "
+          "against CPU (reduced float32), then full width and depth")
+    phase_train_whisper(dev)
     torch.cuda.empty_cache()
     phase("phase 11: training (i) card against CPU, reduced float32 "
         "openPangu-7B")
@@ -5143,6 +5522,18 @@ def main() -> int:
                             errs[f"K3 {jamba}"], Ts=(CHAIN_T, 1)),
              time_commit(dev, ssm[jamba]["K4"], commit_errs[jamba], nu=1,
                          D=128, T=CHAIN_T, suffix=f"@{jamba}")]
+    # the encoder-decoder's tree step (phase 16's fused static runs): K1 at
+    # R 64 (the AR step's R 8 beside it) over 6 kv heads of 64, K2 over
+    # its [384, 51865] head on the tile route, the commit over its 4
+    # decoder units of [6, 64]
+    wname, wH, wD, wrows = WHISPER_K1[0]
+    rows += [time_flash_decode(dev, prompt_lens, MAX_NEW, whisper["K1"],
+                               k1_errs_dense[WHISPER],
+                               shape=(wname, wH, wD, wrows[:2])),
+             time_verify_stats(dev, get_config(WHISPER), whisper["K2"],
+                               errs[f"K2 {WHISPER}"], suffix=f"@{WHISPER}"),
+             time_commit(dev, whisper["K4"], commit_errs[WHISPER], nu=4,
+                         D=64, H=6, suffix=f"@{WHISPER}")]
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(smi_line(), flush=True)

@@ -3,9 +3,9 @@
 ``ModelConfig`` keeps every field of the reference dataclass, with the same
 names and defaults, so one architecture reads the same in both packages
 and a test can compare the two field by field.  ``reduce`` derives the
-CPU-test variant exactly as the reference does.  The port runs the dense,
-MoE, VLM, SSM and hybrid families; ``models/api.get_model`` rejects the
-encoder-decoder and tensor parallelism.
+CPU-test variant exactly as the reference does.  The port runs every
+family (dense, MoE, VLM, SSM, hybrid and the encoder-decoder);
+``models/api.get_model`` rejects tensor parallelism.
 ``SamplingParams`` is a copy of the reference's sampling controls and
 ``SchedulerParams`` of its serving-scheduler knobs.
 """

@@ -2,7 +2,9 @@
 launchers.  It lists the reference registry's decoders that the port
 carries: the paper's own model, the four other dense decoders, the two
 mixture-of-experts models, the vision-language model (its modality
-frontend a stub), the state-space model and the hybrid."""
+frontend a stub), the state-space model, the hybrid and the
+encoder-decoder (its audio frontend a stub): every model of the
+reference's registry."""
 from __future__ import annotations
 
 import importlib
@@ -21,6 +23,7 @@ _MODULES = {
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_27b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_15_large_398b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 ALL_ARCHS = list(_MODULES)

@@ -45,8 +45,8 @@ from repro_torch.kernels import ops as KO
 from repro_torch.kernels import paging as P
 from repro_torch.models import api as model_api
 from repro_torch.models.api import get_model
-from repro_torch.models.transformer import (PAGES_KEY, cache_max_len,
-                                             is_attn_entry)
+from repro_torch.models.transformer import (CROSS_KEY, PAGES_KEY,
+                                             cache_max_len, is_attn_entry)
 from repro_torch.runtime import (StepGraphs, binding, copy_tree_,
                                  resolve_device, torch_dtype, tree_map,
                                  tree_spec)
@@ -126,7 +126,8 @@ class SpecEngine:
     per-step tree-row cache write: decode attends over the committed cache
     (its columns below the lengths) merged with the in-flight rows, and
     commit is the step's only cache write; it takes the unfused write side
-    (no ``fused_qkv_rope_commit``), as in the reference.  ``device``
+    (no ``fused_qkv_rope_commit``), as in the reference, and is forced off
+    for the encoder-decoder, as there.  ``device``
     defaults to the card and raises if there is none.  ``graphs``
     (default True) replays ``generate``'s step as a CUDA graph on the
     card; False runs the same step eagerly (to compare the two).  The engine keeps its
@@ -165,7 +166,9 @@ class SpecEngine:
                              "single-path candidates; pass a chain_tree()")
         self.dtree = self.proposer.dtree
         self.use_kernel = use_kernel
-        self.deferred = deferred
+        # the encoder-decoder keeps the write-then-attend step (the
+        # reference's rule): its decode ignores ``deferred``
+        self.deferred = deferred and cfg.family != "encdec"
         self.accept = accept
         self.temperature = temperature
         self.sampling = sampling if sampling is not None else \
@@ -267,11 +270,13 @@ class SpecEngine:
         """-> (cache, lengths, base_token [B], proposer state).
 
         ``extra_embeds`` [B, F, fd] (a config with a frontend) is the stub
-        frontend's prefix, prefilled at rows 0..F-1 ahead of the tokens;
-        ``lengths`` then count its F rows.  Under ``accept="sample"`` the
-        base token (the first emitted token) is drawn from the warped
-        target logits with noise from the engine's generator, as the
-        sampled AR oracle draws it; otherwise it is the argmax.
+        frontend's prefix, prefilled at rows 0..F-1 ahead of the tokens
+        (``lengths`` then count its F rows), or the encoder-decoder's
+        frames, which its encoder reads (``lengths`` count tokens only).
+        Under ``accept="sample"`` the base token (the first emitted
+        token) is drawn from the warped target logits with noise from the
+        engine's generator, as the sampled AR oracle draws it; otherwise
+        it is the argmax.
         ``temperature``/``top_p`` may be per-row [B] tensors.  ``state``
         is the proposer state to prime; None allocates one holding as many
         rows as the cache."""
@@ -520,8 +525,8 @@ class SpecEngine:
         tokens [B, S_p] int32 right-padded prompts, prompt_lengths [B]
         int32, cache from ``init_cache``, all on the engine's device.
         ``extra_embeds`` [B, F, fd] (a config with a frontend) is the
-        prompts' frontend prefix; ``prompt_lengths`` then count its F
-        rows.
+        prompts' frontend prefix (``prompt_lengths`` then count its F
+        rows), or the encoder-decoder's frames (they do not).
         ``temperature`` (a scalar or a per-row [B] tensor) overrides the
         engine's ``sampling.temperature`` for this call; it and
         ``sampling.top_p`` are carry values, so the captured step replays
@@ -572,11 +577,11 @@ def _write_out(c: SpecCarry, toks):
 
 def _cache_batch(cache) -> int:
     """Slots of a cache: the table's rows (paged) or the B axis of its
-    first entry's leaves (dense; an SSM position's state is per slot
-    under every layout)."""
+    first entry's leaves (dense; an SSM position's state and the
+    encoder-decoder's cross k/v are per slot under every layout)."""
     if PAGES_KEY in cache:
         return cache[PAGES_KEY]["table"].shape[0]
-    return next(iter(cache["pos0"].values())).shape[1]
+    return next(iter(next(iter(cache.values())).values())).shape[1]
 
 
 def build_engine(cfg: ModelConfig, proposer: str = "medusa", *,
@@ -750,7 +755,8 @@ def ar_generate(cfg: ModelConfig, params, tokens, prompt_lengths, cache,
     eagerly; a ``StepGraphs`` (an engine's ``step_graphs``) keeps the
     graph across calls.  ``extra_embeds`` [B, F, fd] (a config with a
     frontend) is prefilled ahead of the tokens, ``prompt_lengths``
-    counting its F rows.  Returns (out [B, max_new] int32, lengths [B]
+    counting its F rows (the encoder-decoder's frames go to its encoder
+    and take no row).  Returns (out [B, max_new] int32, lengths [B]
     final cache lengths)."""
     return _ar_run(cfg, params, tokens, prompt_lengths, cache, max_new,
                    use_kernel, observe, graphs, extra_embeds=extra_embeds)
@@ -780,16 +786,20 @@ def ar_generate_sampled(cfg: ModelConfig, params, tokens, prompt_lengths,
 
 def _squeeze_spec(spec_cache):
     """Settle a T=1 spec cache: drop the in-flight ``*_new`` rows, keeping
-    the persistent leaves (k/v and, under int8, k_scale/v_scale) and the
-    paged layout's ``_pages`` block table.  An SSM position's state after
-    the one token (a T=1 step always accepts it) is copied over its
-    persistent state first: the reference's collapse of the T=1 axis."""
+    the persistent leaves (k/v and, under int8, k_scale/v_scale), the
+    paged layout's ``_pages`` block table and the encoder-decoder's
+    ``cross`` entry, which pass through untouched.  An SSM position's
+    state after the one token (a T=1 step always accepts it) is copied
+    over its persistent state first: the reference's collapse of the T=1
+    axis."""
     out = {}
     for pos, entry in spec_cache.items():
-        if pos != PAGES_KEY and not is_attn_entry(entry):
+        if pos in (PAGES_KEY, CROSS_KEY):
+            out[pos] = entry
+            continue
+        if not is_attn_entry(entry):
             for name, x in entry.items():
                 for u, states in enumerate(entry.get(name + "_new", ())):
                     x[u].copy_(states[:, 0])
-        out[pos] = entry if pos == PAGES_KEY else \
-            {n: x for n, x in entry.items() if not n.endswith("_new")}
+        out[pos] = {n: x for n, x in entry.items() if not n.endswith("_new")}
     return out

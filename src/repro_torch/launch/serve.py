@@ -35,7 +35,10 @@ granite-8b, qwen1.5-0.5b, qwen1.5-4b and gemma-2b, the mixture-of-experts
 granite-moe-1b-a400m and phi3.5-moe-42b-a6.6b, internvl2-26b, served
 on its text alone as the reference launcher serves it, the state-space
 mamba2-2.7b and the hybrid jamba-1.5-large-398b (both chain-mode: their
-Medusa heads verify a chain of 4; the prefix cache is refused for them)
+Medusa heads verify a chain of 4; the prefix cache is refused for them),
+and the encoder-decoder whisper-tiny, each request with random frames
+(the stub audio frontend's embeddings, drawn from ``--seed``; the prefix
+cache and chunking are refused for it)
 (random weights from ``--seed``, in the config's bf16); ``--reduced``
 takes the reference's reduced CPU-test config and
 ``--device cpu`` the plain PyTorch versions of the kernels.  On the card
@@ -81,6 +84,7 @@ from repro_torch.core import medusa as M
 from repro_torch.core.engine import SpecEngine, build_engine
 from repro_torch.core.proposers import DraftModelProposer
 from repro_torch.models.api import get_model
+from repro_torch.models.frontends import frontend_embeds
 from repro_torch.runtime import resolve_device
 from repro_torch.serving.router import ReplicaRouter
 from repro_torch.serving.scheduler import FamilySpecServer, SpecServer
@@ -101,6 +105,8 @@ class Served(NamedTuple):
     server: object = None  # the SpecServer / FamilySpecServer /
                            # ReplicaRouter that answered (None: --static)
     iterations: int = 0    # scheduler iterations (0: --static)
+    frames: Optional[list] = None  # the encoder-decoder's frames, one
+                                   # [F, fd] float32 array a request
 
 
 def make_prompts(vocab: int, n: int, seed: int, lo: int, hi: int):
@@ -110,6 +116,18 @@ def make_prompts(vocab: int, n: int, seed: int, lo: int, hi: int):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, vocab, size=int(rng.integers(lo, hi)))
             .astype(np.int32) for _ in range(n)]
+
+
+def request_frames(cfg, n: int, seed: int, device):
+    """One stub frontend output a request for an encoder-decoder ``cfg``
+    (``frontend_embeds`` in ``cfg.dtype``, drawn on ``device`` from
+    ``seed``): ``n`` [frontend_len, frontend_dim] float32 numpy arrays, as
+    ``SpecServer.submit`` takes them.  None for another family."""
+    if cfg.family != "encdec":
+        return None
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [frontend_embeds(cfg, 1, gen)[0].float().cpu().numpy()
+            for _ in range(n)]
 
 
 def build_model(cfg, seed: int, K: int, device):
@@ -141,13 +159,15 @@ def proposer_params(engine: SpecEngine, seed: int):
 
 
 def serve_static(engine: SpecEngine, params, mp, prompts, slots: int,
-                 max_new: int, max_len: int):
+                 max_new: int, max_len: int, frames=None):
     """Answer ``prompts`` in groups of ``slots`` through one
     ``engine.generate`` each, every group on the engine's one cache of
-    ``slots`` x ``max_len`` rows.  A request whose prompt, ``max_new``
-    tokens and one step's tree rows do not fit ``max_len`` cache rows is
-    rejected.  Returns (results, seconds, tokens, capture_s): capture_s
-    is the part of ``seconds`` spent capturing step graphs."""
+    ``slots`` x ``max_len`` rows; ``frames`` (the encoder-decoder's, one
+    [F, fd] array a request) go to ``generate`` as the group's
+    ``extra_embeds``.  A request whose prompt, ``max_new`` tokens and one
+    step's tree rows do not fit ``max_len`` cache rows is rejected.
+    Returns (results, seconds, tokens, capture_s): capture_s is the part
+    of ``seconds`` spent capturing step graphs."""
     dev = engine.device
     need = max_new + engine.dtree.K + engine.dtree.T
     results = [{"rid": i, "prompt_len": len(p), "status": "rejected",
@@ -164,14 +184,21 @@ def serve_static(engine: SpecEngine, params, mp, prompts, slots: int,
         S = max(len(prompts[i]) for i in group)
         tok = np.zeros((slots, S), np.int32)
         plen = np.zeros((slots,), np.int32)
-        for j in range(slots):      # ragged tail: repeat the group's first row
-            p = prompts[group[j] if j < len(group) else group[0]]
-            tok[j, :len(p)] = p
-            plen[j] = len(p)
+        # ragged tail: repeat the group's first row
+        rows = [group[j] if j < len(group) else group[0]
+                for j in range(slots)]
+        for j, i in enumerate(rows):
+            tok[j, :len(prompts[i])] = prompts[i]
+            plen[j] = len(prompts[i])
+        extra = None
+        if frames is not None:
+            extra = torch.from_numpy(np.stack([frames[i] for i in rows]))
+            extra = extra.to(dev)
         cache = engine.init_cache(slots, max_len)
         out, n_out, stats = engine.generate(
             params, mp, torch.from_numpy(tok).to(dev),
-            torch.from_numpy(plen).to(dev), cache, max_new)
+            torch.from_numpy(plen).to(dev), cache, max_new,
+            extra_embeds=extra)
         out, n_out = out.cpu().numpy(), n_out.cpu().numpy()
         acc = stats.accepted_per_slot.cpu().numpy()
         for j, i in enumerate(group):
@@ -185,11 +212,12 @@ def serve_static(engine: SpecEngine, params, mp, prompts, slots: int,
 
 
 def serve_requests(srv, prompts, max_news, temperature: float,
-                   top_p: float, groups=None):
+                   top_p: float, groups=None, frames=None):
     """Submit ``prompts`` (with their ``max_news``) to ``srv`` (a
     ``SpecServer``, ``FamilySpecServer`` or ``ReplicaRouter``) and run it
     until every request is resolved; ``groups`` (optional) names each
-    request's lane.  Returns (results, seconds, tokens, iterations): one
+    request's lane, ``frames`` (the encoder-decoder's) each request's
+    frames.  Returns (results, seconds, tokens, iterations): one
     dict per request in submission order with its status, output, steps,
     latency and time to first token (host clock, seconds from submission;
     None where it never produced one)."""
@@ -202,6 +230,8 @@ def serve_requests(srv, prompts, max_news, temperature: float,
         kw = dict(max_new=int(n), temperature=temperature, top_p=top_p)
         if groups is not None:
             kw["group"] = groups[r]
+        if frames is not None:
+            kw["extra_embeds"] = frames[r]
         rids.append(srv.submit(p, **kw))
     iterations = srv.run()
     if dev.type == "cuda":
@@ -404,12 +434,13 @@ def main(argv=None, weights=None) -> Served:
                  for _ in range(4)]
         prompts = [np.concatenate([bases[r % 4], p])
                    for r, p in enumerate(prompts)]
+    frames = request_frames(cfg, len(prompts), args.seed + 7, dev)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
 
     if args.static:
         results, seconds, tokens, capture_s = serve_static(
             engine, params, mp, prompts, args.slots, args.max_new,
-            args.max_len)
+            args.max_len, frames)
         for r in results:
             tps = len(r["output"]) / max(r["steps"], 1)
             print(f"  req {r['rid']}: {r['status']} "
@@ -423,7 +454,7 @@ def main(argv=None, weights=None) -> Served:
               f"graph); {args.proposer} proposer: "
               f"{tokens / max(steps, 1):.2f} tokens a step")
         return Served(engine.cfg, engine, params, mp, prompts, results,
-                      seconds, tokens, capture_s)
+                      seconds, tokens, capture_s, frames=frames)
 
     sched = SchedulerParams(chunk_size=args.chunk_size,
                             preemption=args.preemption,
@@ -451,7 +482,7 @@ def main(argv=None, weights=None) -> Served:
         if kinds else None
     capture0 = sum(e.step_graphs.capture_s for e in engines.values())
     results, seconds, tokens, iterations = serve_requests(
-        srv, prompts, max_news, args.temperature, args.top_p, groups)
+        srv, prompts, max_news, args.temperature, args.top_p, groups, frames)
     capture_s = sum(e.step_graphs.capture_s
                     for e in engines.values()) - capture0
     for r in results:
@@ -495,7 +526,7 @@ def main(argv=None, weights=None) -> Served:
                          f"retries); the step failures recovered from: "
                          f"{why}")
     return Served(engine.cfg, engine, params, mp, prompts, results, seconds,
-                  tokens, capture_s, srv, iterations)
+                  tokens, capture_s, srv, iterations, frames)
 
 
 def _describe(cfg, engine, args) -> str:

@@ -57,11 +57,19 @@ wrapped in a range the same way.  For an arch with SSM positions
 mixer's row: the device ms and launches per step of the kernels issued
 inside ``ssm.mamba2_decode`` (the projections, the loop over the chain's
 tokens, the gated norm and the output projection), wrapped in a range
-the same way.  ``--one-unit`` traces jamba-1.5-large-398b at full width
-cut to one 4-position unit (``configs.jamba_15_large_398b.ONE_UNIT``),
-the depth one card holds.  ``--cache-dtype``, ``--cache-layout``
-and ``--page-size`` (the launcher's flags, names and defaults) trace the
-same steps on the int8 cache and on the paged pool.  ``--proposer`` and ``--gamma`` (the
+the same way.  For the encoder-decoder (``--arch whisper-tiny``, every
+request with random stub frames) the eager kinds print the
+cross-attention's row: the device ms and launches per step of the
+kernels issued inside ``layers.attention_cross`` (the query projection,
+the scores over the frames' k/v, the output projection); the encoder
+runs at prefill only, so its row comes once, before the kinds: the
+device ms and launches of one prefill's ``encdec.encode`` and of its
+``layers.cross_kv``, traced the same way.  ``--one-unit`` traces
+jamba-1.5-large-398b at full width cut to one 4-position unit
+(``configs.jamba_15_large_398b.ONE_UNIT``), the depth one card holds.
+``--cache-dtype``, ``--cache-layout`` and ``--page-size`` (the
+launcher's flags, names and defaults) trace the same steps on the int8
+cache and on the paged pool.  ``--proposer`` and ``--gamma`` (the
 launcher's flags) trace the spec kinds of the draft-model or n-gram
 engine instead of the Medusa one (the draft: the launcher's 2-layer
 sibling with its weights from ``proposer_params``); the AR kinds are the
@@ -75,6 +83,7 @@ import dataclasses
 import re
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -83,14 +92,17 @@ from repro_torch.configs.jamba_15_large_398b import ONE_UNIT
 from repro_torch.configs.registry import ALL_ARCHS, get_config
 from repro_torch.core.engine import ar_loop_step, build_engine
 from repro_torch.launch.serve import (build_model, make_prompts,
-                                      proposer_params)
-from repro_torch.models import layers, ssm, transformer
+                                      proposer_params, request_frames)
+from repro_torch.models import encdec, layers, ssm
+from repro_torch.models.api import get_model
 from repro_torch.runtime import resolve_device, tree_map
 from repro_torch.serving.scheduler import SpecServer
 
 DECODE_RANGE, COMMIT_RANGE = "model.decode", "model.commit"
 MOE_STAGES = ("moe_route", "moe_dispatch", "moe_experts", "moe_combine")
 SSM_RANGE = "mamba2_decode"
+CROSS_RANGE, ENCODE_RANGE, CROSS_KV_RANGE = ("attention_cross", "encode",
+                                             "cross_kv")
 
 
 def _port_kernels() -> set:
@@ -121,17 +133,21 @@ def _ranged(name: str, fn):
     return call
 
 
-def range_model(model, layers, ssm):
+def range_model(model, layers, ssm, encoder=None):
     """Wrap ``model.decode`` and ``model.commit`` (the model module every
     engine and the AR loop call through), the MoE's stages in ``layers``
-    (``layers.moe`` calls them through the module) and the SSM mixer's
-    ``ssm.mamba2_decode`` (called through its module too) in profiler
-    ranges."""
+    (``layers.moe`` calls them through the module), the SSM mixer's
+    ``ssm.mamba2_decode`` (called through its module too) and the
+    encoder-decoder's ``layers.attention_cross`` / ``cross_kv`` in
+    profiler ranges; with the ``encoder`` module (``models.encdec``), its
+    ``encode`` too."""
     model.decode = _ranged(DECODE_RANGE, model.decode)
     model.commit = _ranged(COMMIT_RANGE, model.commit)
-    for name in MOE_STAGES:
+    for name in MOE_STAGES + (CROSS_RANGE, CROSS_KV_RANGE):
         setattr(layers, name, _ranged(name, getattr(layers, name)))
     ssm.mamba2_decode = _ranged(SSM_RANGE, ssm.mamba2_decode)
+    if encoder is not None:
+        encoder.encode = _ranged(ENCODE_RANGE, encoder.encode)
 
 
 def _within(evt, ranges) -> bool:
@@ -208,6 +224,21 @@ def ssm_row(prof, steps: int):
         SSM_RANGE: _cpu_ranges(ev, SSM_RANGE)})
 
 
+def cross_row(prof, steps: int):
+    """The encoder-decoder's cross-attention row: the kernels launched
+    inside ``layers.attention_cross`` in the decode steps."""
+    range_row(prof, steps, "cross-attention row", lambda ev: {
+        CROSS_RANGE: _cpu_ranges(ev, CROSS_RANGE, DECODE_RANGE)})
+
+
+def encoder_row(prof):
+    """The encoder's row, for one prefill: the kernels launched inside
+    ``encdec.encode`` and the cross k/v projections (``cross_kv``)."""
+    range_row(prof, 1, "encoder row (one prefill)", lambda ev: {
+        ENCODE_RANGE: _cpu_ranges(ev, ENCODE_RANGE),
+        CROSS_KV_RANGE: _cpu_ranges(ev, CROSS_KV_RANGE)})
+
+
 def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
            replays: int, capture_s: float, top: int = 12):
     """Print one traced phase's per-step breakdown, with the graph
@@ -216,6 +247,7 @@ def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and e.key not in (DECODE_RANGE, COMMIT_RANGE, SSM_RANGE,
+                                 CROSS_RANGE, ENCODE_RANGE, CROSS_KV_RANGE,
                                  *MOE_STAGES)]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels)
@@ -263,8 +295,10 @@ def main(argv=None):
         ap.error("--one-unit cuts jamba-1.5-large-398b")
 
     dev = resolve_device("cuda")
-    range_model(transformer, layers, ssm)
     base = ONE_UNIT if args.one_unit else get_config(args.arch)
+    model = get_model(base)
+    range_model(model, layers, ssm,
+                encdec if model is encdec else None)
     cfg = dataclasses.replace(base,
                               cache_dtype=args.cache_dtype,
                               cache_layout=args.cache_layout,
@@ -285,10 +319,13 @@ def main(argv=None):
     if args.proposer == "medusa":
         params, mp = build_model(cfg, 0, eng.dtree.K, dev)
     else:
-        params = transformer.init_params(
+        params = model.init_params(
             torch.Generator(device=dev).manual_seed(0), cfg, dtype=cfg.dtype)
         mp = proposer_params(eng, 0)
     prompts = make_prompts(cfg.vocab_size, 4, 0, 64, 257)
+    frames = request_frames(cfg, 4, 7, dev)
+    extra = None if frames is None else \
+        torch.from_numpy(np.stack(frames)).to(dev)
     S = max(len(p) for p in prompts)
     tok = torch.zeros((4, S), dtype=torch.int32)
     for j, p in enumerate(prompts):
@@ -297,7 +334,18 @@ def main(argv=None):
     plen = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
                         device=dev)
     cache = eng.init_cache(4, 2048)
-    cache, lengths, base, state = eng.prefill(params, mp, tok, plen, cache)
+    if extra is not None:
+        # the encoder runs at prefill only: its row comes from one
+        # prefill (after a warm-up one)
+        eng.prefill(params, mp, tok, plen, cache, extra_embeds=extra)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.prefill(params, mp, tok, plen, cache, extra_embeds=extra)
+            torch.cuda.synchronize()
+        encoder_row(prof)
+    cache, lengths, base, state = eng.prefill(params, mp, tok, plen, cache,
+                                              extra_embeds=extra)
     # where the generation stands, handed from one kind of step to the next
     pos = {"lengths": lengths, "base": base, "state": state}
     n = 2 + 2 * args.steps                 # steps each kind runs
@@ -337,8 +385,9 @@ def main(argv=None):
         the 4 prompts and runs the eager warm-up step."""
         e = engines[vf, graphs, "greedy", False]
         srv = SpecServer(e, params, mp, batch_slots=4, max_len=2048)
-        for p in prompts:
-            srv.submit(p, max_new=1000, max_steps=10 ** 6)
+        for r, p in enumerate(prompts):
+            srv.submit(p, max_new=1000, max_steps=10 ** 6,
+                       extra_embeds=None if frames is None else frames[r])
         srv.step_once()
         graph = srv.step_graphs()[e.dtree.K]
         return graph, srv.step_once, srv.release_all
@@ -393,6 +442,8 @@ def main(argv=None):
                 moe_row(prof, args.steps)
             if cfg.num_ssm_layers:
                 ssm_row(prof, args.steps)
+            if model is encdec:
+                cross_row(prof, args.steps)
 
 
 if __name__ == "__main__":

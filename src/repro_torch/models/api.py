@@ -1,18 +1,19 @@
 """Uniform model API (counterpart of ``repro.models.api``).
 
-``init_cache`` here is the one cache factory the engine builds through.
-The port carries the decoder-only stack of the dense, MoE, VLM, SSM and
-hybrid families, under every cache dtype and layout of the reference;
-the encoder-decoder and tensor parallelism raise
-``NotImplementedError`` naming their later slice.
+``get_model`` dispatches on the config's family: ``models.encdec`` for
+the encoder-decoder, ``models.transformer`` for the decoder-only
+families (dense, MoE, VLM, SSM and hybrid).  ``init_cache`` here is the
+one cache factory the engine builds through, under every cache dtype and
+layout of the reference.  Tensor parallelism raises
+``NotImplementedError`` naming its later slice.
 """
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def get_model(cfg: ModelConfig):
     transformer.check_supported(cfg)
-    return transformer
+    return encdec if cfg.family == "encdec" else transformer
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, n_blocks=None,

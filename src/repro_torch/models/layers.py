@@ -1,8 +1,10 @@
-"""Core transformer layers in PyTorch: norms, RoPE, GQA attention (prefill
-and the cached tree-decode mask), the gated MLP and the top-k MoE.
+"""Core transformer layers in PyTorch: norms (RMSNorm, LayerNorm), RoPE,
+GQA attention (prefill, the encoder's full attention, cross-attention
+and the cached tree-decode mask), the gated and plain MLPs and the top-k
+MoE.
 
-Counterpart of ``repro.models.layers``, without its LayerNorm,
-cross-attention and tensor parallelism.  Functions keep the reference's
+Counterpart of ``repro.models.layers``, without its tensor parallelism.
+Functions keep the reference's
 names, argument order and tensor layouts (``wq [d, Hq, hd]``, activations
 ``[B, S, H, D]``) and repeat its dtype casts in the same places, so a
 float32 run agrees with the reference to rounding.
@@ -37,12 +39,14 @@ def dense_init(gen: torch.Generator, shape, dtype, scale=None, stack: int = 0):
 
 
 def init_norm(cfg: ModelConfig, device, stack: int = 0):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r}: the port's first slice carries RMSNorm only "
-            f"(other families are ROADMAP queue 1 item 14)")
+    """RMSNorm's ``w`` = 1, and for LayerNorm also ``b`` = 0, in f32."""
     shape = ((stack,) if stack else ()) + (cfg.d_model,)
-    return {"w": torch.ones(shape, dtype=torch.float32, device=device)}
+    p = {"w": torch.ones(shape, dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros(shape, dtype=torch.float32, device=device)
+    elif cfg.norm != "rmsnorm":
+        raise ValueError(f"unknown norm {cfg.norm!r}")
+    return p
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, stack: int = 0):
@@ -83,11 +87,20 @@ def rms_norm(x, w, eps: float = 1e-6):
     return (x * w.float()).to(dt)
 
 
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """LayerNorm in float32 (the reference's op order), cast back to
+    ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.float() + b.float()).to(dt)
+
+
 def apply_norm(params, x, cfg: ModelConfig):
     if "b" in params:
-        raise NotImplementedError(
-            "LayerNorm: the port's first slice carries RMSNorm only (other "
-            "families are ROADMAP queue 1 item 14)")
+        return layer_norm(x, params["w"], params["b"])
     return rms_norm(x, params["w"])
 
 
@@ -162,29 +175,58 @@ def _blockwise_causal(q, k, v, scale, block: int):
     return torch.cat(outs, dim=1)
 
 
-def attention_full(p, x, cfg: ModelConfig, return_kv=False):
-    """Full-sequence causal attention (prefill); sequences longer than 8192
-    that split into 1024-row blocks go through ``_blockwise_causal``."""
+def attention_full(p, x, cfg: ModelConfig, positions=None, causal=True,
+                   return_kv=False):
+    """Full-sequence attention (train, prefill, and without ``causal`` the
+    encoder's); causal sequences longer than 8192 that split into
+    1024-row blocks go through ``_blockwise_causal``.  ``positions``
+    [B or 1, S] are the RoPE positions (default 0..S-1)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.use_rope:
-        positions = torch.arange(S, device=x.device)[None, :]
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
         cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     scale = 1.0 / math.sqrt(hd)
-    if S > 8192 and S % 1024 == 0:
+    if causal and S > 8192 and S % 1024 == 0:
         out = _blockwise_causal(q, k, v, scale, block=1024)
     else:
-        idx = torch.arange(S, device=x.device)
-        mask = (idx[None, :] <= idx[:, None])[None]
+        mask = None
+        if causal:
+            idx = torch.arange(S, device=x.device)
+            mask = (idx[None, :] <= idx[:, None])[None]
         out = _gqa_scores_to_out(q, k, v, mask, scale)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     if return_kv:
         return y, (k, v)
     return y
+
+
+def attention_cross(p, x, enc_kv, cfg: ModelConfig):
+    """Cross-attention of ``x`` [B, S, d] against the encoder's k/v
+    ``enc_kv`` ([B, F, Hkv, D] each), unmasked."""
+    k, v = enc_kv
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    out = _gqa_scores_to_out(q, k, v, None, scale)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def cross_kv(p, enc_out, cfg: ModelConfig):
+    """The cross-attention's k/v [B, F, Hkv, D] from the encoder's output
+    [B, F, d], with the k/v biases."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(enc_out.dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(enc_out.dtype))
+    if "bk" in p:
+        k = k + p["bk"].to(enc_out.dtype)
+        v = v + p["bv"].to(enc_out.dtype)
+    return k, v
 
 
 def decode_mask(tree_mask, length, T: int, S_max: int):

@@ -59,6 +59,9 @@ from repro_torch.runtime import resolve_device, torch_dtype
 # entry (no leading n_units axis), so every walk over the layers splits it
 # off first
 PAGES_KEY = "_pages"
+# the encoder-decoder's cache entry of per-slot encoder k/v
+# (``models.encdec``): attention-shaped, but never the paged pool
+CROSS_KEY = "cross"
 
 
 def split_pages(cache):
@@ -102,15 +105,14 @@ def n_units(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError, naming the later slice, for every branch
-    of the reference that the port does not carry yet."""
-    later = []
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        later.append(f"family {cfg.family!r} (ROADMAP queue 1 item 14)")
+    """Raise NotImplementedError, naming the later slice, for the one
+    branch of the reference the port does not carry yet: tensor
+    parallelism.  An unknown family raises ValueError."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.tp_axis:
-        later.append("tensor parallelism (ROADMAP queue 1 item 16)")
-    if later:
-        raise NotImplementedError(f"{cfg.name}: " + "; ".join(later))
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism (ROADMAP queue 1 item 16)")
 
 
 def unit_params(params, u: int):
@@ -273,11 +275,12 @@ def _unit_full(unit_p, x, cfg: ModelConfig, collect_router: bool = False):
     return x, aux
 
 
-def _unbound_units(params, cfg: ModelConfig) -> list:
-    """Every unit's weights, as views of the stacked ``params["units"]``
-    made with one ``unbind`` per leaf: its backward stacks the units'
-    gradients once, where indexing each unit (``unit_params``) would add a
-    zero-filled gradient of the whole stack per unit."""
+def unbound_units(stacked, n: int) -> list:
+    """Each of the ``n`` units' weights, as views of the ``stacked`` tree
+    (every leaf on a leading unit axis) made with one ``unbind`` per leaf:
+    its backward stacks the units' gradients once, where indexing each
+    unit (``unit_params``) would add a zero-filled gradient of the whole
+    stack per unit."""
     def split(tree):
         return {k: split(v) if isinstance(v, dict) else v.unbind(0)
                 for k, v in tree.items()}
@@ -286,8 +289,8 @@ def _unbound_units(params, cfg: ModelConfig) -> list:
         return {k: pick(v, u) if isinstance(v, dict) else v[u]
                 for k, v in tree.items()}
 
-    parts = split(params["units"])
-    return [pick(parts, u) for u in range(n_units(cfg))]
+    parts = split(stacked)
+    return [pick(parts, u) for u in range(n)]
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens, extra_embeds=None,
@@ -303,7 +306,7 @@ def forward_hidden(params, cfg: ModelConfig, tokens, extra_embeds=None,
     experts) it is 0."""
     x = _embed_input(params, cfg, tokens, extra_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for unit_p in _unbound_units(params, cfg):
+    for unit_p in unbound_units(params["units"], n_units(cfg)):
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
                 _unit_full, unit_p, x, cfg, collect_router,
@@ -392,21 +395,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
 
 
 def is_attn_entry(entry) -> bool:
-    """Whether a cache entry is an attention position's (k/v rows, pooled
-    under the paged layout) rather than an SSM position's per-slot
-    state."""
+    """Whether a cache entry is attention-shaped (k/v rows: an attention
+    position's, or the encoder-decoder's cross k/v) rather than an SSM
+    position's per-slot state."""
     return "k" in entry
+
+
+def is_cache_rows(pos, entry) -> bool:
+    """Whether cache entry ``pos`` holds the decode rows of an attention
+    position: dense [n_units, B, S, ...] rows or, under the paged layout,
+    the shared pool that block ids index.  False for the block table, an
+    SSM position's per-slot state and the encoder-decoder's per-slot
+    cross k/v (``CROSS_KEY``), as the reference excludes them by name."""
+    return pos not in (PAGES_KEY, CROSS_KEY) and is_attn_entry(entry)
 
 
 def cache_max_len(cache, table=None) -> int:
     """Per-slot capacity in rows.  Dense: the S axis.  Paged: the table's
     reach, max_blocks * page_size (found under ``_pages`` when not
     given).  0 for a cache without an attention position (a pure SSM
-    stack holds no rows), the reference's rule."""
+    stack holds no rows), the reference's rule.  The encoder-decoder's
+    cross k/v (frontend_len rows a slot) is not decode capacity."""
     if table is None and PAGES_KEY in cache:
         table = cache[PAGES_KEY]["table"]
     for pos, entry in cache.items():
-        if pos != PAGES_KEY and is_attn_entry(entry):
+        if is_cache_rows(pos, entry):
             per_block_or_s = entry["k"].shape[-3]
             if table is not None:
                 return table.shape[1] * per_block_or_s

@@ -65,9 +65,20 @@ every leaf, copy-on-write touches only the attention pools, and every
 masked slot of a step or a chunk call keeps its state bit for bit (the
 model's commit restores the speculation root there; ``ssm_restores``
 counts those slot-steps).  The prefix cache is refused for them, as the
-reference refuses it: a shared KV block carries no recurrent state.  A
-request's ``extra_embeds`` raises: the reference takes them from
-encoder-decoder requests only, a family that is ROADMAP queue 1 item 14.
+reference refuses it: a shared KV block carries no recurrent state.
+
+The encoder-decoder's requests carry their frames (``extra_embeds``
+[frontend_len, frontend_dim], required there and refused for every other
+family, as in the reference), kept on the host for the request's
+lifetime: admission gathers each group's frames into its prefill, whose
+encoder pass writes the slots' cross k/v, and a preempted request runs
+its encoder again when it is re-admitted.  The cross k/v is per slot
+under every layout, written at admission as a dense cache's leaves are,
+and never the paged pool (``transformer.is_cache_rows``): paged
+admission and copy-on-write leave it to its slot.  The prefix cache and
+chunked prefill are refused for the encoder-decoder, as the reference
+refuses them: both skip the whole-prompt prefill whose encoder pass
+builds the cross k/v.
 """
 from __future__ import annotations
 
@@ -85,7 +96,8 @@ from repro_torch.configs.base import SchedulerParams
 from repro_torch.core.engine import SpecEngine
 from repro_torch.kernels.paging import blocks_for
 from repro_torch.models import api as model_api
-from repro_torch.models.transformer import PAGES_KEY, is_attn_entry
+from repro_torch.models.transformer import (PAGES_KEY, is_attn_entry,
+                                             is_cache_rows)
 from repro_torch.runtime import binding, copy_tree_, tree_map
 from repro_torch.serving.block_pool import BlockPool, PrefixCache
 
@@ -155,6 +167,10 @@ class Request:
     # sampled requests share one static step
     temperature: float = 0.0
     top_p: float = 1.0
+    # the encoder-decoder's frames [frontend_len, frontend_dim] float32,
+    # kept for the request's lifetime: a preempted request encodes them
+    # again at its re-admission
+    frames: Optional[np.ndarray] = None
     submitted_at: float = field(default_factory=time.monotonic)
     output: List[int] = field(default_factory=list)
     steps: int = 0
@@ -256,11 +272,12 @@ class SpecServer:
                          if n_blocks is None else int(n_blocks))
         if prefix_cache and not self.paged:
             raise ValueError("prefix_cache requires cache_layout='paged'")
-        if prefix_cache and self.cfg.num_ssm_layers:
+        self.encdec = self.cfg.family == "encdec"
+        if prefix_cache and (self.cfg.num_ssm_layers or self.encdec):
             # prefix-cache admission skips the prefill of matched tokens;
-            # a shared KV block carries no recurrent state to restore
-            # from, so a hit would leave the slot's state cold (the
-            # reference's message)
+            # a shared KV block carries no recurrent or cross state to
+            # restore from, so a hit would leave the slot's state cold
+            # (the reference's message)
             raise ValueError(
                 "prefix_cache shares KV blocks only; SSM/encdec state "
                 "cannot be reconstructed from them (DESIGN.md §17 — use "
@@ -279,6 +296,13 @@ class SpecServer:
                 f"chunked prefill rides the suffix_prefill path; "
                 f"{type(engine.proposer).__name__} cannot be primed from a "
                 "suffix")
+        if self.chunk and self.encdec:
+            # the cross k/v comes from the encoder pass inside the
+            # whole-prompt prefill, which a chunk does not run
+            raise ValueError(
+                "chunked prefill cannot split an encoder-decoder prompt: "
+                "the cross-attention cache is built by the encoder pass "
+                "inside whole-prompt prefill")
         self.preemption = bool(self.sched.preemption)
         if self.preemption and not self.paged:
             raise ValueError("preemption (optimistic block allocation) "
@@ -361,17 +385,27 @@ class SpecServer:
         """``temperature``/``top_p`` take effect when the engine verifies
         with ``accept="sample"``; omitted values fall back to the engine's
         ``SamplingParams``, and temperature 0.0 reproduces greedy output
-        exactly.  ``extra_embeds`` is refused, as the reference refuses it
-        for every family but the encoder-decoder (whose frames are
-        ROADMAP queue 1 item 14): a decoder-only model's frontend prefix
-        is not per-request state in the server."""
+        exactly.  ``extra_embeds`` [frontend_len, frontend_dim] (the
+        stub encoder's frames) is required for the encoder-decoder and
+        refused for every other family, as the reference does: a
+        decoder-only model's frontend prefix is not per-request state in
+        the server."""
         sp = self.engine.sampling
-        if extra_embeds is not None:
+        if self.encdec:
+            if extra_embeds is None:
+                raise ValueError(
+                    "encdec requests need extra_embeds [frontend_len, "
+                    "frontend_dim]: the encoder pass runs at admission")
+            extra_embeds = np.asarray(extra_embeds, np.float32)
+            want = self._frames_shape()
+            if extra_embeds.shape != want:
+                raise ValueError(
+                    f"extra_embeds shape {extra_embeds.shape} != {want}")
+        elif extra_embeds is not None:
             raise ValueError(
                 f"extra_embeds is encdec-only; {self.cfg.family!r} requests "
                 f"carry token ids (decoder-only frontends fold their prefix "
-                f"in at prefill, outside the server; encoder-decoder serving "
-                f"is ROADMAP queue 1 item 14)")
+                f"in at prefill, outside the server)")
         if (self.cfg.verify_fusion and self.engine.accept == "sample"
                 and top_p is not None and top_p != 1.0):
             # the fused epilogue keeps only Verdict-sized statistics; a
@@ -382,7 +416,7 @@ class SpecServer:
             self._rid, np.asarray(prompt, np.int32), max_new, eos_id,
             deadline_s, max_steps or 4 * max_new,
             temperature=sp.temperature if temperature is None else temperature,
-            top_p=sp.top_p if top_p is None else top_p))
+            top_p=sp.top_p if top_p is None else top_p, frames=extra_embeds))
         return self._rid
 
     def result(self, rid: int) -> Optional[Request]:
@@ -473,38 +507,41 @@ class SpecServer:
 
     # --------------------------------------------------------- device code
 
-    def _prefill_group(self, toks, plens, gtemp, gtopp, slots, rows):
+    def _prefill_group(self, toks, plens, gtemp, gtopp, slots, rows,
+                       frames=None):
         """Prefill one bucket group [n, bucket] into the engine's scratch
         cache of n rows and write the group's rows ``rows`` [m] into the
         slots ``slots`` [m] of the B-slot state (cache leaves along axis
         1, proposer-state leaves along their declared axes).  ``gtemp`` /
         ``gtopp`` [n] are the rows' sampling controls (a sample-mode
-        engine draws each base token at its own temperature)."""
+        engine draws each base token at its own temperature); ``frames``
+        [n, F, fd] the encoder-decoder's (None for other families)."""
         n = toks.shape[0]
         cache_n = self.engine.init_cache(n, self.max_len)
         st_n = self.engine.init_proposer_state(n, self.max_len)
         cache_n, len_n, base_n, st_n = self.engine.prefill(
             self.params, self.proposer_params, toks, plens, cache_n,
-            state=st_n, temperature=gtemp, top_p=gtopp)
+            extra_embeds=frames, state=st_n, temperature=gtemp, top_p=gtopp)
         for pos, entry in self.cache.items():
             for name, t in entry.items():
                 _put_rows(t, cache_n[pos][name], slots, rows, 1)
         self._merge_state(st_n, slots, rows, len_n, base_n)
 
     def _prefill_group_paged(self, toks, plens, gtemp, gtopp, slots, rows,
-                          gtable):
+                             gtable, frames=None):
         """Paged variant of ``_prefill_group``: the attention positions'
         prefill writes land in the global pool through ``gtable``
         [n, max_blocks] (the admitted slots' table rows; padding rows are
-        all-zero, so their writes sink into the trash block).  An SSM
-        position's state is per slot: it is prefilled into fresh n-row
-        leaves and its rows ``rows`` written into the slots ``slots``, as
-        ``_prefill_group`` writes every leaf; then the [B]-sized step
-        state and the proposer state merge."""
+        all-zero, so their writes sink into the trash block).  Per-slot
+        entries (an SSM position's state, the encoder-decoder's cross
+        k/v) are prefilled into fresh n-row leaves and their rows ``rows``
+        written into the slots ``slots``, as ``_prefill_group`` writes
+        every leaf; then the [B]-sized step state and the proposer state
+        merge."""
         n = toks.shape[0]
         view = {}
         for pos, entry in self.cache.items():
-            if pos == PAGES_KEY or is_attn_entry(entry):
+            if pos == PAGES_KEY or is_cache_rows(pos, entry):
                 view[pos] = entry               # the shared pool
             else:
                 view[pos] = {name: t.new_zeros((t.shape[0], n)
@@ -514,9 +551,9 @@ class SpecServer:
         st_n = self.engine.init_proposer_state(n, self.max_len)
         _, len_n, base_n, st_n = self.engine.prefill(
             self.params, self.proposer_params, toks, plens, view,
-            state=st_n, temperature=gtemp, top_p=gtopp)
+            extra_embeds=frames, state=st_n, temperature=gtemp, top_p=gtopp)
         for pos, entry in self.cache.items():
-            if pos != PAGES_KEY and not is_attn_entry(entry):
+            if pos != PAGES_KEY and not is_cache_rows(pos, entry):
                 for name, t in entry.items():
                     _put_rows(t, view[pos][name], slots, rows, 1)
         self._merge_state(st_n, slots, rows, len_n, base_n)
@@ -577,10 +614,10 @@ class SpecServer:
         """Copy-on-write: pool rows of physical blocks ``src`` [m] copy
         into blocks ``dst`` [m] across every attention pool leaf (values
         and int8 scales share one block id space; an SSM position's
-        per-slot state is no pool).  Padding pairs are (0, 0): a
-        trash-to-trash no-op."""
+        per-slot state and the encoder-decoder's cross k/v are no pool).
+        Padding pairs are (0, 0): a trash-to-trash no-op."""
         for pos, entry in self.cache.items():
-            if pos == PAGES_KEY or not is_attn_entry(entry):
+            if not is_cache_rows(pos, entry):
                 continue
             for name, x in entry.items():
                 x.index_copy_(1, dst, x.index_select(1, src))
@@ -908,7 +945,8 @@ class SpecServer:
         """Group the admitted requests by prompt bucket and prefill each
         group in one call (the host builds the [n, bucket] inputs).  Under
         the paged layout the group's table rows ride along (padding rows
-        all-zero: trash-sunk writes)."""
+        all-zero: trash-sunk writes), and for the encoder-decoder the
+        group's frames [n, F, fd] (padding rows zero)."""
         groups: Dict[int, list] = {}
         for i, req, p_ext in pairs:
             groups.setdefault(self._bucket(len(p_ext)), []).append(
@@ -923,6 +961,8 @@ class SpecServer:
             rows = np.arange(len(grp), dtype=np.int64)
             gtable = (np.zeros((n, self.blocks_per_slot), np.int32)
                       if self.paged else None)
+            gframes = (np.zeros((n,) + self._frames_shape(), np.float32)
+                       if self.encdec else None)
             for j, (i, req, p_ext) in enumerate(grp):
                 toks[j, : len(p_ext)] = p_ext[:bucket]
                 plens[j] = len(p_ext)
@@ -931,7 +971,11 @@ class SpecServer:
                 slots[j] = i
                 if self.paged:
                     gtable[j] = self._table[i]
+                if self.encdec:
+                    gframes[j] = req.frames
             extra = (self._tensor(gtable),) if self.paged else ()
+            if self.encdec:
+                extra += (self._tensor(gframes),)
             self._admit_fn(self._tensor(toks), self._tensor(plens),
                            self._tensor(gtemp), self._tensor(gtopp),
                            self._tensor(slots), self._tensor(rows), *extra)
@@ -945,14 +989,20 @@ class SpecServer:
         bucket = self._bucket(len(p_ext))
         toks = np.zeros((1, bucket), np.int32)
         toks[0, : len(p_ext)] = p_ext[:bucket]
+        frames = ((self._tensor(req.frames[None]),) if self.encdec else ())
         self._admit_fn(
             self._tensor(toks), self._tensor(np.array([len(p_ext)],
                                                       np.int32)),
             self._tensor(np.array([req.temperature], np.float32)),
             self._tensor(np.array([req.top_p], np.float32)),
             self._tensor(np.array([slot_idx], np.int64)),
-            self._tensor(np.zeros((1,), np.int64)))
+            self._tensor(np.zeros((1,), np.int64)), *frames)
         self.stats["prefill_calls"] += 1
+
+    def _frames_shape(self):
+        """One request's frames: (frontend_len, frontend_dim)."""
+        return (self.cfg.frontend_len,
+                self.cfg.frontend_dim or self.cfg.d_model)
 
     def _push_table(self):
         """Copy the host block-table mirror into the device table when it

@@ -73,7 +73,9 @@ def cross_entropy(logits, targets, valid=None):
 
 def lm_loss(params, cfg: ModelConfig, tokens, targets, extra_embeds=None,
             aux_weight: float = 0.01):
-    """-> (loss + aux_weight * aux, (loss, aux))."""
+    """-> (loss + aux_weight * aux, (loss, aux)).  ``extra_embeds``: a
+    VLM's prefix (whose positions' logits are dropped) or the
+    encoder-decoder's frames (which its encoder reads)."""
     model = get_model(cfg)
     logits, aux = model.forward_train(params, cfg, tokens,
                                       extra_embeds=extra_embeds)
@@ -108,8 +110,11 @@ def medusa_loss(medusa_params, backbone_params, cfg: ModelConfig, tokens,
     lam_decay ** (k + 1), over the frozen backbone's hidden states (no
     graph is kept for it).  Head k (0-indexed) predicts x_{t+k+2}: the
     backbone itself emits x_{t+1}.  Returns (L, per-head top-1 accuracy
-    [K])."""
+    [K]).  The encoder-decoder raises, as in the reference: head
+    training targets the decoder-only families."""
     model = get_model(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError("head training targets LM families")
     with torch.no_grad():
         hidden, _ = model.forward_hidden(backbone_params, cfg, tokens,
                                          remat=False)

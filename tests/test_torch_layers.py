@@ -74,12 +74,13 @@ def test_config_matches_reference():
 
 def test_unsupported_branches_raise():
     cfg = get_config("openpangu-7b", reduced=True)
-    for change in ({"family": "encdec"}, {"tp_axis": "model"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(dataclasses.replace(cfg, **change))
-    # the SSM and hybrid families are carried
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+        get_model(dataclasses.replace(cfg, tp_axis="model"))
+    # the SSM and hybrid families are carried, and the encoder-decoder
     for change in ({"family": "ssm"}, {"family": "hybrid"}):
         get_model(dataclasses.replace(cfg, **change))
+    from repro_torch.models import encdec
+    assert get_model(dataclasses.replace(cfg, family="encdec")) is encdec
 
 
 def test_rms_norm_and_rope(rng):

@@ -35,9 +35,9 @@ reference's own reduced configs.
 * The server: the port's ``SpecServer`` equals the reference's on one
   trace of the reduced granite-moe at 1.25 (tokens, statuses, stats), and
   refuses ``extra_embeds`` as the reference does; the launchers serve and
-  train the new archs; ``check_supported`` still refuses the
-  encoder-decoder and tensor parallelism (and, since their slice, takes
-  the SSM and hybrid families).
+  train the new archs; ``check_supported`` still refuses tensor
+  parallelism (and, since their slices, takes the SSM, hybrid and
+  encoder-decoder families).
 """
 import dataclasses
 import types
@@ -254,16 +254,18 @@ def test_init_params_tree_matches_reference(arch):
 
 
 def test_check_supported_refuses_the_rest():
+    from repro_torch.models import encdec
+    from repro_torch.models.api import get_model
+
     for arch in ("mamba2-2.7b", "jamba-1.5-large-398b", "whisper-tiny"):
         cfg = jax_get_config(arch, reduced=True)
         tcfg = dataclasses.replace(get_config("granite-moe-1b-a400m",
                                               reduced=True),
                                    family=cfg.family)
-        if cfg.family in ("ssm", "hybrid"):    # carried since their slice
-            T.check_supported(tcfg)
-            continue
-        with pytest.raises(NotImplementedError, match="item 14"):
-            T.check_supported(tcfg)
+        # each carried since its slice; the encoder-decoder goes to its
+        # own module
+        T.check_supported(tcfg)
+        assert (get_model(tcfg) is encdec) == (cfg.family == "encdec")
     tp = dataclasses.replace(get_config("internvl2-26b", reduced=True),
                              tp_axis="model")
     with pytest.raises(NotImplementedError, match="item 16"):

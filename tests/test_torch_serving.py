@@ -424,7 +424,7 @@ def test_rejects_and_refusals(stack):
     got = _run(srv, [(wide, 8, {}), (ok, 4, {})])
     assert got == [("done", stack["ar"](cfg, wide, 8)),
                    ("done", stack["ar"](cfg, ok, 4))]
-    with pytest.raises(ValueError, match="item 14"):
+    with pytest.raises(ValueError, match="encdec-only"):
         srv.submit(ok, max_new=4, extra_embeds=np.zeros((8, 64), np.float32))
     for kw in (dict(prefix_cache=True), dict(n_blocks=9),
                dict(sched=SchedulerParams(preemption=True))):

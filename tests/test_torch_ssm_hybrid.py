@@ -7,7 +7,7 @@ configs, in float32, on the same weights (``split_params`` -> numpy ->
   and reduced, with the published dimensions; ``ONE_UNIT``, the card's
   cut of jamba, keeps its widths.  ``init_params`` has the reference's
   tree (``jax.eval_shape``), f32 and bf16; ``check_supported`` refuses
-  only the encoder-decoder and tensor parallelism.
+  only tensor parallelism.
 * ``models/ssm.py`` function by function, within 3e-5 of each output's
   largest magnitude: ``_causal_conv``, ``ssd_chunked`` (S not a multiple
   of the chunk, with an ``initial_state``), ``mamba2_full`` (right-padded
@@ -251,13 +251,16 @@ def test_init_params_tree_matches_reference(arch):
     assert float(a.min()) >= 1.0 and float(a.max()) < 16.0
 
 
-def test_check_supported_refuses_only_encdec_and_tp():
+def test_check_supported_refuses_only_tp():
+    from repro_torch.models import encdec
+    from repro_torch.models.api import get_model
+
     for arch in ARCHS:
         T.check_supported(get_config(arch))
     whisper = dataclasses.replace(get_config("mamba2-2.7b", reduced=True),
                                   family="encdec")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.check_supported(whisper)
+    T.check_supported(whisper)               # carried since its slice
+    assert get_model(whisper) is encdec
     tp = dataclasses.replace(get_config("jamba-1.5-large-398b", reduced=True),
                              tp_axis="model")
     with pytest.raises(NotImplementedError, match="item 16"):
