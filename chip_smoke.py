@@ -313,7 +313,34 @@ non-zero exit:
    and hybrid families' (``@<arch>``, phase 15's fused static runs); and
    whisper-tiny's (``@whisper-tiny``: K1 at R 64 / 8 over 6 kv heads of
    64, K2 over its [384, 51865] head on the tile route, the commit over
-   4 units of [6, 64]; launches from phase 16's fused static run).
+   4 units of [6, 64]; launches from phase 16's fused static run); and
+   tensor parallelism's (``@tp2``: K1 in its four variants at a tp-2
+   rank's 4 kv heads, R 256 / 8, and the commit over 34 units of [4,
+   128] on every layout, by CUDA events queued behind a spin kernel; the
+   dense rows' launches from phase 17 (b)'s rank 0, the others' from
+   phase 17 (a)'s).
+17. tensor parallelism (``distributed/``: ``TPSpecEngine`` on
+   ``torch.distributed``, one process a rank; nccl when every rank has a
+   card, else gloo passed explicitly, the ranks sharing the card; the
+   backend is logged).  Phases 2 and 3 check K1 (four variants) and the
+   commit at a rank's kv heads (``TP_K1``: 4 at tp 2, 2 at tp 4, and 1).
+   (a) (run after 13) float32 at full width, 2 layers, tp 2: on every
+   rank, ``TPSpecEngine.generate`` on the dense, int8, paged and int8 +
+   paged caches, Medusa and n-gram, greedy and sampled at temperature 0,
+   == phase 4's single-device spec and AR tokens; K1 and K4 / K5
+   launched exactly as ``expected_counts`` says at the local head count,
+   K1 on its routes; under gloo the ranks first check gloo's CUDA path
+   (``collectives.probe_gloo_cuda``: which collectives run natively,
+   which are staged through pinned host memory).  (b) (run after 11
+   (ii)) the launcher at ``--tp 2`` on bf16 openPangu-7B at full width
+   and depth (8 requests, 4 slots, 64 new, ``--profile-steps 2``): every
+   rank's answers rank 0's, launches exact, tokens/s, wall and device ms
+   a step, the collectives' ms a step and peak memory per rank beside
+   phase 5's single-card figures, then each answer held to single-device
+   AR under ``MARGIN_BOUND`` on the same weights (card 0, after the ranks
+   are gone).  ``python3 chip_smoke.py --tp-cards`` runs phase 17 alone on
+   four cards over NCCL: (a) at tp 2 and tp 4, then the launcher at
+   ``--tp 4`` and at ``--tp 2 --mesh-shape 2x2``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -403,6 +430,15 @@ JAMBA_F32_EXPERTS = 4
 # encdec decode keeps the unfused write side)
 WHISPER = "whisper-tiny"
 WHISPER_K1 = [(WHISPER, 6, 64, (64, 8, 1))]
+# tensor parallelism: openPangu-7B's 8 kv heads at tp 2 and tp 4 (the
+# group of 4 stays, so R stays 256 / 8), and one kv head a rank (the
+# reduced config's at tp 2), at D 128
+TP = 2
+TP_K1 = [("openpangu-7b@tp2", 4, 128, (256, 8)),
+         ("openpangu-7b@tp4", 2, 128, (256, 8)),
+         ("hkv1@tp", 1, 128, (256, 8))]
+TP_LAYOUTS = [("dense", "", "dense", 64), ("int8", "int8", "dense", 64),
+              ("paged", "", "paged", 64), ("int8+paged", "int8", "paged", 16)]
 
 
 def no_drop(cfg):
@@ -795,7 +831,7 @@ def phase_kernels(dev):
         # a kv head: R 512 / 8) and qwen1.5-0.5b (16 kv heads, D 64, R 64 /
         # 8, the AR step's one row padded to 8)
         for name, Hkv, D, rows in (FAMILY_K1 + MOE_VLM_K1 + JAMBA_K1
-                                   + WHISPER_K1):
+                                   + WHISPER_K1 + TP_K1):
             for R in rows:
                 folded_case(f"{name} R={R}", 4, 2048, Hkv, R, D, dt, ragged,
                             key=name if R == rows[0] else None)
@@ -942,7 +978,7 @@ def phase_kernel_variants(dev):
         # the dense family's shapes, every variant: int8, paged (page size
         # 64) and int8 + paged (16), an idle slot on the pools
         for name, Hkv, D, rows in (FAMILY_K1 + MOE_VLM_K1 + JAMBA_K1
-                                   + WHISPER_K1):
+                                   + WHISPER_K1 + TP_K1):
             for R in rows:
                 args = (dev, f"{name} R={R}", 4, 2048, Hkv, R, D, dt)
                 err = variant_case(*args, [1, 517, 1300, 2048], True, 0, R)
@@ -952,7 +988,10 @@ def phase_kernel_variants(dev):
                                    R + 1)
                 if dt == torch.bfloat16 and R == rows[0]:
                     main[f"{name} paged"] = err
-                variant_case(*args, [0, 517, 1300, 2048], True, 16, R + 2)
+                err = variant_case(*args, [0, 517, 1300, 2048], True, 16,
+                                   R + 2)
+                if dt == torch.bfloat16 and R == rows[0]:
+                    main[f"{name} int8+paged"] = err
     return main
 
 
@@ -1566,6 +1605,15 @@ def phase_commit_kernels(dev):
     path_case(dev, f"{WHISPER} int8", 4, 6, 64, bf, True, S=512)
     path_case(dev, f"{WHISPER} int8 paged", 4, 6, 64, bf, True, ps=16,
               S=512)
+    # tensor parallelism: openPangu-7B's 34 units at a rank's kv heads (4
+    # at tp 2, 2 at tp 4, and the reduced config's 1), every layout at tp 2
+    for label, quantized, ps in (("dense", False, 0), ("paged", False, 64),
+                                 ("int8", True, 0), ("int8+paged", True, 16)):
+        errs[f"tp {label}"] = path_case(dev, f"tp2 {label}", 34, 4, 128, bf,
+                                        quantized, ps=ps)
+    path_case(dev, "tp4", 34, 2, 128, bf)
+    path_case(dev, "tp4 int8 paged", 34, 2, 128, bf, True, ps=16)
+    path_case(dev, "hkv1@tp paged", 34, 1, 128, bf, ps=64, S=512)
     return errs
 
 
@@ -1665,6 +1713,14 @@ F32_LAYOUTS = [("dense", False, "", "dense", 64),
                ("int8, verify fusion", True, "int8", "dense", 64)]
 
 
+def f32_base():
+    """Phase 4's model: float32 openPangu-7B at full width, 2 layers."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("openpangu-7b"), num_layers=2,
+                               dtype="float32", param_dtype="float32",
+                               name="openpangu-7b-2layer-f32")
+
+
 def phase_f32(dev):
     """Float32 openPangu-7B at full width, 2 layers, on every cache layout:
     spec == AR token for token through the captured steps, a second run on
@@ -1680,9 +1736,7 @@ def phase_f32(dev):
     from repro_torch.core.engine import ar_generate, build_engine
     from repro_torch.launch.serve import build_model, make_prompts
 
-    base = dataclasses.replace(get_config("openpangu-7b"), num_layers=2,
-                               dtype="float32", param_dtype="float32",
-                               name="openpangu-7b-2layer-f32")
+    base = f32_base()
     params, mp = build_model(base, 1, 4, dev)
     prompts = make_prompts(base.vocab_size, 4, 1, 16, 129)
     tok, plen = padded_batch(prompts, range(4))
@@ -4782,6 +4836,230 @@ def phase_trained_stack(dev, params=None):
     return acc, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor parallelism (TPSpecEngine on torch.distributed)
+# ---------------------------------------------------------------------------
+
+def tp_backend(ranks: int) -> str:
+    """nccl when every rank has a card of its own; else gloo, passed
+    explicitly, the ranks sharing the card."""
+    return "nccl" if torch.cuda.device_count() >= ranks else "gloo"
+
+
+def tp_f32_rank(rank, world, dev, tp, tok, plen, max_new, max_len):
+    """Phase 17 (a) on one rank of a ``tp``-way group: phase 4's weights
+    (drawn alike on every rank from the same seed) sliced for the rank,
+    then ``TPSpecEngine.generate`` on the dense, int8, paged and int8 +
+    paged caches, Medusa and n-gram, greedy and sampled at temperature 0,
+    each with the counts set to 0 just before and read just after.  Under
+    gloo the rank first probes gloo's CUDA path (``probe_gloo_cuda``)."""
+    from repro_torch.configs.base import SamplingParams
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import tp as TPM
+    from repro_torch.launch.serve import build_model
+
+    mesh = TPM.make_tp_group(tp, data=world // tp)
+    out = {"probe": (C.probe_gloo_cuda("model", dev)
+                     if mesh.backend == "gloo" else None)}
+    base = f32_base()
+    params, mp = build_model(base, 1, 4, dev)
+    tok, plen = tok.to(dev), plen.to(dev)
+    runs = {}
+    for label, dtype, layout, ps in TP_LAYOUTS:
+        cfg = dataclasses.replace(base, cache_dtype=dtype,
+                                  cache_layout=layout, page_size=ps)
+        for proposer in ("medusa", "ngram"):
+            for accept in ("greedy", "sample"):
+                tpe = TPM.build_tp_engine(
+                    cfg, mesh, proposer, use_kernel=True, device=dev,
+                    accept=accept, seed=11,
+                    sampling=SamplingParams(temperature=0.0))
+                sp = tpe.shard_params(params)
+                pp = mp if proposer == "medusa" else None
+                cache = tpe.init_cache(4, max_len)
+                reset_counts()
+                with C.metered() as meter:
+                    o, n, st = tpe.generate(sp, pp, tok, plen, cache,
+                                            max_new)
+                counts = read_counts()
+                lc = tpe.local_cfg
+                rows = -(-max_len // ps) * ps if lc.paged else max_len
+                runs[label, proposer, accept] = dict(
+                    out=o.cpu(), n=n.cpu(), steps=st.steps, counts=counts,
+                    want=expected_counts(lc, st.steps),
+                    routes=read_routes()["K1"],
+                    want_routes=k1_routes(lc, 4, rows, st.steps,
+                                          T=tpe.tb.T),
+                    collectives=meter.total())
+                del tpe, sp, cache
+    out["runs"] = runs
+    return out
+
+
+def phase_tp_f32(dev, want, tok, plen, max_new, max_len, tp=TP):
+    """Phase 17 (a): f32 full width, 2 layers, tp ``tp``: every rank's
+    ``TPSpecEngine`` tokens == phase 4's single-device spec and AR tokens
+    (``want``: fp and int8) on four layouts, Medusa and n-gram, greedy
+    and sampled at temperature 0, with K1 and K4 / K5 launched exactly as
+    ``expected_counts`` says at the local head count, K1 on its routes.
+    Returns rank 0's launches by layout, summed over its runs."""
+    from repro_torch.distributed import collectives as C
+
+    backend = tp_backend(tp)
+    log(f"  tp {tp} on {backend} ({torch.cuda.device_count()} card(s) "
+        f"visible): {'a card a rank' if backend == 'nccl' else 'the ranks share card 0'}")
+    try:
+        outs = C.spawn(tp_f32_rank, tp, backend=backend, device=dev.type,
+                       args=(tp, tok.cpu(), plen.cpu(), max_new, max_len),
+                       timeout=600)
+    except Exception as e:                     # a rank's traceback
+        fail(f"tp {tp} f32 ranks failed: {e}")
+    if outs[0]["probe"] is not None:
+        log(f"  gloo on CUDA tensors: {outs[0]['probe']} (native: gloo's "
+            f"own CUDA path, each result equal to the CPU's; staged: "
+            f"through pinned host memory by collectives.py)")
+    by_layout = {}
+    for key, run in outs[0]["runs"].items():
+        label, proposer, accept = key
+        ref = want["int8" if "int8" in label else ""]
+        for r, o in enumerate(outs):
+            other = o["runs"][key]
+            if not torch.equal(other["out"], ref):
+                fail(f"tp {tp} f32 {key} rank {r}: tokens != phase 4's "
+                     f"single-device spec and AR:\n{other['out'].tolist()}"
+                     f"\n{ref.tolist()}")
+            if other["counts"] != other["want"] \
+                    or other["routes"] != other["want_routes"]:
+                fail(f"tp {tp} f32 {key} rank {r}: launches "
+                     f"{other['counts']} by route {other['routes']}, "
+                     f"expected {other['want']} {other['want_routes']}")
+        n_coll, coll_ms = run["collectives"]
+        log(f"  tp {tp} f32 {label} {proposer} {accept}: every rank == "
+            f"phase 4's spec and AR for 4 x {max_new} tokens; {run['steps']} "
+            f"steps; launches a rank {run['counts']} (exact), K1 routes "
+            f"{run['routes']}; {n_coll / run['steps']:.1f} collectives a "
+            f"step, {coll_ms / run['steps']:.3f} ms a step")
+        acc = by_layout.setdefault(label, dict.fromkeys(run["counts"], 0))
+        for k, n in run["counts"].items():
+            acc[k] += n
+    return by_layout
+
+
+def phase_tp_serve(dev, single=None, tp=TP, mesh_shape=""):
+    """Phase 17 (b): the launcher at ``--tp`` on bf16 openPangu-7B, full
+    width and depth, 8 requests, 4 slots, 64 new: every request done, every
+    rank's answers rank 0's, K1 and the commit launched exactly (34 a step,
+    one a step), each answer held to single-device AR under
+    ``MARGIN_BOUND`` (the rank sums add the ``wo`` products in another
+    order); tokens/s, wall and device ms a step, the collectives' ms a
+    step and peak memory per rank logged beside phase 5's single-card
+    figures (``single``).  AR runs on card 0 after the ranks are gone, on
+    the same weights drawn from the launcher's seed.  Returns the run."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch import serve
+
+    data = int(mesh_shape.split("x")[0]) if mesh_shape else 1
+    backend = tp_backend(data * tp)
+    argv = SERVE_ARGV + ["--tp", str(tp), "--tp-backend", backend,
+                         "--profile-steps", "2"]
+    if mesh_shape:
+        argv += ["--mesh-shape", mesh_shape]
+    try:
+        run = serve.main(argv)
+    except Exception as e:
+        fail(f"--tp {tp} {mesh_shape}: {e}")
+    res = run.results
+    if any(r["status"] != "done" or len(r["output"]) != MAX_NEW
+           for r in res):
+        fail(f"--tp {tp}: not every request finished")
+    for r in run.ranks:
+        steps = r["steps"]
+        want = {"K1": run.cfg.num_layers * steps, "K4": steps, "K5": 0}
+        prof = r["profile"]
+        log(f"  --tp {tp} {mesh_shape or ''} ({backend}) rank {r['rank']} "
+            f"{r['coords']} on {r['device']}: {r['tokens'] / r['seconds']:.1f}"
+            f" tok/s, {steps} steps, wall {r['seconds'] * 1e3 / steps:.3f} "
+            f"ms a step (prefill included); traced step: wall "
+            f"{prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms "
+            f"(idle {prof['idle']:.3f}), {prof['launches']:.0f} launches, "
+            f"collectives {prof['collectives']:.1f} taking "
+            f"{prof['collective_ms']:.3f} ms (served run: "
+            f"{r['collective_ms'] / steps:.3f} ms a step), NCCL kernels "
+            f"{prof['nccl_ms']:.4f} ms, memcpy {prof['copy_ms']:.4f} ms; "
+            f"peak {r['peak_bytes'] / 2 ** 30:.2f} GiB; launches "
+            f"{r['launches']} (expected {want})")
+        if r["launches"] != want:
+            fail(f"--tp {tp} rank {r['rank']}: launches {r['launches']}, "
+                 f"expected {want}")
+    if single:
+        log(f"  beside phase 5 on one card: {single['tok_s']:.1f} tok/s, "
+            f"{single['step_ms']:.3f} ms a step (the captured step, prefill "
+            f"included), peak {single['peak_gib']:.2f} GiB")
+    from repro_torch.launch.serve import build_model
+    params = build_model(run.cfg, SEED, 4, dev)[0]
+    check_against_ar(SimpleNamespace(results=res, prompts=run.prompts,
+                                     cfg=run.cfg, params=params), dev)
+    del params
+    torch.cuda.empty_cache()
+    return run
+
+
+def f32_ar_want(dev):
+    """Phase 4's prompts and its AR tokens, fp and int8 (spec == AR there),
+    for a run without phase 4."""
+    from repro_torch.core.engine import ar_generate
+    from repro_torch.launch.serve import build_model, make_prompts
+    from repro_torch.models.api import init_cache
+
+    base = f32_base()
+    params, _ = build_model(base, 1, 4, dev)
+    prompts = make_prompts(base.vocab_size, 4, 1, 16, 129)
+    tok, plen = (torch.from_numpy(x).to(dev)
+                 for x in padded_batch(prompts, range(4)))
+    want = {}
+    for dtype in ("", "int8"):
+        cfg = dataclasses.replace(base, cache_dtype=dtype)
+        want[dtype] = ar_generate(cfg, params, tok, plen,
+                                  init_cache(cfg, 4, 512, device=dev), 32,
+                                  use_kernel=True)[0].cpu()
+    del params
+    torch.cuda.empty_cache()
+    return want, tok, plen
+
+
+def tp_cards_main() -> int:
+    """``chip_smoke.py --tp-cards``: phase 17 alone on four cards over NCCL
+    (the kernels built first): (a) at tp 2 and tp 4, then the launcher at
+    ``--tp 4`` and at ``--tp 2 --mesh-shape 2x2``, answers held as (b)."""
+    from repro_torch.kernels import build
+    from repro_torch.runtime import resolve_device
+
+    dev = resolve_device("cuda")
+    if torch.cuda.device_count() < 4:
+        fail(f"--tp-cards needs 4 cards, {torch.cuda.device_count()} visible")
+    t_start = time.perf_counter()
+    log(f"phase 1: {smi_line()}; torch {torch.__version__}; "
+        f"{torch.cuda.device_count()} device(s)")
+    build.build(sorted(p.stem for p in build.CSRC.glob("*.cu")))
+    want, tok, plen = f32_ar_want(dev)
+    for tp in (2, 4):
+        log(f"phase 17 (a): f32, full width, 2 layers, tp {tp} "
+            f"[at {time.perf_counter() - t_start:.1f}s]")
+        phase_tp_f32(dev, want, tok, plen, 32, 512, tp=tp)
+    for tp, shape in ((4, ""), (2, "2x2")):
+        log(f"phase 17 (b): bf16 full depth, --tp {tp} {shape} "
+            f"[at {time.perf_counter() - t_start:.1f}s]")
+        phase_tp_serve(dev, tp=tp, mesh_shape=shape)
+    log(f"chip_smoke --tp-cards: passed in "
+        f"{time.perf_counter() - t_start:.1f}s")
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def median_s(fn, iters: int = 3):
     """(median seconds of ``iters`` synchronised calls after one warm-up,
     the last call's result)."""
@@ -5105,7 +5383,7 @@ def time_flash_decode(dev, prompt_lens, max_new, launches, max_err,
 
 
 def time_commit(dev, launches, max_err, paged=False, quantized=False,
-                ps=64, nu=34, D=128, T=64, suffix="", H=8):
+                ps=64, nu=34, D=128, T=64, suffix="", H=8, queued=False):
     """The one-launch commit (K4 dense, K5 paged) at the main path's:
     openPangu-7B's 34 units' in-flight k and v [4, 64, 8, 128] bf16 (one
     tensor per unit, as decode leaves them), a best path of K1 5 rows per
@@ -5123,7 +5401,9 @@ def time_commit(dev, launches, max_err, paged=False, quantized=False,
     under int8), the lengths, the path and the table entries they use.
     ``nu`` units of [``H``, ``D``] rows (``suffix`` names another model's
     widths in the row's name), from ``T`` in-flight rows a slot (the
-    chain step's 5)."""
+    chain step's 5).  ``queued`` times every call by CUDA events queued
+    behind a spin kernel (``queued_ms``, the profiler's fallback) without
+    trying the profiler first."""
     from repro_torch.kernels import cache_update as CU
     from repro_torch.kernels import paging as P
     from repro_torch.kernels.quant import quantize_rows
@@ -5189,15 +5469,20 @@ def time_commit(dev, launches, max_err, paged=False, quantized=False,
 
     # each call is shorter than the host's cost of issuing it: device
     # times from the profiler, and the host's rate beside them
+    def timed(fn, iters, expect=None):
+        if queued:
+            return queued_ms(fn, iters)
+        return device_ms(fn, iters, expect=expect)
+
     issue_ms = cuda_ms(kernel, 200)
-    ms = device_ms(kernel, 50, expect=1)
-    plain_ms = device_ms(lambda: CU.commit_path_stacked_plain(
+    ms = timed(kernel, 50, expect=1)
+    plain_ms = timed(lambda: CU.commit_path_stacked_plain(
         leaves, src, path, lengths, table), 50)
-    old_ms = device_ms(old, 50)
-    given_ms = device_ms(lambda: uncounted(rows_given, leaves["k"], *extra,
-                                           pre["k"], lengths), 50, expect=1)
-    lib_ms = device_ms(lib, 50)
-    empty_ms = device_ms(lambda: torch.cuda._sleep(0), 50, expect=1)
+    old_ms = timed(old, 50)
+    given_ms = timed(lambda: uncounted(rows_given, leaves["k"], *extra,
+                                       pre["k"], lengths), 50, expect=1)
+    lib_ms = timed(lib, 50)
+    empty_ms = timed(lambda: torch.cuda._sleep(0), 50, expect=1)
     moved = sum(r.numel() * r.element_size() for r in pre.values())
     read = 2 * nu * B * K1 * H * D * 2
     blocks = len({(b, (n + j) // ps) for b, n in enumerate(lengths.tolist())
@@ -5228,7 +5513,8 @@ def time_commit(dev, launches, max_err, paged=False, quantized=False,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "empty_kernel_ms": empty_ms,
             "old_sequence_ms": old_ms, "rows_given_ms": given_ms,
-            "host_issue_ms": issue_ms}
+            "host_issue_ms": issue_ms,
+            "timed_by": "queued CUDA events" if queued else "profiler"}
 
 
 def main() -> int:
@@ -5239,6 +5525,10 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke test needs an "
              "NVIDIA GPU")
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:] == ["--tp-cards"]:
+        return tp_cards_main()
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]} (none, or --tp-cards)")
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
     from repro_torch.runtime import resolve_device
@@ -5295,7 +5585,15 @@ def main() -> int:
           "deferred, FamilySpecServer, sampled with temperature-0 "
           "requests, a recovered failure)")
     phase_serving_f32(dev, f32)
+    tp_in = (f32["want"], f32["tok"].cpu(), f32["plen"].cpu(),
+             f32["max_new"], f32["max_len"])
     del f32
+    torch.cuda.empty_cache()
+    phase(f"phase 17 (a): tensor parallelism, float32, full width, 2 "
+          f"layers, tp {TP}: TPSpecEngine == phase 4's spec and AR on four "
+          f"cache layouts, Medusa and n-gram, greedy and sampled at "
+          f"temperature 0, launches exact on every rank")
+    tp_counts = phase_tp_f32(dev, *tp_in)
     torch.cuda.empty_cache()
     phase("phase 4b: the sampled distribution gate (tiny vocabulary, 1024 "
         "rows): the tree walk and the draft's chain walk, unfused and "
@@ -5332,6 +5630,10 @@ def main() -> int:
         "through the captured step")
     torch.cuda.reset_peak_memory_stats()
     srv, _ = phase_serve(dev)
+    steps5 = sum(srv.results[g]["steps"] for g in range(0, REQUESTS, SLOTS))
+    single = {"tok_s": srv.tokens / srv.seconds,
+              "step_ms": srv.seconds * 1e3 / steps5,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
     phase("phase 6: the launcher with --verify-fusion on the same weights")
     fsrv, fused = phase_serve_fused(dev, srv)
@@ -5373,6 +5675,10 @@ def main() -> int:
         "openPangu-7B, its float32 Medusa heads, qwen1.5-0.5b LM steps")
     phase_train_full(dev, params)
     del params
+    torch.cuda.empty_cache()
+    phase(f"phase 17 (b): the launcher at --tp {TP} on bf16 openPangu-7B, "
+          f"full width and depth: answers held to single-device AR")
+    tp_run = phase_tp_serve(dev, single)
     torch.cuda.empty_cache()
     phase("phase 9: the launcher on the dense family at full width and depth "
         "in bf16, unfused and --verify-fusion")
@@ -5534,6 +5840,30 @@ def main() -> int:
                                errs[f"K2 {WHISPER}"], suffix=f"@{WHISPER}"),
              time_commit(dev, whisper["K4"], commit_errs[WHISPER], nu=4,
                          D=64, H=6, suffix=f"@{WHISPER}")]
+    # tensor parallelism's kernels at a tp-2 rank's 4 kv heads: the dense
+    # rows' launches are phase 17 (b)'s rank 0's, the other layouts' phase
+    # 17 (a)'s
+    tp_name = TP_K1[0][0]
+    tp_dense = tp_run.ranks[0]["launches"]
+    rows.append(time_flash_decode(dev, prompt_lens, MAX_NEW, tp_dense["K1"],
+                                  k1_errs_dense[tp_name], shape=TP_K1[0]))
+    for variant, ps in (("int8", 64), ("paged", 64), ("int8+paged", 16)):
+        rows.append(time_flash_decode(
+            dev, prompt_lens, MAX_NEW, tp_counts[variant]["K1"],
+            k1_errs[f"{tp_name} {variant}"], variant=variant, ps=ps,
+            shape=TP_K1[0]))
+    # the commit by queued CUDA events: this late in the run the profiler
+    # has recorded none of these kernels, three sessions a reading
+    tp_commit = dict(H=4, suffix="@tp2", queued=True)
+    rows += [time_commit(dev, tp_dense["K4"], commit_errs["tp dense"],
+                         **tp_commit),
+             time_commit(dev, tp_counts["paged"]["K5"],
+                         commit_errs["tp paged"], paged=True, **tp_commit),
+             time_commit(dev, tp_counts["int8"]["K4"], commit_errs["tp int8"],
+                         quantized=True, **tp_commit),
+             time_commit(dev, tp_counts["int8+paged"]["K5"],
+                         commit_errs["tp int8+paged"], paged=True,
+                         quantized=True, ps=16, **tp_commit)]
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(smi_line(), flush=True)

@@ -4,8 +4,8 @@
 names and defaults, so one architecture reads the same in both packages
 and a test can compare the two field by field.  ``reduce`` derives the
 CPU-test variant exactly as the reference does.  The port runs every
-family (dense, MoE, VLM, SSM, hybrid and the encoder-decoder);
-``models/api.get_model`` rejects tensor parallelism.
+family (dense, MoE, VLM, SSM, hybrid and the encoder-decoder), and
+tensor parallelism for the dense family (``distributed/tp.py``).
 ``SamplingParams`` is a copy of the reference's sampling controls and
 ``SchedulerParams`` of its serving-scheduler knobs.
 """
@@ -121,12 +121,14 @@ class ModelConfig:
                                    # decode kernel epilogue — no [B, T, V]
                                    # logits round-trip (DESIGN.md §15)
     tp_axis: str = ""              # tensor-parallel decode (DESIGN.md §18):
-                                   # set only on the shard_map-local config
+                                   # set only on a rank's local config,
                                    # built by distributed/tp.py — the model
-                                   # then holds per-shard head/ff/vocab
-                                   # slices and psum/all_gathers over this
-                                   # mesh axis at the row-parallel seams.
-                                   # "" (default) traces no collective.
+                                   # then holds the rank's head/ff/vocab
+                                   # slices and sums / all-gathers over the
+                                   # process group registered under this
+                                   # name (distributed/collectives.py) at
+                                   # the row-parallel seams.  "" (default)
+                                   # issues no collective.
     max_position: int = 1 << 20    # rope table upper bound (lazy — computed per call)
     # --- attention flavour ---
     full_attention: bool = True    # False for ssm; hybrid is "not full" (sub-quadratic)

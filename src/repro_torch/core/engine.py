@@ -41,6 +41,7 @@ from repro_torch.core import verify as V
 from repro_torch.core.proposers import (MedusaProposer, Proposer,
                                        draft_config, make_proposer)
 from repro_torch.core.tree import TreeBuffers, chain_tree
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops as KO
 from repro_torch.kernels import paging as P
 from repro_torch.models import api as model_api
@@ -184,6 +185,12 @@ class SpecEngine:
             if accept == "sample" and (sp.top_k or sp.top_p != 1.0):
                 raise ValueError("verify_fusion + accept='sample' requires "
                                  "top_k=0 and top_p=1.0")
+        # the tensor-parallel verify epilogue's eligibility: the fused
+        # kernel's statistics contract (greedy, or an untruncated sampled
+        # warp); an ineligible TP engine verifies the all-gathered logits
+        self._tp_stats = bool(cfg.tp_axis) and not cfg.verify_fusion and (
+            accept == "greedy"
+            or (accept == "sample" and not sp.top_k and sp.top_p == 1.0))
         if self.proposer.q_kind not in ("mprob", "logits"):
             raise ValueError(f"proposer q_kind {self.proposer.q_kind!r}: "
                              "the engine verifies 'mprob' and 'logits'")
@@ -396,6 +403,9 @@ class SpecEngine:
         if self.cfg.verify_fusion:
             verdict = self._verify_fused(params, cand, hidden, q, draws, t,
                                          dt)
+        elif self._tp_stats:
+            verdict = self._verify_tp(params, cand, hidden, q, draws, t, k,
+                                      p, dt)
         else:
             logits = self.model.unembed(params, self.cfg, hidden)  # [B,T,V]
             verdict = self._verify(cand, logits, q, draws, t, k, p, dt)
@@ -457,6 +467,41 @@ class SpecEngine:
                                                temperature=temperature)
         return V.sample_verify_tree_stats(cand, stats, q, dt,
                                           draws.u, draws.g, row_fn,
+                                          temperature=temperature)
+
+    def _verify_tp(self, params, cand, hidden, q, draws, temperature, top_k,
+                   top_p, dt):
+        """Tensor-parallel acceptance epilogue: each rank's lm head holds a
+        [d, V / tp] slice of the vocabulary, so each rank warps the logits
+        of its own columns and ``tp_verify_stats`` reduces them across
+        ranks to the ``VerifyStats`` the fused kernel would give.  The
+        [B, T, V] logits exist on no rank; the statistics feed the
+        ``*_stats`` walks the fused kernel's path feeds, so the verdicts
+        are the single-device engine's."""
+        B = cand.shape[0]
+        dev = hidden.device
+        if self.accept == "sample":
+            tmax = torch.clamp(S.per_row(temperature, B, dev), min=1e-6)
+        else:
+            tmax = torch.ones((B,), dtype=torch.float32, device=dev)
+        stats = tp_verify_stats(
+            self.model.unembed_local(params, self.cfg, hidden), cand, tmax,
+            self.cfg.tp_axis)
+        if self.accept != "sample":
+            return V.greedy_verify_stats(cand, stats, dt)
+        rows = torch.arange(B, device=dev)
+
+        def row_fn(idx):
+            # one all-gathered [B, V] row: the residual or bonus draw never
+            # needs more than the stopping node's row
+            return self.model.unembed(params, self.cfg, hidden[rows, idx])
+
+        if self.proposer.q_kind == "logits":
+            return V.sample_verify_chain_stats(
+                cand, stats, q, dt, draws.u, draws.g, row_fn,
+                temperature=temperature, top_k=top_k, top_p=top_p)
+        return V.sample_verify_tree_stats(cand, stats, q, dt, draws.u,
+                                          draws.g, row_fn,
                                           temperature=temperature)
 
     # -- the loop -----------------------------------------------------------
@@ -563,6 +608,45 @@ class SpecEngine:
                           accepted_per_slot=c.acc_slot.clone())
         return c.out[:, :max_new].clone(), torch.clamp(n_out, max=max_new), \
             stats
+
+
+def tp_verify_stats(logits_local, cand, tmax, axis: str) -> V.VerifyStats:
+    """``VerifyStats`` of the logits divided by ``tmax`` [B], from this
+    rank's vocabulary slice ``logits_local`` [B, T, V / tp] (ranks hold
+    ascending, contiguous slices) and the candidates ``cand`` [B, T]
+    (global token ids), reduced across the ranks of ``axis``:
+
+      * max: the max of the gathered per-rank row maxima;
+      * argmax: the first rank attaining it (rank order is index order, so
+        the first index wins across ranks as within one);
+      * sum of exponentials: the sum over ranks of each rank's partial sum
+        taken at the global max;
+      * candidate columns: the sum over ranks of a one-hot extraction
+        (each candidate lives on one rank; the others add exact zeros).
+
+    The maxima and argmaxima travel in one all-gather, the two sums in
+    one all-reduce."""
+    B, T = cand.shape
+    wv = logits_local.float() / tmax[:, None, None]
+    v_loc = wv.shape[-1]
+    offs = C.axis_index(axis) * v_loc
+    m_loc = torch.amax(wv, dim=-1)                                 # [B, T]
+    a_loc = torch.argmax(wv, dim=-1)               # the first index on ties
+    # a global index (< 2**24) is exact in float32
+    both = C.all_gather(torch.stack([m_loc, (a_loc + offs).float()]), axis,
+                        dim=0, tiled=False)                   # [N, 2, B, T]
+    ms, am = both[:, 0], both[:, 1]
+    first = torch.argmax(ms, dim=0)               # the first rank at the max
+    m = torch.amax(ms, dim=0)
+    argm = torch.gather(am, 0, first[None])[0].to(torch.int32)
+    here = (cand >= offs) & (cand < offs + v_loc)                 # [B, T]
+    cidx = torch.clamp(cand - offs, 0, v_loc - 1).long()
+    colw = torch.gather(wv, 2, cidx[:, None, :].expand(B, T, T))
+    part_l = torch.sum(torch.exp(wv - m[:, :, None]), dim=-1)      # [B, T]
+    part_w = torch.where(here[:, None, :], colw, 0.0)              # [B,T,T]
+    sums = C.psum_(torch.cat([part_l[..., None], part_w], dim=-1), axis)
+    return V.VerifyStats(argm, m, sums[..., 0].contiguous(),
+                         sums[..., 1:].contiguous())
 
 
 def _write_out(c: SpecCarry, toks):

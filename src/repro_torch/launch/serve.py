@@ -26,8 +26,16 @@ graphs, ``--families medusa,ngram,draft`` serves one
 of L tokens (the prefix cache's traffic; with ``--replicas`` it defaults
 to two pages, as in the reference).  ``--static`` keeps the static-batch
 path: each group of ``--slots`` requests answered by one
-``SpecEngine.generate`` (the reference's ``serve_tp`` without tensor
-parallelism, which stays a later slice).
+``SpecEngine.generate``.  ``--tp N`` serves the static batches through
+the tensor-parallel engine (``distributed/tp.py``) on N ranks, one
+process each (``--mesh-shape DATAxMODEL`` for a grid whose data rows
+repeat the work), over ``--tp-backend nccl`` (a card a rank, the
+default; fewer cards raise) or ``gloo`` (ranks on the CPU or sharing a
+card); every rank's answers must equal rank 0's, and each rank's step
+time, collectives and peak memory are printed (``--profile-steps N``
+adds a profiled step breakdown, ``launch/trace.py``'s ``tp_profile``).
+The dense family only, with Medusa or n-gram, neither verify fusion nor
+``--deferred``: the reference's ``serve_tp``.
 
 It serves openPangu-7B at full width on the card by default, or with
 ``--arch`` any architecture of the registry: the dense decoders
@@ -71,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import List, NamedTuple, Optional
 
@@ -107,6 +116,20 @@ class Served(NamedTuple):
     iterations: int = 0    # scheduler iterations (0: --static)
     frames: Optional[list] = None  # the encoder-decoder's frames, one
                                    # [F, fd] float32 array a request
+
+
+class ServedTP(NamedTuple):
+    """What one ``--tp`` run answered: rank 0's results (every rank's are
+    checked equal to them) and each rank's own figures."""
+    cfg: ModelConfig
+    prompts: list
+    results: list          # rank 0's, one dict per request
+    seconds: float         # rank 0's serving seconds
+    tokens: int
+    ranks: list            # per rank: coords, seconds, steps, the
+                           # collectives' count and ms, peak bytes, device
+    backend: str
+    mesh: tuple            # (data, model)
 
 
 def make_prompts(vocab: int, n: int, seed: int, lo: int, hi: int):
@@ -256,6 +279,162 @@ def serve_requests(srv, prompts, max_news, temperature: float,
     return results, seconds, tokens, iterations
 
 
+def launcher_prompts(cfg, args):
+    """The run's prompts: ``--requests`` seeded prompts, each after one of
+    4 seeded bases of ``--shared-prefix`` tokens when asked (two pages
+    with ``--replicas`` by default)."""
+    prompts = make_prompts(cfg.vocab_size, args.requests, args.seed,
+                           args.min_prompt, args.max_prompt)
+    L = args.shared_prefix
+    if L < 0:
+        L = 2 * args.page_size if args.replicas else 0
+    if L:
+        rng = np.random.default_rng(args.seed + 3)
+        bases = [rng.integers(0, cfg.vocab_size, size=L).astype(np.int32)
+                 for _ in range(4)]
+        prompts = [np.concatenate([bases[r % 4], p])
+                   for r, p in enumerate(prompts)]
+    return prompts
+
+
+def _mesh_shape(args):
+    """(data, model) from ``--mesh-shape DATAxMODEL`` (default 1x--tp)."""
+    if not args.mesh_shape:
+        return 1, args.tp
+    try:
+        d, m = (int(x) for x in args.mesh_shape.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh-shape wants DATAxMODEL (e.g. '1x4'), got "
+                         f"{args.mesh_shape!r}") from None
+    if m != args.tp:
+        raise SystemExit(f"--mesh-shape model dim {m} != --tp {args.tp}")
+    return d, m
+
+
+def _tp_rank(rank, world, dev, cfg, argd, shape):
+    """One rank of ``serve_tp``: the global weights from ``--seed`` on the
+    rank's device, its slices kept and the rest freed, then the static
+    batches through the sharded engine, its collectives metered."""
+    import gc
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import tp as TP
+    from repro_torch.kernels import cache_update as CU
+    from repro_torch.kernels.tree_attention import flash_decode
+    args = argparse.Namespace(**argd)
+    data, tp = shape
+    mesh = TP.make_tp_group(tp, data=data)
+    tpe = TP.build_tp_engine(
+        cfg, mesh, args.proposer, gamma=args.gamma, use_kernel=True,
+        device=dev, accept=args.accept,
+        sampling=SamplingParams(temperature=args.temperature,
+                                top_p=args.top_p), seed=args.seed)
+    if args.proposer == "medusa":
+        params, mp = build_model(cfg, args.seed, tpe.dtree.K, dev)
+    else:
+        params, mp = get_model(cfg).init_params(
+            torch.Generator(device=dev).manual_seed(args.seed), cfg,
+            dtype=cfg.dtype), None
+    sp = tpe.shard_params(params)
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    prompts = launcher_prompts(cfg, args)
+    # the kernels on the TP path: K1 and the commit (K4 dense, K5 paged)
+    kernels = {"K1": flash_decode, "K4": CU.commit_rows_stacked,
+               "K5": CU.commit_rows_paged_stacked}
+    before = {k: f.launches for k, f in kernels.items()}
+    with C.metered() as meter:
+        results, seconds, tokens, _ = serve_static(
+            tpe, sp, mp, prompts, args.slots, args.max_new, args.max_len)
+    count, ms = meter.total()
+    launches = {k: f.launches - before[k] for k, f in kernels.items()}
+    out = {"rank": rank, "coords": (mesh.data_index, mesh.model_index),
+           "results": results, "seconds": seconds, "tokens": tokens,
+           "steps": tpe.steps, "collectives": count, "collective_ms": ms,
+           "by_op": dict(meter.count), "device": str(dev),
+           "launches": launches,
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                          if dev.type == "cuda" else 0)}
+    if args.profile_steps:
+        from repro_torch.launch.trace import tp_profile
+        out["profile"] = tp_profile(tpe, sp, mp, prompts[:args.slots],
+                                    args.profile_steps, args.max_len)
+    return out
+
+
+def serve_tp(args) -> ServedTP:
+    """``--tp``: static batches through the tensor-parallel engine on
+    ``data x tp`` ranks (``--mesh-shape``), one process a rank started by
+    ``collectives.spawn`` over ``--tp-backend`` (nccl: a card a rank;
+    gloo: ranks on the CPU or sharing cards).  Each data row serves every
+    request, as the reference's replicated specs do; every rank's answers
+    must equal rank 0's."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import tp as TP
+    if args.families or args.replicas:
+        raise SystemExit("--tp serves static batches through the sharded "
+                         "engine; it does not combine with --families or "
+                         "--replicas")
+    if (args.prefix_cache or args.chunk_size or args.preemption
+            or args.adaptive_gamma or args.n_blocks
+            or args.admission != "batched"):
+        raise SystemExit("--tp serves static batches; the scheduler's flags "
+                         "need the server")
+    if args.deferred:
+        raise SystemExit("--tp runs the write-then-attend step; --deferred "
+                         "is single-device")
+    data, tp = _mesh_shape(args)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    cfg = dataclasses.replace(cfg, cache_dtype=args.cache_dtype,
+                              cache_layout=args.cache_layout,
+                              page_size=args.page_size)
+    try:
+        TP._validate(dataclasses.replace(
+            cfg, verify_fusion=args.verify_fusion), args.proposer, tp)
+        C.check_backend(args.tp_backend, data * tp, args.device)
+    except ValueError as e:
+        raise SystemExit(f"--tp: {e}") from None
+    threads = (max(1, (os.cpu_count() or 1) // (data * tp))
+               if args.device == "cpu" else 0)
+    ranks = C.spawn(_tp_rank, data * tp, backend=args.tp_backend,
+                    device=args.device, threads=threads,
+                    args=(cfg, vars(args), (data, tp)))
+    head = ranks[0]
+    for r in ranks[1:]:
+        for a, b in zip(head["results"], r["results"]):
+            if not np.array_equal(a["output"], b["output"]):
+                raise SystemExit(f"rank {r['rank']} answered request "
+                                 f"{a['rid']} unlike rank 0")
+    for r in head["results"]:
+        tps = len(r["output"]) / max(r["steps"], 1)
+        print(f"  req {r['rid']}: {r['status']} prompt={r['prompt_len']} "
+              f"steps={r['steps']} tokens/step={tps:.2f}")
+    where = ("CPU" if args.device == "cpu"
+             else torch.cuda.get_device_name(0))
+    seconds, tokens = head["seconds"], head["tokens"]
+    print(f"tp={tp} mesh=({data}x{tp}) proposer={args.proposer}: "
+          f"{len(head['results'])} requests, {tokens} tokens in "
+          f"{seconds:.3f}s ({tokens / seconds:.1f} tok/s across "
+          f"{data * tp} ranks on {where}); backend {args.tp_backend}")
+    for r in ranks:
+        steps = max(r["steps"], 1)
+        print(f"  rank {r['rank']} {r['coords']} on {r['device']}: "
+              f"{r['seconds'] * 1e3 / steps:.3f} ms a step, "
+              f"{r['collectives'] / steps:.1f} collectives "
+              f"({r['collective_ms'] / steps:.3f} ms) a step, peak "
+              f"{r['peak_bytes'] / 2 ** 30:.2f} GiB, launches "
+              f"{r['launches']}")
+        if "profile" in r:
+            from repro_torch.launch.trace import tp_lines
+            for line in tp_lines(r["profile"]):
+                print(f"    {line}")
+    return ServedTP(cfg, launcher_prompts(cfg, args), head["results"],
+                    seconds, tokens, ranks, args.tp_backend, (data, tp))
+
+
 def _lanes(srv) -> List[SpecServer]:
     """The ``SpecServer``s behind a server, a family façade or a router."""
     if isinstance(srv, FamilySpecServer):
@@ -369,6 +548,21 @@ def main(argv=None, weights=None) -> Served:
     ap.add_argument("--gamma", type=int, default=4,
                     help="chain length for the draft/ngram proposers "
                          "(medusa uses its static tree)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel decode on this many ranks, one "
+                         "process each: heads, ffn, vocab and the KV cache "
+                         "shard; static batches only; 0 = one device")
+    ap.add_argument("--mesh-shape", default="",
+                    help="DATAxMODEL grid of ranks for --tp (e.g. '2x2'); "
+                         "each data row serves every request; default "
+                         "'1x<tp>'")
+    ap.add_argument("--tp-backend", default="nccl", choices=("nccl", "gloo"),
+                    help="--tp's collectives: nccl (one card a rank) or "
+                         "gloo (ranks on the CPU, or sharing cards)")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="--tp: after serving, trace this many more eager "
+                         "spec steps on every rank (launch/trace.py's "
+                         "tp_profile)")
     args = ap.parse_args(argv)
 
     kinds = [k.strip() for k in args.families.split(",") if k.strip()]
@@ -385,6 +579,10 @@ def main(argv=None, weights=None) -> Served:
     for k in kinds:
         if k not in ("medusa", "draft", "ngram"):
             raise SystemExit(f"--families: unknown proposer {k!r}")
+    if args.tp:
+        return serve_tp(args)
+    if args.mesh_shape or args.profile_steps:
+        raise SystemExit("--mesh-shape and --profile-steps go with --tp")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -423,17 +621,7 @@ def main(argv=None, weights=None) -> Served:
             pps[k] = (build_model(cfg, args.seed, e.dtree.K, dev)[1]
                       if k == "medusa" else proposer_params(e, args.seed))
     mp = pps[args.proposer]
-    prompts = make_prompts(cfg.vocab_size, args.requests, args.seed,
-                           args.min_prompt, args.max_prompt)
-    L = args.shared_prefix
-    if L < 0:
-        L = 2 * args.page_size if args.replicas else 0
-    if L:
-        rng = np.random.default_rng(args.seed + 3)
-        bases = [rng.integers(0, cfg.vocab_size, size=L).astype(np.int32)
-                 for _ in range(4)]
-        prompts = [np.concatenate([bases[r % 4], p])
-                   for r, p in enumerate(prompts)]
+    prompts = launcher_prompts(cfg, args)
     frames = request_frames(cfg, len(prompts), args.seed + 7, dev)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
 

@@ -74,6 +74,21 @@ launcher's flags) trace the spec kinds of the draft-model or n-gram
 engine instead of the Medusa one (the draft: the launcher's 2-layer
 sibling with its weights from ``proposer_params``); the AR kinds are the
 same whatever the proposer.
+
+``--tp N --tp-backend nccl|gloo`` traces the tensor-parallel step
+instead: N ranks (``collectives.spawn``; nccl wants a card a rank, gloo
+lets them share one) each build the model's slices and prefill the same
+4 prompts, then run the eager TP spec step (``TPSpecEngine``'s loop
+body): two warm-up steps, ``--steps`` timed, ``--steps`` with the
+collectives metered (``collectives.metered``: their count, and their ms
+by CUDA events under nccl, by the host clock around each synchronous
+call under gloo, whose CUDA path copies through the host), ``--steps``
+under the profiler.  Each rank reports (``tp_profile``) its wall and
+device ms a step (NCCL's kernels apart: they spin until every rank
+arrives), the device's idle share, the kernel launches a step,
+the collectives' count and ms a step, the device ms a step of NCCL's
+kernels and of the host copies (gloo's staging among them), and its top
+kernels; rank 0's lines are printed with every rank's summary.
 """
 from __future__ import annotations
 
@@ -269,6 +284,127 @@ def report(name: str, prof, wall_s: float, traced_s: float, steps: int,
               f"{e.key[:90]}")
 
 
+def tp_profile(tpe, params, mp, prompts, steps: int, max_len: int = 2048,
+               top: int = 8) -> dict:
+    """The eager tensor-parallel spec step on this rank: ``tpe`` a
+    ``TPSpecEngine`` with its sliced ``params`` and replicated Medusa heads
+    ``mp`` (None for n-gram), ``prompts`` one group.  Every rank of the
+    group must call it alike (the steps' collectives pair up).  Returns
+    per-step figures: wall_ms (unmetered, unprofiled), device_ms (the
+    kernels' own time under the profiler, NCCL's apart: an NCCL kernel
+    runs on its own stream and spins until every rank has reached it, so
+    its time is mostly the other ranks' lateness), idle (1 - device /
+    wall), launches, collectives and collective_ms (metered), nccl_ms and
+    copy_ms (profiler device time of NCCL's kernels and of the memcpy
+    records, gloo's staging among them), top (the kernels with the most
+    device time: name, ms a step, launches a step)."""
+    from repro_torch.distributed import collectives as C
+    dev = tpe.device
+    cuda = dev.type == "cuda"
+    tok, plen = _padded(prompts, dev)
+    cache = tpe.init_cache(len(prompts), max_len)
+    cache, lengths, base, state = tpe.prefill(params, mp, tok, plen, cache)
+    n = 2 + 3 * steps
+    step, c = tpe.local.loop_step(params, mp, cache, state, n)
+    c.load(lengths, base, state, tpe.sampling.temperature,
+           tpe.sampling.top_p)
+
+    def step_and_exit_test():
+        step()
+        bool(torch.any(c.n_out < n))  # the loop's exit test, a host read
+
+    def timed():
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_and_exit_test()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    for _ in range(2):
+        step_and_exit_test()
+    wall = timed()
+    with C.metered() as meter:
+        timed()
+    count, coll_ms = meter.total()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        timed()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+
+    def ms(evts):
+        return sum(_device_us(e) for e in evts) / 1e3 / steps
+
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    dev_ms = ms([e for e in kernels if e not in nccl])
+    wall_ms = wall * 1e3 / steps
+    ranked = sorted(kernels, key=_device_us, reverse=True)[:top]
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "idle": 1 - dev_ms / wall_ms,
+            "launches": sum(e.count for e in kernels) / steps,
+            "collectives": count / steps, "collective_ms": coll_ms / steps,
+            "nccl_ms": ms(nccl),
+            "copy_ms": ms([e for e in kernels
+                           if e.key.lower().startswith("memcpy")]),
+            "top": [(e.key[:80], _device_us(e) / 1e3 / steps,
+                     e.count / steps) for e in ranked]}
+
+
+def tp_lines(prof: dict) -> list:
+    """``tp_profile``'s figures as printed lines."""
+    lines = [f"wall {prof['wall_ms']:.3f} ms/step, device (NCCL apart) "
+             f"{prof['device_ms']:.3f} ms/step, device idle "
+             f"{prof['idle']:.3f}, {prof['launches']:.0f} kernel "
+             f"launches/step; {prof['collectives']:.1f} collectives/step "
+             f"taking {prof['collective_ms']:.3f} ms/step (metered); NCCL "
+             f"kernels {prof['nccl_ms']:.4f} ms/step, memcpy "
+             f"{prof['copy_ms']:.4f} ms/step on the device"]
+    lines += [f"  {t:9.4f} ms/step {n:6.0f}x  {k}" for k, t, n in
+              prof["top"]]
+    return lines
+
+
+def _padded(prompts, dev):
+    S = max(len(p) for p in prompts)
+    tok = torch.zeros((len(prompts), S), dtype=torch.int32)
+    for j, p in enumerate(prompts):
+        tok[j, :len(p)] = torch.from_numpy(p)
+    plen = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    return tok.to(dev), plen.to(dev)
+
+
+def _tp_trace_rank(rank, world, dev, argd):
+    """One rank of ``--tp``: the model's slices, then ``tp_profile``."""
+    from repro_torch.distributed import tp as TP
+    args = argparse.Namespace(**argd)
+    cfg = dataclasses.replace(get_config(args.arch),
+                              cache_dtype=args.cache_dtype,
+                              cache_layout=args.cache_layout,
+                              page_size=args.page_size)
+    mesh = TP.make_tp_group(world)
+    tpe = TP.build_tp_engine(cfg, mesh, args.proposer, gamma=args.gamma,
+                             use_kernel=True, device=dev)
+    if args.proposer == "medusa":
+        params, mp = build_model(cfg, 0, tpe.dtree.K, dev)
+    else:
+        params, mp = get_model(cfg).init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg,
+            dtype=cfg.dtype), None
+    sp = tpe.shard_params(params)
+    del params
+    torch.cuda.empty_cache()
+    prof = tp_profile(tpe, sp, mp, make_prompts(cfg.vocab_size, 4, 0, 64,
+                                                257), args.steps)
+    if rank == 0:
+        print(f"{cfg.name} tp={world} ({args.tp_backend}), rank 0 on {dev}: "
+              + "\n".join(tp_lines(prof)), flush=True)
+    return prof
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="repro_torch.launch.trace")
     ap.add_argument("--arch", default="openpangu-7b", choices=ALL_ARCHS)
@@ -290,7 +426,23 @@ def main(argv=None):
     ap.add_argument("--one-unit", action="store_true",
                     help="jamba-1.5-large-398b at full width cut to one "
                          "4-position unit (the depth one card holds)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="trace the tensor-parallel step on this many "
+                         "ranks instead (a dense --arch, medusa or ngram)")
+    ap.add_argument("--tp-backend", default="nccl", choices=("nccl", "gloo"),
+                    help="--tp's collectives: nccl (a card a rank) or gloo "
+                         "(ranks sharing cards)")
     args = ap.parse_args(argv)
+    if args.tp:
+        from repro_torch.distributed import collectives as C
+        profs = C.spawn(_tp_trace_rank, args.tp, backend=args.tp_backend,
+                        args=(vars(args),))
+        for r, prof in enumerate(profs):
+            print(f"rank {r}: wall {prof['wall_ms']:.3f} ms/step, device "
+                  f"{prof['device_ms']:.3f} ms/step, idle "
+                  f"{prof['idle']:.3f}, {prof['collectives']:.1f} "
+                  f"collectives/step in {prof['collective_ms']:.3f} ms/step")
+        return profs
     if args.one_unit and args.arch != "jamba-1.5-large-398b":
         ap.error("--one-unit cuts jamba-1.5-large-398b")
 

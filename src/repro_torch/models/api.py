@@ -4,8 +4,9 @@
 the encoder-decoder, ``models.transformer`` for the decoder-only
 families (dense, MoE, VLM, SSM and hybrid).  ``init_cache`` here is the
 one cache factory the engine builds through, under every cache dtype and
-layout of the reference.  Tensor parallelism raises
-``NotImplementedError`` naming its later slice.
+layout of the reference.  A config with a ``tp_axis`` (the local config
+of a tensor-parallel rank, ``distributed/tp.py``) is carried for the
+dense family; for the others ``get_model`` raises ``ValueError``.
 """
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer

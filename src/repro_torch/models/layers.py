@@ -3,8 +3,7 @@ GQA attention (prefill, the encoder's full attention, cross-attention
 and the cached tree-decode mask), the gated and plain MLPs and the top-k
 MoE.
 
-Counterpart of ``repro.models.layers``, without its tensor parallelism.
-Functions keep the reference's
+Counterpart of ``repro.models.layers``.  Functions keep the reference's
 names, argument order and tensor layouts (``wq [d, Hq, hd]``, activations
 ``[B, S, H, D]``) and repeat its dtype casts in the same places, so a
 float32 run agrees with the reference to rounding.
@@ -18,9 +17,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.runtime import torch_dtype
 
 NEG_INF = -1e30
+
+
+def tp_reduce(y, cfg: ModelConfig):
+    """Finish a row-parallel contraction under tensor parallelism.
+
+    A config with a ``tp_axis`` (the local config ``distributed/tp.py``
+    builds for each rank) holds this rank's slice of the heads or ff
+    dimension just contracted, so the partial [B, S, d] output is summed
+    over the axis, in place, before the residual add.  With an empty
+    ``tp_axis`` no collective is issued and ``y`` is returned as it is."""
+    if cfg.tp_axis:
+        return C.psum_(y, cfg.tp_axis)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +213,8 @@ def attention_full(p, x, cfg: ModelConfig, positions=None, causal=True,
             idx = torch.arange(S, device=x.device)
             mask = (idx[None, :] <= idx[:, None])[None]
         out = _gqa_scores_to_out(q, k, v, mask, scale)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    y = tp_reduce(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)),
+                  cfg)
     if return_kv:
         return y, (k, v)
     return y
@@ -281,7 +295,8 @@ def attention_decode(p, x, cfg: ModelConfig, cache_k, cache_v, length,
         mask = decode_mask(tree_mask, length, T, S_max)[None]
         out = _gqa_scores_to_out(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                                  mask, scale)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    y = tp_reduce(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)),
+                  cfg)
     return y, cache_k, cache_v
 
 
@@ -341,7 +356,8 @@ def mlp(p, x, cfg: ModelConfig):
         h = h * _act(g, cfg.act)
     else:
         h = _act(h, cfg.act)
-    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+    return tp_reduce(torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype)),
+                     cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import paging as P
 from repro_torch.kernels import quant as Q
 from repro_torch.kernels.cache_update import (commit_path_stacked,
@@ -105,14 +106,16 @@ def n_units(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError, naming the later slice, for the one
-    branch of the reference the port does not carry yet: tensor
-    parallelism.  An unknown family raises ValueError."""
+    """Raise ValueError for an unknown family, and for a ``tp_axis`` on a
+    family other than the dense one: tensor parallelism shards the dense
+    decoder only (the reference's ``distributed/tp.py`` refuses the rest,
+    whose mixers are not head-sharded)."""
     if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
-    if cfg.tp_axis:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism (ROADMAP queue 1 item 16)")
+    if cfg.tp_axis and cfg.family != "dense":
+        raise ValueError(
+            f"{cfg.name}: tensor-parallel decode supports the dense family "
+            f"only; {cfg.family!r} has non-TP mixers")
 
 
 def unit_params(params, u: int):
@@ -205,14 +208,22 @@ def unembed_weight(params):
 
 
 def unembed_local(params, cfg: ModelConfig, hidden):
-    """Logits [..., V] (without tensor parallelism the local vocab slice is
-    the whole vocabulary)."""
+    """Logits over the vocabulary slice this rank's lm head holds: [..., V]
+    on one device, [..., V / tp] on a rank of a tensor-parallel group (the
+    TP verify epilogue reads them as they are)."""
     w, _ = unembed_weight(params)
     return torch.matmul(hidden, w.to(hidden.dtype))
 
 
 def unembed(params, cfg: ModelConfig, hidden):
-    return unembed_local(params, cfg, hidden)
+    """Logits [..., V].  Under tensor parallelism the ranks' vocabulary
+    slices are all-gathered, in rank order, so every full-row reader (the
+    prefill's base token, a row resample, the unfused verify) sees the row
+    one device would."""
+    logits = unembed_local(params, cfg, hidden)
+    if cfg.tp_axis and logits.shape[-1] != cfg.vocab_size:
+        logits = C.all_gather(logits, cfg.tp_axis, dim=-1, tiled=True)
+    return logits
 
 
 def frontend_prefix(params, cfg: ModelConfig, extra_embeds):
@@ -667,7 +678,10 @@ def attention_decode_batched(p, x, cfg, entry, lengths, masks, tree_mask,
     else:
         ck, cv = _read_cache(entry, q.dtype, table=table)
         out = L._gqa_scores_to_out(q, ck, cv, masks, scale)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    # both write sides (fused and unfused) end here: the reference's two
+    # tp_reduce sites of attention_decode_batched
+    y = L.tp_reduce(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)),
+                    cfg)
     return y, {"k_new": k, "v_new": v}
 
 

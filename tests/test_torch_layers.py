@@ -74,8 +74,14 @@ def test_config_matches_reference():
 
 def test_unsupported_branches_raise():
     cfg = get_config("openpangu-7b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        get_model(dataclasses.replace(cfg, tp_axis="model"))
+    # tensor parallelism is carried for the dense family and refused for
+    # the others, whose mixers are not head-sharded
+    from repro_torch.models import transformer
+    assert get_model(dataclasses.replace(cfg, tp_axis="model")) \
+        is transformer
+    with pytest.raises(ValueError, match="dense family"):
+        get_model(dataclasses.replace(cfg, family="moe", num_experts=4,
+                                      tp_axis="model"))
     # the SSM and hybrid families are carried, and the encoder-decoder
     for change in ({"family": "ssm"}, {"family": "hybrid"}):
         get_model(dataclasses.replace(cfg, **change))

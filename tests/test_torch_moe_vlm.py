@@ -268,7 +268,7 @@ def test_check_supported_refuses_the_rest():
         assert (get_model(tcfg) is encdec) == (cfg.family == "encdec")
     tp = dataclasses.replace(get_config("internvl2-26b", reduced=True),
                              tp_axis="model")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="dense family"):
         T.check_supported(tp)
     for arch in ARCHS:
         T.check_supported(get_config(arch))

@@ -263,7 +263,7 @@ def test_check_supported_refuses_only_tp():
     assert get_model(whisper) is encdec
     tp = dataclasses.replace(get_config("jamba-1.5-large-398b", reduced=True),
                              tp_axis="model")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="dense family"):
         T.check_supported(tp)
 
 

@@ -324,10 +324,21 @@ def test_warmup_cosine_matches_reference():
 
 
 def test_data_parallel_options_raise(pangu):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        O.compressed_psum({}, "dp")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        S.lm_train_step({}, None, pangu[0], None, None, dp_axis="dp")
+    """The data-parallel paths need a process group for their axis (the
+    ranks and their all-reduce are ``tests/test_torch_tp.py``'s), and
+    compression needs the data axis."""
+    cfg, _, tparams, corpus = pangu
+    toks = torch.from_numpy(corpus[:2, :-1])
+    tgts = torch.from_numpy(corpus[:2, 1:])
+    with pytest.raises(ValueError, match="no process group"):
+        O.compressed_psum({"g": torch.ones(3)}, "dp")
+    params = {k: v for k, v in tparams.items()}
+    with pytest.raises(ValueError, match="no process group"):
+        S.lm_train_step(params, O.adamw_init(params), cfg, toks, tgts,
+                        dp_axis="dp")
+    with pytest.raises(ValueError, match="dp_axis"):
+        S.lm_train_step(params, O.adamw_init(params), cfg, toks, tgts,
+                        compress_grads=True)
 
 
 def test_lm_train_step_matches_reference(pangu):
