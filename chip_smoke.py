@@ -341,6 +341,22 @@ non-zero exit:
    are gone).  ``python3 chip_smoke.py --tp-cards`` runs phase 17 alone on
    four cards over NCCL: (a) at tp 2 and tp 4, then the launcher at
    ``--tp 4`` and at ``--tp 2 --mesh-shape 2x2``.
+18. (run after 17 (b)) the dry-run planner (``launch/dryrun.py``): (a)
+   its CLI on three production cells (openpangu-7b ``decode_32k``,
+   qwen1.5-0.5b ``train_4k`` and ``prefill_32k`` on the 16 x 16 mesh),
+   each in its own process, started after phase 1's build so that they
+   trace while the card runs the other phases, the records printed; (b) on one card, bf16
+   openPangu-7B at full depth at phase 5's shape and a qwen1.5-0.5b
+   ``lm_train_step`` at phase 11 (ii)'s, each planned on a one-device
+   mesh: the growth of ``memory_allocated`` over allocating the same
+   arguments equals the plan's argument bytes up to ``ALLOC_ROUND`` a
+   tensor, the card's peak over one eager plain-path step lies within
+   ``PLAN_PEAK_TOL`` of the planned peak and that step's own growth
+   within ``PLAN_TEMP_TOL`` of the planned temp (the kernel path's peak
+   logged); (c) the planned tp-2 decode cell at 17 (b)'s shape gives
+   every rank's metered collectives (count and bytes by kind, a step)
+   and step-argument bytes.  ``--tp-cards`` runs (c) after each of its
+   launcher runs.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5031,7 +5047,9 @@ def f32_ar_want(dev):
 def tp_cards_main() -> int:
     """``chip_smoke.py --tp-cards``: phase 17 alone on four cards over NCCL
     (the kernels built first): (a) at tp 2 and tp 4, then the launcher at
-    ``--tp 4`` and at ``--tp 2 --mesh-shape 2x2``, answers held as (b)."""
+    ``--tp 4`` and at ``--tp 2 --mesh-shape 2x2``, answers held as (b),
+    each followed by phase 18 (c): its planned collectives and step
+    arguments against every rank's metered step."""
     from repro_torch.kernels import build
     from repro_torch.runtime import resolve_device
 
@@ -5050,7 +5068,10 @@ def tp_cards_main() -> int:
     for tp, shape in ((4, ""), (2, "2x2")):
         log(f"phase 17 (b): bf16 full depth, --tp {tp} {shape} "
             f"[at {time.perf_counter() - t_start:.1f}s]")
-        phase_tp_serve(dev, tp=tp, mesh_shape=shape)
+        run = phase_tp_serve(dev, tp=tp, mesh_shape=shape)
+        log(f"phase 18 (c): the planned collectives and step arguments of "
+            f"--tp {tp} {shape} against the metered ranks")
+        check_plan_collectives(run, tp, data=int(shape[0]) if shape else 1)
     log(f"chip_smoke --tp-cards: passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(smi_line(), flush=True)
@@ -5058,6 +5079,258 @@ def tp_cards_main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the dry-run planner held against the card
+# ---------------------------------------------------------------------------
+
+# (a): the planner's CLI, one process a cell, started together after the
+# build (they trace on the host while the card runs phases 2-17)
+PLAN_CLI = [("openpangu-7b", "decode_32k"), ("qwen1.5-0.5b", "train_4k"),
+            ("qwen1.5-0.5b", "prefill_32k")]
+# (b): the card's peak (the arguments' allocation plus the step's growth)
+# against the planned peak, by kind (PERF.md gives their reasons)
+PLAN_PEAK_TOL = {"decode": 0.01, "train": 0.05}
+# (b): the step's own growth of ``memory_allocated`` against the planned
+# temp bytes, both kinds: the tracker's direct reading (PERF.md, PR 28:
+# within 1.3e-5 on both cells)
+PLAN_TEMP_TOL = 1e-3
+# the caching allocator's rounding of one tensor, at most: a large block
+# is cut from a segment only when more than 1 MiB would be left over
+ALLOC_ROUND = 2 * 2 ** 20
+PLAN_KEY_BYTES = 8        # the decode cell's key (2,) uint32; no step takes it
+
+
+def plan_cli_start():
+    """Phase 18 (a): ``python -m repro_torch.launch.dryrun --arch A --shape
+    S`` for each of ``PLAN_CLI`` on the production 16 x 16 mesh, each in
+    its own process with no card visible, all started together; stopped
+    at exit if still running (``plan_stop``)."""
+    import atexit
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = [((arch, shape), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for arch, shape in PLAN_CLI]
+    atexit.register(plan_stop, procs)
+    return procs
+
+
+def plan_cli_finish(procs):
+    """Wait for phase 18 (a)'s processes; print each record on a line of
+    its own and a summary.  A process that fails, or prints no record,
+    fails the phase."""
+    from repro_torch.launch.dryrun import summary
+    for (arch, shape), p in procs:
+        try:
+            out, err = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            fail(f"dryrun {arch} {shape}: still running after 600 s")
+        recs = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if p.returncode != 0 or not recs:
+            fail(f"dryrun {arch} {shape}: exit {p.returncode}\n"
+                 f"{err[-3000:]}")
+        print(recs[0], flush=True)
+        log(f"  (a) the plan's, not the card's:{summary(json.loads(recs[0]))[1:]}")
+
+
+def plan_stop(procs):
+    for _, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def planned(cfg, shape, mesh, rank: int = 0) -> dict:
+    from repro_torch.launch import dryrun as DR
+    rec = DR.plan(cfg, shape, mesh, False, rank=rank)
+    mem = rec["mem"]
+    log(f"  plan {cfg.name} {shape.name} (B {shape.global_batch}, "
+        f"{shape.seq_len} rows) on {rec['mesh']}: program {rec['program']}, "
+        f"per device {rec['per_device']}; arguments "
+        f"{mem['argument_bytes']} B, temp {mem['temp_bytes']} B, peak "
+        f"{mem['peak_bytes']} B, {rec['flops_per_device']:.4g} FLOP, "
+        f"collectives {rec['collectives']}; traced in {rec['trace_s']} s "
+        f"(counts of the plan, not the card's)")
+    return rec
+
+
+def allocated(dev, make):
+    """(make(), the growth of ``memory_allocated`` over it)."""
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated(dev)
+    out = make()
+    torch.cuda.synchronize(dev)
+    return out, torch.cuda.memory_allocated(dev) - m0
+
+
+def step_growth(dev, run) -> int:
+    """Peak growth of ``memory_allocated`` above what is live before
+    ``run()``."""
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    run()
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev) - before
+
+
+def check_plan_args(label, rec, args, growth):
+    """The arguments' allocation against the plan: the plan's bytes up to
+    the allocator's rounding of each tensor."""
+    from repro_torch.launch.dryrun import leaves
+    want, n = rec["mem"]["argument_bytes"], len(leaves(args))
+    log(f"  (b) {label}: arguments allocated {growth} B on the card "
+        f"({n} tensors), planned {want} B (+{growth - want} B, rounding "
+        f"bound {n * ALLOC_ROUND} B)")
+    if not want <= growth <= want + n * ALLOC_ROUND:
+        fail(f"{label}: the arguments' allocation {growth} B is not the "
+             f"plan's {want} B up to rounding")
+
+
+def check_plan_peak(label, kind, rec, args_growth, step_bytes):
+    """The card's peak (the arguments' allocation plus the step's growth)
+    against the planned peak, within ``PLAN_PEAK_TOL[kind]``, and the
+    step's growth against the planned temp, within ``PLAN_TEMP_TOL``."""
+    got = args_growth + step_bytes
+    want = rec["mem"]["peak_bytes"]
+    temp = rec["mem"]["temp_bytes"]
+    log(f"  (b) {label}: peak {got} B on the card, planned {want} B "
+        f"(ratio {got / want:.4f}, tolerance {PLAN_PEAK_TOL[kind]}); the "
+        f"step's own growth {step_bytes} B against the planned temp "
+        f"{temp} B (ratio {step_bytes / max(temp, 1):.4f})")
+    if abs(got / want - 1) > PLAN_PEAK_TOL[kind]:
+        fail(f"{label}: the card's peak {got} B is not within "
+             f"{PLAN_PEAK_TOL[kind]} of the plan's {want} B")
+    if abs(step_bytes / max(temp, 1) - 1) > PLAN_TEMP_TOL:
+        fail(f"{label}: the step's growth {step_bytes} B is not within "
+             f"{PLAN_TEMP_TOL} of the plan's temp {temp} B")
+
+
+def phase_plan_decode(dev):
+    """Phase 18 (b), decode: bf16 openPangu-7B at full width and depth at
+    phase 5's shape (B 4, 2048 rows a slot, T 64), planned on a one-device
+    mesh; the same arguments allocated on the card; one eager plain-path
+    ``spec_step`` after a prefill of phase 5's prompt lengths: its peak
+    against the plan's.  The kernel path's peak is logged beside it."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import SpecEngine
+    from repro_torch.core.tree import medusa_63
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.serve import build_model, make_prompts
+    from repro_torch.models.api import init_cache
+
+    cfg = get_config("openpangu-7b")
+    rec = planned(cfg, ShapeConfig("phase5", MAX_LEN, SLOTS, "decode"),
+                  make_dev_mesh(1, 1))
+    if rec["program"] != "single" or not rec["per_device"]:
+        fail(f"phase 5's cell on one device planned as {rec['program']}")
+    engines = {k: SpecEngine(cfg, medusa_63(), device=dev, graphs=False,
+                             use_kernel=k) for k in (False, True)}
+    eng = engines[False]
+
+    def make():
+        params, mp = build_model(cfg, SEED, 4, dev)
+        lengths = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+        return [params, mp, init_cache(cfg, SLOTS, MAX_LEN, device=dev),
+                lengths, torch.zeros_like(lengths),
+                eng.init_proposer_state(SLOTS, MAX_LEN),
+                torch.empty(2, dtype=torch.uint32, device=dev)]
+
+    args, growth = allocated(dev, make)
+    check_plan_args("openPangu-7B decode", rec, args, growth)
+    params, mp, cache = args[:3]
+    del args
+    prompts = make_prompts(cfg.vocab_size, SLOTS, SEED, 4, 48)
+    tok, plen = (torch.from_numpy(x).to(dev)
+                 for x in padded_batch(prompts, range(SLOTS)))
+    peaks = {}
+    for kernel, e in engines.items():
+        cache, lengths, base, state = e.prefill(params, mp, tok, plen, cache)
+        peaks[kernel] = step_growth(dev, lambda: e.spec_step(
+            params, mp, cache, lengths, base, state))
+        del lengths, base, state
+    check_plan_peak("openPangu-7B decode, plain path", "decode", rec,
+                    growth, peaks[False])
+    log(f"  (b) the kernel path's step (K1, K4; reported, not gated): peak "
+        f"{growth + peaks[True]} B, its own growth {peaks[True]} B")
+    del params, mp, cache, engines, eng
+    torch.cuda.empty_cache()
+
+
+def phase_plan_train(dev):
+    """Phase 18 (b), training: qwen1.5-0.5b at phase 11 (ii)'s shape (one
+    batch of 8 x 512), planned on a one-device mesh; its parameters (the
+    plan's dtype), AdamW state, tokens and targets allocated on the card;
+    one ``lm_train_step``: its peak against the plan's."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import steps as ST
+
+    cfg = get_config("qwen1.5-0.5b")
+    rec = planned(cfg, ShapeConfig("phase11", 512, 8, "train"),
+                  make_dev_mesh(1, 1))
+
+    def make():
+        p = TT.init_params(torch.Generator(device=dev).manual_seed(8), cfg,
+                           dtype=rec["meta"]["param_dtype"])
+        tok = torch.randint(0, cfg.vocab_size, (8, 512), dtype=torch.int32,
+                            device=dev)
+        return [p, O.adamw_init(p), tok, torch.roll(tok, -1, 1)]
+
+    args, growth = allocated(dev, make)
+    check_plan_args("qwen1.5-0.5b LM step", rec, args, growth)
+    step = step_growth(dev, lambda: ST.lm_train_step(*args[:2], cfg,
+                                                     *args[2:]))
+    check_plan_peak("qwen1.5-0.5b LM step", "train", rec, growth, step)
+    del args
+    torch.cuda.empty_cache()
+
+
+def check_plan_collectives(run, tp: int, data: int = 1):
+    """Phase 18 (c): the planned tp-``tp`` decode cell at the launcher's
+    shape (B ``SLOTS`` a data row, ``MAX_LEN`` rows, T 64), each rank's
+    program, against that rank's metered step (``--profile-steps``): the
+    collectives' count and result bytes by kind, and the bytes of the
+    step's arguments on the rank."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import KINDS
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    shape = ShapeConfig("launcher", MAX_LEN, SLOTS, "decode")
+    for r in run.ranks:
+        rank = r["rank"] % tp         # a data row's program (rows repeat)
+        rec = planned(run.cfg, shape, make_dev_mesh(model=tp), rank=rank)
+        prof = r["profile"]
+        metered = {}
+        for op, n in prof["by_op"].items():
+            e = metered.setdefault(KINDS[op], {"count": 0, "bytes": 0,
+                                               "bytes_body": 0})
+            e["count"] += n
+            e["bytes"] += prof["bytes_by_op"][op]
+        args = rec["mem"]["program_argument_bytes"] - PLAN_KEY_BYTES
+        log(f"  (c) --tp {tp} (data {data}) rank {r['rank']}: planned "
+            f"collectives {rec['collectives']}, metered a step {metered}; "
+            f"step arguments planned {args} B, on the rank "
+            f"{prof['argument_bytes']} B")
+        if rec["collectives"] != metered:
+            fail(f"--tp {tp} rank {r['rank']}: planned collectives "
+                 f"{rec['collectives']} != metered {metered}")
+        if args != prof["argument_bytes"]:
+            fail(f"--tp {tp} rank {r['rank']}: planned step arguments "
+                 f"{args} B != the rank's {prof['argument_bytes']} B")
 
 
 def median_s(fn, iters: int = 3):
@@ -5550,6 +5823,7 @@ def main() -> int:
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
+    plan_procs = plan_cli_start()
 
     phase("phase 2: flash_decode kernel (dense, int8, paged, int8 + paged) vs "
         "plain version on the card")
@@ -5680,6 +5954,14 @@ def main() -> int:
           f"full width and depth: answers held to single-device AR")
     tp_run = phase_tp_serve(dev, single)
     torch.cuda.empty_cache()
+    phase("phase 18: the dry-run planner: (a) its CLI on three production "
+          "cells, (b) the plan against the card's allocation and peak "
+          "(openPangu-7B decode at phase 5's shape, a qwen1.5-0.5b LM "
+          "step), (c) the planned tp-2 collectives against phase 17 (b)'s")
+    phase_plan_decode(dev)
+    phase_plan_train(dev)
+    check_plan_collectives(tp_run, TP)
+    plan_cli_finish(plan_procs)
     phase("phase 9: the launcher on the dense family at full width and depth "
         "in bf16, unfused and --verify-fusion")
     family = phase_family_serve(dev)

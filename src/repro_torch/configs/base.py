@@ -7,7 +7,9 @@ CPU-test variant exactly as the reference does.  The port runs every
 family (dense, MoE, VLM, SSM, hybrid and the encoder-decoder), and
 tensor parallelism for the dense family (``distributed/tp.py``).
 ``SamplingParams`` is a copy of the reference's sampling controls and
-``SchedulerParams`` of its serving-scheduler knobs.
+``SchedulerParams`` of its serving-scheduler knobs.  ``ShapeConfig``,
+``SHAPES`` and ``shape_applicable`` are the production input shapes the
+dry-run planner (``launch/dryrun.py``) plans each architecture at.
 """
 from __future__ import annotations
 
@@ -228,3 +230,27 @@ def reduce(cfg: ModelConfig, **overrides) -> ModelConfig:
         small["num_kv_heads"] = 1
     small.update(overrides)
     return replace(cfg, **small)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524288, 1,   "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """long_500k only for the sub-quadratic mixers (the reference's rule
+    and its reason, word for word)."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, "long_500k skipped: pure full-attention arch (see DESIGN.md §4)"
+    return True, ""

@@ -20,10 +20,18 @@ is staged through pinned host memory here, by name
 (``GLOO_HOST_STAGED``).  ``probe_gloo_cuda`` checks on the card that the
 native ones agree with their CPU result.
 
-``metered()`` counts the collectives a block issues and times them (CUDA
-events around each NCCL call, the host clock around each synchronous
-gloo call), for the per-step figures of ``chip_smoke.py`` and
-``launch/trace.py``; outside it the collectives carry no timing.
+``metered()`` counts the collectives a block issues, sums the bytes of
+their results and times them (CUDA events around each NCCL call, the
+host clock around each synchronous gloo call), for the per-step figures
+of ``chip_smoke.py`` and ``launch/trace.py``; outside it the collectives
+carry no timing.
+
+A planning axis (``register_plan``, inside ``planning()``) has sizes but
+no process group, for the dry-run planner (``launch/dryrun.py``) to
+trace one rank's program: each collective over it is metered as above
+(its kind and result bytes) and moves nothing.  A ``psum`` or ``pmax``
+gives its input back, an ``all_gather`` the concatenation of as many
+copies as the axis has ranks, a ``ppermute`` a copy of its input.
 
 ``ag_matmul_local`` computes ``all_gather(x) @ w`` as a ring: each step
 multiplies the chunk held against the matching rows of ``w`` while the
@@ -48,6 +56,7 @@ GLOO_CUDA_NATIVE = frozenset({"psum", "pmax", "all_gather"})
 # staged through pinned host memory by this module under gloo
 GLOO_HOST_STAGED = frozenset({"ppermute"})
 BACKENDS = ("nccl", "gloo")
+PLAN = "plan"            # the backend name of a planning axis
 
 
 class Axis(NamedTuple):
@@ -76,6 +85,29 @@ def register(name: str, ranks, backend: str, group=None) -> Axis:
     return ax
 
 
+def register_plan(name: str, size: int, rank: int = 0) -> Axis:
+    """Register planning axis ``name`` of ``size`` ranks, this process at
+    index ``rank`` on it, with no process group (see the module's
+    docstring)."""
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} is not on an axis of {size}")
+    ax = Axis(name, None, int(rank), int(size), PLAN, tuple(range(size)))
+    _AXES[name] = ax
+    return ax
+
+
+@contextlib.contextmanager
+def planning():
+    """A block whose ``register_plan`` calls are undone at its end: the
+    registry is restored to what it held before."""
+    saved = dict(_AXES)
+    try:
+        yield
+    finally:
+        _AXES.clear()
+        _AXES.update(saved)
+
+
 def clear():
     """Forget every registered axis (before the process group goes)."""
     _AXES.clear()
@@ -102,11 +134,13 @@ def axis_index(name: str) -> int:
 # ---------------------------------------------------------------------------
 
 class Meter:
-    """Counts and times of the collectives issued inside ``metered()``,
-    by op name.  ``ms()`` waits for the recorded CUDA events."""
+    """Counts, result bytes and times of the collectives issued inside
+    ``metered()``, by op name.  ``ms()`` waits for the recorded CUDA
+    events."""
 
     def __init__(self):
         self.count = defaultdict(int)
+        self.bytes = defaultdict(int)
         self._host_ms = defaultdict(float)
         self._events = []
 
@@ -137,12 +171,17 @@ def metered():
         _METER = prev
 
 
-def _run(op: str, ax: Axis, x, call):
-    """``call()`` (one collective over ``x``), metered when a meter is on."""
+def _run(op: str, ax: Axis, x, call, nbytes: int):
+    """``call()`` (one collective over ``x`` whose result holds ``nbytes``),
+    metered when a meter is on; on a planning axis only metered."""
     m = _METER
+    if m is not None:
+        m.count[op] += 1
+        m.bytes[op] += nbytes
+    if ax.backend == PLAN:
+        return None
     if m is None:
         return call()
-    m.count[op] += 1
     if x.is_cuda and ax.backend == "nccl":
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -178,7 +217,8 @@ def psum_(x, axis_name: str):
     if not x.is_contiguous():
         x = x.contiguous()
     _run("psum", ax, x,
-         lambda: dist.all_reduce(x, op=dist.ReduceOp.SUM, group=ax.group))
+         lambda: dist.all_reduce(x, op=dist.ReduceOp.SUM, group=ax.group),
+         x.nbytes)
     return x
 
 
@@ -192,7 +232,8 @@ def pmax(x, axis_name: str):
     ax = axis(axis_name)
     out = x.clone(memory_format=torch.contiguous_format)
     _run("pmax", ax, out,
-         lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ax.group))
+         lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ax.group),
+         out.nbytes)
     return out
 
 
@@ -201,9 +242,13 @@ def all_gather(x, axis_name: str, dim: int = 0, tiled: bool = True):
     along ``dim`` (``tiled``) or stacked on a new axis at ``dim``."""
     ax = axis(axis_name)
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(ax.size)]
+    if ax.backend == PLAN:
+        parts = [x] * ax.size
+    else:
+        parts = [torch.empty_like(x) for _ in range(ax.size)]
     _run("all_gather", ax, x,
-         lambda: dist.all_gather(parts, x, group=ax.group))
+         lambda: dist.all_gather(parts, x, group=ax.group),
+         x.nbytes * ax.size)
     dim = dim % (x.dim() + (0 if tiled else 1))
     return torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
 
@@ -240,8 +285,10 @@ def ppermute(x, axis_name: str, perm):
     indices) sends the source's ``x`` to the destination; a rank that
     receives nothing gets zeros."""
     ax = axis(axis_name)
-    return _run("ppermute", ax, x,
-                lambda: _ppermute_finish(x, _ppermute_start(x, ax, perm)))
+    out = _run("ppermute", ax, x,
+               lambda: _ppermute_finish(x, _ppermute_start(x, ax, perm)),
+               x.nbytes)
+    return x.clone() if ax.backend == PLAN else out
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +318,8 @@ def ag_matmul_local(x_loc, w, axis_name: str):
                              rows.to(y.dtype))
         if pending is not None:
             chunk = _run("ppermute", ax, chunk,
-                         lambda: _ppermute_finish(chunk, pending))
+                         lambda: _ppermute_finish(chunk, pending),
+                         chunk.nbytes)
     return y
 
 

@@ -1,4 +1,4 @@
-"""Logical-axis placement of parameters (counterpart of
+"""Logical-axis placement of parameters and activations (counterpart of
 ``repro.distributed.sharding``).
 
 A leaf's placement is a spec: a tuple with one entry per leading
@@ -6,20 +6,26 @@ dimension, the mesh axis that dimension shards over or None, trailing
 Nones dropped (the reference's ``PartitionSpec`` entries).  ``spec_for``
 maps a leaf's logical axis names to its spec under a rules dict, with the
 reference's divisibility and uniqueness guards; ``shard_leaf`` cuts a
-rank's contiguous slice.  The port's ``init_params`` returns plain
-tensors, so ``param_axes`` gives the logical axes the reference's
-``split_params`` returns beside them, for the dense family.
+rank's contiguous slice.
 
-The reference's ``logical()`` / ``axis_rules`` (sharding constraints on
-activations inside one SPMD program) have nothing to do under one
-process per rank, where every tensor already is the rank's own: they are
-the identity here and belong to the dry-run planner.
+The port's ``init_params`` returns plain tensors.  ``param_axes`` (every
+family) and ``medusa_axes`` give the logical axes that the reference's
+``split_params`` returns beside them, so the reference's ``Param`` /
+``split_params`` pair, a JAX pytree device, has no counterpart here.
+``param_shardings`` maps an axes tree and its shapes to a tree of specs.
+
+The reference's ``logical()`` / ``axis_rules`` / ``current_rules`` /
+``rule_size`` constrain activations inside one SPMD program and size
+them by the installed rules; under one process per rank every tensor
+already is the rank's own and nothing consults a rule while it runs, so
+they have no counterpart here either.
 """
 from __future__ import annotations
 
 import math
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import unit_structure
 
 
 def spec_for(axes: tuple, rules: dict, shape=None, mesh=None) -> tuple:
@@ -81,31 +87,101 @@ def _norm_axes(cfg: ModelConfig, stack: tuple = ()):
     return ax
 
 
-def param_axes(cfg: ModelConfig) -> dict:
-    """The logical axes of every leaf ``transformer.init_params`` makes
-    for a dense config: the tree the reference's ``split_params`` returns
-    beside the values (the stacked units lead with "layers")."""
-    if cfg.family != "dense":
-        raise ValueError(f"param_axes covers the dense family; "
-                         f"{cfg.name} is {cfg.family!r}")
-    L = ("layers",)
-    attn = {"wq": L + ("embed", "heads", "head_dim"),
-            "wk": L + ("embed", "kv_heads", "head_dim"),
-            "wv": L + ("embed", "kv_heads", "head_dim"),
-            "wo": L + ("heads", "head_dim", "embed")}
+def _attn_axes(cfg: ModelConfig, L: tuple):
+    ax = {"wq": L + ("embed", "heads", "head_dim"),
+          "wk": L + ("embed", "kv_heads", "head_dim"),
+          "wv": L + ("embed", "kv_heads", "head_dim"),
+          "wo": L + ("heads", "head_dim", "embed")}
     if cfg.qkv_bias:
-        attn["bq"] = L + ("heads", "head_dim")
-        attn["bk"] = L + ("kv_heads", "head_dim")
-        attn["bv"] = L + ("kv_heads", "head_dim")
-    ffn = {"wi": L + ("embed", "ff"), "wo": L + ("ff", "embed")}
+        ax["bq"] = L + ("heads", "head_dim")
+        ax["bk"] = L + ("kv_heads", "head_dim")
+        ax["bv"] = L + ("kv_heads", "head_dim")
+    return ax
+
+
+def _mlp_axes(cfg: ModelConfig, L: tuple):
+    ax = {"wi": L + ("embed", "ff"), "wo": L + ("ff", "embed")}
     if cfg.gated_mlp:
-        ffn["wg"] = L + ("embed", "ff")
-    axes = {"embed": ("vocab", "embed"),
-            "units": {"pos0": {"norm1": _norm_axes(cfg, L), "attn": attn,
-                               "norm2": _norm_axes(cfg, L), "ffn": ffn}},
+        ax["wg"] = L + ("embed", "ff")
+    return ax
+
+
+def _moe_axes(L: tuple):
+    return {"router": L + ("embed", None),
+            "wi": L + ("experts", "embed", "ff"),
+            "wg": L + ("experts", "embed", "ff"),
+            "wo": L + ("experts", "ff", "embed")}
+
+
+def _ssm_axes(L: tuple):
+    return {"wz": L + ("embed", "ssm_inner"), "wx": L + ("embed", "ssm_inner"),
+            "wB": L + ("embed", None), "wC": L + ("embed", None),
+            "wdt": L + ("embed", "ssm_heads"),
+            "conv_x": L + ("ssm_inner", None), "conv_x_b": L + ("ssm_inner",),
+            "conv_bc": L + (None, None), "conv_bc_b": L + (None,),
+            "A_log": L + ("ssm_heads",), "dt_bias": L + ("ssm_heads",),
+            "D": L + ("ssm_heads",), "norm_w": L + ("ssm_inner",),
+            "out_proj": L + ("ssm_inner", "embed")}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf the family's ``init_params`` makes:
+    the tree the reference's ``split_params`` returns beside the values
+    (stacked unit leaves lead with "layers")."""
+    L = ("layers",)
+    if cfg.family == "encdec":
+        return {"embed": ("vocab", "embed"), "pos_enc": (None, "embed"),
+                "pos_dec": (None, "embed"), "frontend_proj": (None, "embed"),
+                "enc_units": {"norm1": _norm_axes(cfg, L),
+                              "attn": _attn_axes(cfg, L),
+                              "norm2": _norm_axes(cfg, L),
+                              "mlp": _mlp_axes(cfg, L)},
+                "enc_final": _norm_axes(cfg),
+                "dec_units": {"norm1": _norm_axes(cfg, L),
+                              "self_attn": _attn_axes(cfg, L),
+                              "norm_x": _norm_axes(cfg, L),
+                              "cross_attn": _attn_axes(cfg, L),
+                              "norm2": _norm_axes(cfg, L),
+                              "mlp": _mlp_axes(cfg, L)},
+                "final_norm": _norm_axes(cfg),
+                "lm_head": ("embed", "vocab")}
+    units = {}
+    for i, (mix, ffn) in enumerate(unit_structure(cfg)):
+        pos = {"norm1": _norm_axes(cfg, L)}
+        pos["attn" if mix == "attn" else "ssm"] = (
+            _attn_axes(cfg, L) if mix == "attn" else _ssm_axes(L))
+        if ffn != "none":
+            pos["norm2"] = _norm_axes(cfg, L)
+            pos["ffn"] = _moe_axes(L) if ffn == "moe" else _mlp_axes(cfg, L)
+        units[f"pos{i}"] = pos
+    axes = {"embed": ("vocab", "embed"), "units": units,
             "final_norm": _norm_axes(cfg)}
     if not cfg.tie_embeddings:
         axes["lm_head"] = ("embed", "vocab")
     if cfg.frontend:
         axes["frontend_proj"] = (None, "embed")
     return axes
+
+
+def medusa_axes() -> dict:
+    """The logical axes of ``medusa.init_medusa``'s K stacked heads."""
+    return {"w1": ("medusa", "embed", "medusa_ff"),
+            "b1": ("medusa", "medusa_ff"),
+            "lm": ("medusa", "embed", "vocab")}
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def param_shardings(axes_tree, mesh, rules: dict, shapes_tree):
+    """The spec of every leaf of ``axes_tree`` (tuples of logical names at
+    the leaves) under ``rules`` on ``mesh``, at the shape of the matching
+    leaf of ``shapes_tree`` (tensors or anything with ``.shape``): a tree
+    of spec tuples of the same nesting."""
+    if _is_axes(axes_tree):
+        return spec_for(axes_tree, rules, shape=tuple(shapes_tree.shape),
+                        mesh=mesh)
+    return {k: param_shardings(v, mesh, rules, shapes_tree[k])
+            for k, v in axes_tree.items()}

@@ -30,7 +30,8 @@ sampled steps agree too.  The step runs eagerly (gloo's collectives
 cannot be captured in a CUDA graph).  ``make_tp_group`` builds the
 ``data`` x ``model`` grid of groups over the ranks ``collectives.spawn``
 started; each data row repeats the same work, as the reference's
-replicated specs do.
+replicated specs do.  ``plan_tp_group`` builds the same grid of planning
+axes for the dry-run planner, with no process group.
 """
 from __future__ import annotations
 
@@ -82,6 +83,18 @@ def make_tp_group(tp: int, data: int = 1) -> TPMesh:
     return TPMesh({"data": data, "model": tp}, me // tp, me % tp, backend)
 
 
+def plan_tp_group(tp: int, data: int = 1, rank: int = 0) -> TPMesh:
+    """``make_tp_group``'s grid for the dry-run planner, without
+    ``torch.distributed``: planning axes ``model`` (``tp``) and ``data``
+    (``data``) for global rank ``rank`` (``collectives.register_plan``;
+    call it inside ``collectives.planning()``)."""
+    if not 0 <= rank < data * tp:
+        raise ValueError(f"rank {rank} is not on a ({data} x {tp}) grid")
+    C.register_plan("model", tp, rank % tp)
+    C.register_plan("data", data, rank // tp)
+    return TPMesh({"data": data, "model": tp}, rank // tp, rank % tp, C.PLAN)
+
+
 def _validate(cfg: ModelConfig, proposer: str, tp: int):
     if cfg.tp_axis:
         raise ValueError("cfg already carries a tp_axis: pass the global "
@@ -124,8 +137,9 @@ class TPSpecEngine:
     ``prefill`` / ``spec_step`` / ``generate`` as on the single-device
     engine, with the sliced weights and replicated proposer weights.
     Every rank returns the same tokens; the cache stays sharded on its
-    kv-head axis across calls.  ``use_kernel`` and ``device`` as
-    ``build_engine`` (``device`` the rank's own, from ``spawn``).
+    kv-head axis across calls.  ``use_kernel``, ``device`` and
+    ``deferred`` as ``build_engine`` (``device`` the rank's own, from
+    ``spawn``).
     ``graphs=True`` is refused: the step runs eagerly."""
 
     def __init__(self, cfg: ModelConfig, mesh: TPMesh, *, axis: str = "model",
@@ -134,7 +148,8 @@ class TPSpecEngine:
                  accept: str = "greedy",
                  sampling: Optional[SamplingParams] = None,
                  use_kernel: bool = False, device="cuda",
-                 graphs: bool = False, seed: int = 0):
+                 graphs: bool = False, seed: int = 0,
+                 deferred: bool = False):
         if graphs:
             raise ValueError("the tensor-parallel step runs eagerly: gloo's "
                              "collectives cannot be captured in a CUDA graph "
@@ -159,7 +174,8 @@ class TPSpecEngine:
                                   gamma=gamma, max_n=max_n, min_n=min_n,
                                   use_kernel=use_kernel, device=device,
                                   accept=accept, sampling=sampling,
-                                  graphs=False, seed=seed)
+                                  graphs=False, seed=seed,
+                                  deferred=deferred)
         self.device = self.local.device
         self.proposer = self.local.proposer
         self.tb = self.local.tb

@@ -27,6 +27,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ("-lcuda",)
 
 
+def refuse_fake(name: str, *tensors):
+    """Raise if any of ``tensors`` is a fake tensor (``FakeTensorMode``,
+    the dry-run planner's): it has no device memory, and its
+    ``data_ptr()`` is no address a kernel may read.  A kernel wrapper
+    calls it before it launches; nothing falls back to the plain
+    version."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise ValueError(f"{name}: a fake tensor has no device memory for "
+                         f"the kernel; the planner traces the plain path "
+                         f"(CPU tensors)")
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     for cand in (pathlib.Path(home) / "bin" / "nvcc", shutil.which("nvcc")):

@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.kernels import paging as P
 from repro_torch.kernels import quant as Q
+from repro_torch.kernels.build import refuse_fake
 from repro_torch.models import layers as L
 from repro_torch.runtime import counted
 
@@ -247,6 +248,8 @@ def fused_qkv_rope_commit(x, p, lengths, k_cache, v_cache, *, cos=None,
     if x.device.type != "cuda":
         raise ValueError(f"fused_qkv_rope_commit: unsupported device "
                          f"{x.device}")
+    refuse_fake("fused_qkv_rope_commit", x, lengths, k_cache, v_cache, cos,
+                sin, table, *p.values())
     _check_cuda_args(x, p, lengths, k_cache, v_cache, cos, sin, table)
     B, T, d = x.shape
     Hq, hd = p["wq"].shape[1], p["wq"].shape[2]
@@ -523,10 +526,13 @@ def _launch_commit(name, pairs, path_slots, lengths, table):
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def _device_of(name, cache):
-    """'cpu' or 'cuda'; any other device raises."""
+def _device_of(name, cache, *others):
+    """'cpu' or 'cuda'; any other device, or a fake tensor on the card,
+    raises."""
     if cache.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {cache.device}")
+    if cache.device.type == "cuda":
+        refuse_fake(name, cache, *others)
     return cache.device.type
 
 
@@ -557,7 +563,7 @@ def commit_rows_stacked(cache, rows, lengths):
     path row its own in-flight row) or raise (the cache's [H, D] rows must
     be contiguous).  ``.launches`` also counts ``commit_path_stacked``'s
     dense launches."""
-    if _device_of("commit_rows_stacked", cache) == "cpu":
+    if _device_of("commit_rows_stacked", cache, rows, lengths) == "cpu":
         return commit_rows_stacked_plain(cache, rows, lengths)
     _rows_given("commit_rows_stacked", cache, rows, lengths, None)
     commit_rows_stacked.launches += 1
@@ -577,7 +583,8 @@ def commit_rows_paged_stacked(pool, block_tables, rows, lengths):
     CPU tensors take ``commit_rows_paged_stacked_plain``; CUDA tensors
     launch ``csrc/commit_rows.cu`` or raise.  ``.launches`` also counts
     ``commit_path_stacked``'s paged launches."""
-    if _device_of("commit_rows_paged_stacked", pool) == "cpu":
+    if _device_of("commit_rows_paged_stacked", pool, block_tables, rows,
+                  lengths) == "cpu":
         return commit_rows_paged_stacked_plain(pool, block_tables, rows,
                                                lengths)
     _rows_given("commit_rows_paged_stacked", pool, rows, lengths,
@@ -608,7 +615,10 @@ def commit_path_stacked(leaves, sources, path_slots, lengths, table=None):
     ``.launches`` (dense: K4) or ``commit_rows_paged_stacked``'s (paged:
     K5), or raise: there is no fallback to the gather.  At most
     ``COMMIT_MAX_UNITS`` units; no source may overlap a leaf."""
-    if _device_of("commit_path_stacked", leaves["k"]) == "cpu":
+    rows = [t for src in sources.values()
+            for t in ([src] if isinstance(src, torch.Tensor) else src)]
+    if _device_of("commit_path_stacked", leaves["k"], *leaves.values(),
+                  path_slots, lengths, table, *rows) == "cpu":
         return commit_path_stacked_plain(leaves, sources, path_slots,
                                          lengths, table)
     pairs = [(list(src.unbind(0)) if isinstance(src, torch.Tensor)

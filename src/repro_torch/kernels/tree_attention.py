@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.kernels import paging as P
 from repro_torch.kernels import quant as Q
+from repro_torch.kernels.build import refuse_fake
 from repro_torch.kernels.cache_update import aligned16
 from repro_torch.models.layers import NEG_INF
 from repro_torch.runtime import counted
@@ -271,6 +272,8 @@ def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
                                   v_scale=v_scale, block_tables=block_tables)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
+    refuse_fake("flash_decode", q, k, v, lengths, k_scale, v_scale,
+                block_tables)
     _check_cuda_args(q, k, v, lengths, k_scale, v_scale, block_tables)
     q = q.contiguous()
     if q.data_ptr() % 16:
@@ -499,6 +502,7 @@ def unembed_verify_stats(hidden, w, candidates, tmax, layout=None):
     if hidden.device.type != "cuda":
         raise ValueError(f"unembed_verify_stats: unsupported device "
                          f"{hidden.device}")
+    refuse_fake("unembed_verify_stats", hidden, w, candidates, tmax)
     _check_stats_args(hidden, w, candidates, tmax)
     hidden = hidden.contiguous()
     table, layout = stats_operand(w.to(hidden.dtype), layout)

@@ -294,16 +294,23 @@ def tp_profile(tpe, params, mp, prompts, steps: int, max_len: int = 2048,
     kernels' own time under the profiler, NCCL's apart: an NCCL kernel
     runs on its own stream and spins until every rank has reached it, so
     its time is mostly the other ranks' lateness), idle (1 - device /
-    wall), launches, collectives and collective_ms (metered), nccl_ms and
-    copy_ms (profiler device time of NCCL's kernels and of the memcpy
-    records, gloo's staging among them), top (the kernels with the most
-    device time: name, ms a step, launches a step)."""
+    wall), launches, collectives and collective_ms (metered), by_op and
+    bytes_by_op (the metered collectives' count and result bytes a step,
+    by op), nccl_ms and copy_ms (profiler device time of NCCL's kernels
+    and of the memcpy records, gloo's staging among them), top (the
+    kernels with the most device time: name, ms a step, launches a step),
+    argument_bytes (the bytes of the step's arguments on this rank: its
+    weights, proposer weights, cache, lengths, base tokens and proposer
+    state)."""
     from repro_torch.distributed import collectives as C
     dev = tpe.device
     cuda = dev.type == "cuda"
     tok, plen = _padded(prompts, dev)
     cache = tpe.init_cache(len(prompts), max_len)
     cache, lengths, base, state = tpe.prefill(params, mp, tok, plen, cache)
+    from repro_torch.launch.dryrun import leaves
+    arg_bytes = sum(t.nbytes for t in leaves(
+        (params, mp, cache, lengths, base, state)))
     n = 2 + 3 * steps
     step, c = tpe.local.loop_step(params, mp, cache, state, n)
     c.load(lengths, base, state, tpe.sampling.temperature,
@@ -329,6 +336,8 @@ def tp_profile(tpe, params, mp, prompts, steps: int, max_len: int = 2048,
     with C.metered() as meter:
         timed()
     count, coll_ms = meter.total()
+    by_op = {op: n / steps for op, n in meter.count.items()}
+    bytes_by_op = {op: b / steps for op, b in meter.bytes.items()}
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
         timed()
@@ -347,7 +356,8 @@ def tp_profile(tpe, params, mp, prompts, steps: int, max_len: int = 2048,
             "idle": 1 - dev_ms / wall_ms,
             "launches": sum(e.count for e in kernels) / steps,
             "collectives": count / steps, "collective_ms": coll_ms / steps,
-            "nccl_ms": ms(nccl),
+            "by_op": by_op, "bytes_by_op": bytes_by_op,
+            "argument_bytes": arg_bytes, "nccl_ms": ms(nccl),
             "copy_ms": ms([e for e in kernels
                            if e.key.lower().startswith("memcpy")]),
             "top": [(e.key[:80], _device_us(e) / 1e3 / steps,

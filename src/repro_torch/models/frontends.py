@@ -21,6 +21,17 @@ def frontend_shape(cfg: ModelConfig, batch: int):
     return (batch, cfg.frontend_len, cfg.frontend_dim or cfg.d_model)
 
 
+def frontend_spec(cfg: ModelConfig, batch: int, device="meta"):
+    """The frontend's output as a shape without storage (the reference's
+    ``ShapeDtypeStruct``): an empty bf16 tensor of ``frontend_shape(cfg,
+    batch)`` on ``device`` (the meta device; under a ``FakeTensorMode``
+    a fake tensor), or None for a config without a frontend."""
+    shape = frontend_shape(cfg, batch)
+    return None if shape is None else torch.empty(shape,
+                                                  dtype=torch.bfloat16,
+                                                  device=device)
+
+
 def frontend_embeds(cfg: ModelConfig, batch: int,
                     generator: Optional[torch.Generator] = None):
     """Random stand-in embeddings (what a real ViT or conv stack would

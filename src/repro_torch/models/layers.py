@@ -41,9 +41,17 @@ def tp_reduce(y, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, shape, dtype, scale=None, stack: int = 0):
-    """Normal(0, 1) * scale, with the reference's fan-in rule: scale
-    defaults to 1/sqrt(shape[0]).  ``stack`` > 0 prepends a layer axis of
-    that size (the stacked ``params["units"]`` leaves)."""
+    """Normal(0, 1) * scale; ``scale`` defaults to 1/sqrt(shape[0]), the
+    fan-in of the contraction for a two-dimensional leaf and for the
+    attention's ``wq`` / ``wk`` / ``wv`` [d, H, hd] (``wo`` [Hq, hd, d]
+    at 1/sqrt(Hq)).  The reference takes shape[1] as the fan-in of every
+    three-dimensional leaf, which is right for its stacked experts (the
+    port passes their scale explicitly) and draws the attention's
+    projections 11-23x larger at openPangu-7B's widths: a random model
+    whose bf16 logits a half-ulp perturbation moves by whole units, on
+    which no bf16 comparison can hold (ROADMAP.md §3, "Reference
+    caveats").  ``stack`` > 0 prepends a layer axis of that size (the
+    stacked ``params["units"]`` leaves)."""
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     scale = (1.0 / math.sqrt(fan_in)) if scale is None else scale
     full = ((stack,) if stack else ()) + tuple(shape)

@@ -80,6 +80,7 @@ MATRIX = [(p, lay, acc) for p in ("medusa", "ngram") for lay in LAYOUTS
           for acc in ("greedy", "sample")]
 B, S_P, NEW, MAX_LEN = 2, 32, 12, 128
 TMAX_ROWS = [0.7, 1.0, 1e-6, 2.0]
+METER_CASE = {"batch": 2, "prompt": 16, "max_len": 128}
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 
@@ -297,6 +298,11 @@ def _world(tmp):
     jobs4.append(("generate", {"/".join(tp4_case): _case(
         R.with_layout(pangu_t, "int8+paged"), params4, mp4, "medusa",
         "sample")}))
+    # one metered spec step a grid, for the planner's collectives
+    jobs2.append(("meter", dict(METER_CASE, cfg=qwen_t, params=params,
+                                mp=mp)))
+    jobs4.append(("meter", dict(METER_CASE, cfg=pangu_t, params=params4,
+                                mp=mp4)))
     # collectives
     trees = _cpsum_trees()
     jobs4.append(("cpsum", trees))
@@ -459,8 +465,10 @@ def test_param_axes_match_reference(arch):
     _, axes = split_params(abstract)
     assert sharding.param_axes(get_config(arch, reduced=True)) == \
         jax.tree.map(tuple, axes, is_leaf=lambda x: isinstance(x, tuple))
-    with pytest.raises(ValueError, match="dense"):
-        sharding.param_axes(get_config("granite-moe-1b-a400m"))
+    # every family has its axes now (the planner's); the MoE's experts
+    moe = sharding.param_axes(get_config("granite-moe-1b-a400m"))
+    assert moe["units"]["pos0"]["ffn"]["wi"] == ("layers", "experts",
+                                                 "embed", "ff")
 
 
 class FakeMesh:
@@ -721,3 +729,37 @@ def test_launcher_refuses(extra, msg, monkeypatch):
     argv = ["--reduced"] + extra
     with pytest.raises(SystemExit, match=msg):
         serve.main(argv)
+
+
+# --------------------------------------------------- the planner's collectives
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_planned_tp_collectives_equal_metered(world, tp):
+    """The dry-run planner's tp-``tp`` decode cell at the metered run's
+    shapes (rank 0's program over planning axes) issues the collectives
+    the ranks' gloo run metered, by kind, in count and result bytes, and
+    plans the bytes of rank 0's step arguments (plus the cell's 8-byte
+    key, which the engine's step does not take).  At reduced depth the
+    step issues 2 all-reduces a layer, the verify statistics' sum and
+    one all-gather."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_dev_mesh
+    cfg = get_config("qwen1.5-0.5b", reduced=True) if tp == 2 \
+        else _tp4_config(get_config)
+    shape = ShapeConfig("metered", METER_CASE["max_len"],
+                        METER_CASE["batch"], "decode")
+    rec = D.plan(cfg, shape, make_dev_mesh(model=tp), False)
+    assert rec["program"] == "tp" and rec["per_device"]
+    for out in world["out"][tp]:
+        got = out["meter"]
+        want = {}
+        for op, n in got["count"].items():
+            e = want.setdefault(D.KINDS[op], {"count": 0, "bytes": 0,
+                                              "bytes_body": 0})
+            e["count"] += n
+            e["bytes"] += got["bytes"][op]
+        assert rec["collectives"] == want
+        assert sum(got["count"].values()) == 2 * cfg.num_layers + 2
+        assert rec["mem"]["program_argument_bytes"] == \
+            got["argument_bytes"] + 8

@@ -96,6 +96,36 @@ def dp_job(case):
             "loss": float(m["loss"])}
 
 
+def meter_job(mesh, case):
+    """A prefill, then one spec step of the TP engine under
+    ``collectives.metered``: the step's collectives (count and result
+    bytes by op) and the bytes of the step's arguments on this rank (the
+    weights in the dtypes the dry-run planner's inference cells hold:
+    bf16, norms in f32)."""
+    from repro_torch.launch import specs as S
+    cfg = case["cfg"]
+    tpe = TP.build_tp_engine(cfg, mesh, "medusa", device="cpu")
+    like = lambda t, f: t.to(f.dtype)  # noqa: E731
+    sp = tpe.shard_params(O.tree_map(
+        like, bridge.to_torch(case["params"], device="cpu"),
+        S.abstract_params(cfg, "bfloat16")[0]))
+    pp = O.tree_map(like, bridge.to_torch(case["mp"], device="cpu"),
+                    S.abstract_medusa(cfg, "bfloat16")[0])
+    B, n = case["batch"], case["prompt"]
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        2, cfg.vocab_size, (B, n)).astype(np.int32))
+    cache = tpe.init_cache(B, case["max_len"])
+    cache, lens, base, state = tpe.prefill(
+        sp, pp, toks, torch.full((B,), n, dtype=torch.int32), cache)
+    step_args = (sp, pp, cache, lens, base, state)
+    nbytes = sum(t.nbytes for t in O.tree_leaves(
+        {str(i): a for i, a in enumerate(step_args)}))
+    with C.metered() as m:
+        tpe.spec_step(*step_args)
+    return {"count": dict(m.count), "bytes": dict(m.bytes),
+            "argument_bytes": nbytes}
+
+
 def cpsum_job(trees):
     g = bridge.to_torch(trees[C.axis("model").rank], device="cpu")
     return _np(O.compressed_psum(g, "model"))
@@ -127,6 +157,8 @@ def run(rank, world, dev, jobs):
                          for tag, case in job.items()}
         elif name == "dp":
             out[name] = {tag: dp_job(case) for tag, case in job.items()}
+        elif name == "meter":
+            out[name] = meter_job(mesh, job)
         elif name == "cpsum":
             out[name] = cpsum_job(job)
         elif name == "ag_matmul":
