@@ -69,16 +69,18 @@ non-zero exit:
    biases, both routes, dense == paged bitwise; K3 at qwen1.5-0.5b's and
    qwen1.5-4b's widths with biases; K2 over the MoE and VLM families'
    heads (granite-moe d 1024 x V 49155 and internvl2 d 6144 x V 92553,
-   whose unaligned rows take the tile route, asserted; phi3.5-moe d 4096
-   x V 32064, wgmma in bf16), f32 and bf16 (a row whose top logit the
-   two products round to neighbouring bf16 steps has m one step apart,
-   and its l is then held to the sum-exp of the plain logits against the
-   kernel's m); K3 at internvl2's and granite-moe's widths, spec and AR,
-   dense and paged; the one-launch commit over granite-moe's 24 units of
-   [8, 64] (dense, paged, int8 paged) and internvl2's 48 of [8, 128];
-   K2 over whisper-tiny's [384, 51865] head (tile route), greedy and at
-   ``TMAX_ROWS``, and the commit over its 4 decoder units of [6, 64] on
-   every layout;
+   laid out at a 16-byte row pitch as the models lay them out, wgmma in
+   bf16, asserted, also with the pad poisoned and with every logit
+   negative, and contiguous on the tile route; phi3.5-moe d 4096 x V
+   32064), f32 and bf16 (a row whose top
+   logit the two products round to neighbouring bf16 steps has m one
+   step apart, and its l is then held to the sum-exp of the plain logits
+   against the kernel's m); K3 at internvl2's and granite-moe's widths,
+   spec and AR, dense and paged; the one-launch commit over
+   granite-moe's 24 units of [8, 64] (dense, paged, int8 paged) and
+   internvl2's 48 of [8, 128];
+   K2 over whisper-tiny's [384, 51865] head (pitched, the same cases;
+   contiguous on the tile route at ``TMAX_ROWS``), and the commit over its 4 decoder units of [6, 64] on every layout;
 4. float32 openPangu-7B at full width, 2 layers: speculative ``generate``
    == ``ar_generate`` token for token, dense, with verify fusion, paged,
    paged with verify fusion, int8, int8 paged and int8 with verify fusion
@@ -245,7 +247,7 @@ non-zero exit:
 14. (run after 9) the MoE and VLM families in bf16 at full width:
    granite-moe-1b-a400m at full depth through the launcher at the no-drop
    capacity factor (``--static`` unfused and fused, and the server's 16
-   requests unfused and fused; launches exact, K2 on the tile route),
+   requests unfused and fused; launches exact, K2 on the wgmma route),
    every answer held to ``ar_generate`` under ``near_tie``, then the same
    four runs at the config's 1.25, reported and not held: answers equal
    to AR, the share of (token, expert) assignments dropped per step
@@ -307,12 +309,14 @@ non-zero exit:
    (dense, int8, paged; the draft's R 8 beside it), K2 at N 20, K3 at
    M 20 (the draft's T 1 beside it), their launches from phase 12; and
    the MoE and VLM families' shapes (rows named ``@<arch>``): K1 at their
-   folds, K2 over their heads (the tile route at granite-moe's and
-   internvl2's vocabularies), K3 at their widths, the commit over their
+   folds, K2 over their heads (granite-moe's and internvl2's pitched,
+   with ``torch.matmul`` also on the contiguous head and on the whole
+   padded allocation, and the earlier ``tile`` route on the contiguous
+   head), K3 at their widths, the commit over their
    units, their launches from phase 14's fused no-drop runs; the SSM
    and hybrid families' (``@<arch>``, phase 15's fused static runs); and
    whisper-tiny's (``@whisper-tiny``: K1 at R 64 / 8 over 6 kv heads of
-   64, K2 over its [384, 51865] head on the tile route, the commit over
+   64, K2 over its [384, 51865] head, pitched, the commit over
    4 units of [6, 64]; launches from phase 16's fused static run); and
    tensor parallelism's (``@tp2``: K1 in its four variants at a tp-2
    rank's 4 kv heads, R 256 / 8, and the commit over 34 units of [4,
@@ -440,8 +444,8 @@ JAMBA_F32_EXPERTS = 4
 # the encoder-decoder, whisper-tiny (4 encoder and 4 decoder layers, d 384,
 # 6 heads of 64, group 1, 1500 frames a request): K1 at the tree step's
 # R 64 (T 64 x 1), the AR step's one row padded to R 8, and one unpadded
-# row (R 1); K2 over its [384, 51865] lm head, whose unaligned V takes the
-# tile route; the commit over its 4 decoder units of [6, 64] (the cross
+# row (R 1); K2 over its [384, 51865] lm head, pitched (V is odd); the
+# commit over its 4 decoder units of [6, 64] (the cross
 # k/v is written at admission, never committed); no K3 (the reference's
 # encdec decode keeps the unfused write side)
 WHISPER = "whisper-tiny"
@@ -663,12 +667,25 @@ def k1_routes(cfg, B, S, steps, ar_steps=0, T=64, proposer=None):
 
 def stats_route(cfg) -> str:
     """The route ``stats_plan`` gives K2 over ``cfg``'s bf16 unembedding
-    weight: ``tile`` for an untied [d, V] head whose V is not a multiple
-    of 8 (TMA reads rows of multiples of 16 bytes), else ``wgmma``."""
-    from repro_torch.kernels.tree_attention import stats_plan
+    weight as the port lays it out (a tied model's ``embed.T``; an untied
+    [d, V] head through ``pitch_lm_head``, which puts a head whose V is
+    not a multiple of 8 at a 16-byte row pitch): ``wgmma`` for every
+    registry model.  Any other route fails: there is no fallback."""
+    from repro_torch.kernels.tree_attention import (pitch_lm_head,
+                                                    stats_plan,
+                                                    stats_operand)
 
-    return stats_plan(256, cfg.d_model, cfg.vocab_size, torch.bfloat16,
-                      layout="vd" if cfg.tie_embeddings else "dv")[0]
+    d, V = cfg.d_model, cfg.vocab_size
+    meta = dict(dtype=torch.bfloat16, device="meta")
+    w = (torch.empty((V, d), **meta).T if cfg.tie_embeddings
+         else pitch_lm_head(torch.empty((d, V), **meta)))
+    table, layout = stats_operand(w)
+    route = stats_plan(256, d, V, torch.bfloat16, layout=layout,
+                       ldw=table.stride(0))[0]
+    if route != "wgmma":
+        fail(f"{cfg.name}: K2 over its {layout} head (row pitch "
+             f"{table.stride(0)}) would take the {route} route")
+    return route
 
 
 def check_routes(label, counts, k1_want=None, k2_route="wgmma"):
@@ -1021,10 +1038,16 @@ def bf16_step(x):
 
 
 def stats_case(dev, name, B, T, d, V, dt, tied=False, tmax=None,
-               table=False):
+               table=False, pitched=False, pad=None, negative=False):
     """K2 against its plain version; returns the max abs error of m and
     cand_w.  V not a multiple of 8 leaves rows TMA cannot take (tile
-    route).  ``table``: the head is a tied model's [V, d] embedding table,
+    route) unless ``pitched``: then the [d, V] head is laid out as the
+    model lays it out (``pitch_lm_head``: rows ceil8(V) apart), and bf16
+    takes the wgmma route.  ``pad``: a value written into the pitched
+    head's pad columns (poison: were a pad column read, it would win every
+    row).  ``negative``: every real logit is below -20 (column 0 of the
+    head -4 against hidden's 8), so a pad column read as 0 would win the
+    argmax.  ``table``: the head is a tied model's [V, d] embedding table,
     passed as its transposed view ``embed.T``; the launch must read it in
     place (the memory the call allocates stays below the table's size).
     ``tmax`` (one per row; default ones) are the rows' warp temperatures:
@@ -1033,7 +1056,7 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False, tmax=None,
     by a positive temperature cannot move its argmax).
     The returned error is in the divided logits' units."""
     from repro_torch.kernels.tree_attention import (
-        unembed_verify_stats, unembed_verify_stats_plain)
+        pitch_lm_head, unembed_verify_stats, unembed_verify_stats_plain)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     h = torch.randn((B, T, d), generator=gen, device=dev).to(dt)
@@ -1054,6 +1077,17 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False, tmax=None,
         w[:, tied_cols] = 0.0
         w[0, tied_cols] = 4.0
         cand[:, :3] = torch.tensor(tied_cols, device=dev)
+    if negative:
+        h[..., 0] = 8.0
+        w[0, :] = -4.0
+    if pitched:
+        w = pitch_lm_head(w)
+        ldw = w.stride(0)
+        if ldw % 8 or ldw < V:
+            fail(f"unembed_verify_stats {name}: pitch_lm_head gave rows "
+                 f"{ldw} apart at V {V}")
+        if pad is not None:
+            w.as_strided((d, ldw), (ldw, 1))[:, V:] = pad
     ones = torch.ones((B,), device=dev)
     tmax = ones if tmax is None else torch.tensor(tmax, dtype=torch.float32,
                                                   device=dev)
@@ -1067,9 +1101,12 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False, tmax=None,
         fail(f"unembed_verify_stats {name}: the call allocated {grew} bytes, "
              f"as much as the [V, d] table: it was copied")
     want_route(f"unembed_verify_stats {name}", route, dt,
-               V % 8 == 0 or table)
+               V % 8 == 0 or table or pitched)
     rargm, rm, rl, rcw = unembed_verify_stats_plain(h, w, cand, tmax)
     torch.cuda.synchronize()
+    if bool(((argm < 0) | (argm >= V)).any()):
+        fail(f"unembed_verify_stats {name}: argm outside [0, {V}): "
+             f"{argm[(argm < 0) | (argm >= V)].unique().tolist()[:8]}")
     if tmax is not ones:
         argm1 = uncounted(unembed_verify_stats, h, w, cand, ones)[0]
         finite = all(bool(torch.isfinite(x).all()) for x in (m, l, cw))
@@ -1118,7 +1155,15 @@ def stats_case(dev, name, B, T, d, V, dt, tied=False, tmax=None,
     tol = TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
     at = "" if tmax is ones else f" at tmax {tmax.tolist()}"
     over = (f" over the [V, d] table in place ({grew} bytes allocated by "
-            f"the call)" if table else "")
+            f"the call)" if table else
+            f" over the head at row pitch {w.stride(0)}" if pitched else "")
+    if pitched and pad is not None:
+        over += f", pad columns {pad}"
+    if negative:
+        over += f", every logit negative (plain max {rm.max().item():.3f})"
+        if not bool((rm < 0).all()):
+            fail(f"unembed_verify_stats {name}: a real logit is not "
+                 f"negative: plain max {rm.max().item()}")
     log(f"  unembed_verify_stats {name}: B={B} T={T} d={d} V={V} {dt}{at}"
         f"{over}, {route} route: "
         f"max err {err:.3e} (tol {tol}; abs {abs_err:.3e}); m differs in "
@@ -1325,6 +1370,7 @@ def phase_fusion_kernels(dev):
         stats_case(dev, "per-row tmax", 4, 64, d, V, dt, tmax=TMAX_ROWS)
         stats_case(dev, "tied columns", 4, 64, d, V, dt, tied=True)
         stats_case(dev, "V 4099 (unaligned rows)", 2, 64, 512, 4099, dt)
+        pitched_cases(dev, "V 4099", 4, 64, 512, 4099, dt)
         # the chain proposers' verify step: N 20 rows, [4, 5, 5] weights
         errs["K2 chain", dt] = stats_case(dev, f"chain N {4 * CHAIN_T}", 4,
                                           CHAIN_T, d, V, dt)
@@ -1408,19 +1454,27 @@ def phase_fusion_kernels(dev):
             qkv_case(dev, qcfg, f"{arch} spec, biases", 64, dt, ragged,
                      bias=True, ps=64)
     # the MoE and VLM families: K2 over each lm head at the spec step
-    # (granite-moe's V 49155 and internvl2's 92553 are not multiples of 8,
-    # so their rows take the tile route, asserted; phi3.5-moe's 32064
-    # takes wgmma in bf16); K3 at internvl2's (d 6144, 48 + 8 + 8 heads)
-    # and granite-moe's (d 1024, 16 + 8 + 8 heads of 64) widths, spec and
-    # AR, dense and paged (phi3.5-moe's are openPangu-7B's)
+    # (granite-moe's V 49155 and internvl2's 92553 are not multiples of 8:
+    # their heads are pitched as the model lays them out, and take the
+    # wgmma route in bf16, asserted, with the pad poisoned and with every
+    # logit negative; phi3.5-moe's 32064 needs no pitch); K3 at
+    # internvl2's (d 6144, 48 + 8 + 8 heads) and granite-moe's (d 1024,
+    # 16 + 8 + 8 heads of 64) widths, spec and AR, dense and paged
+    # (phi3.5-moe's are openPangu-7B's)
     ragged = [1, 517, 1300, 1984]
     for arch in MOE_VLM:
         mcfg = get_config(arch)
         for dt in (torch.float32, torch.bfloat16):
             err = stats_case(dev, arch, 4, 64, mcfg.d_model,
-                             mcfg.vocab_size, dt)
+                             mcfg.vocab_size, dt, pitched=True)
             if dt == torch.bfloat16:
                 errs[f"K2 {arch}"] = err
+            if mcfg.vocab_size % 8:
+                # the contiguous head as well (bf16 on the tile route)
+                stats_case(dev, f"{arch} contiguous", 4, 64, mcfg.d_model,
+                           mcfg.vocab_size, dt)
+                pitched_cases(dev, arch, 4, 64, mcfg.d_model,
+                              mcfg.vocab_size, dt)
             if arch == "phi3.5-moe-42b-a6.6b":
                 continue
             err = qkv_case(dev, mcfg, f"{arch} spec", 64, dt, ragged)
@@ -1453,17 +1507,32 @@ def phase_fusion_kernels(dev):
             qkv_case(dev, mcfg, f"{arch} AR", 1, dt, ragged, ps=16)
         torch.cuda.empty_cache()
     # the encoder-decoder: K2 over whisper-tiny's [384, 51865] lm head at
-    # the tree step (its unaligned V takes the tile route, asserted),
-    # greedy and at the sampled step's per-row temperatures
+    # the tree step, pitched (bf16 on the wgmma route, asserted), greedy,
+    # at the sampled step's per-row temperatures, poisoned, all negative;
+    # and the contiguous head (bf16 on the tile route) at the per-row
+    # temperatures
     wcfg = get_config(WHISPER)
     for dt in (torch.float32, torch.bfloat16):
         err = stats_case(dev, WHISPER, 4, 64, wcfg.d_model, wcfg.vocab_size,
-                         dt)
+                         dt, pitched=True)
         if dt == torch.bfloat16:
             errs[f"K2 {WHISPER}"] = err
         stats_case(dev, f"{WHISPER}, per-row tmax", 4, 64, wcfg.d_model,
                    wcfg.vocab_size, dt, tmax=TMAX_ROWS)
+        pitched_cases(dev, WHISPER, 4, 64, wcfg.d_model, wcfg.vocab_size, dt)
     return errs
+
+
+def pitched_cases(dev, name, B, T, d, V, dt):
+    """K2 over a [d, V] head at the row pitch ``pitch_lm_head`` gives it
+    (V not a multiple of 8): at the sampled step's per-row temperatures,
+    with 1e4 in every pad column, and with every real logit negative."""
+    stats_case(dev, f"{name} pitched, per-row tmax", B, T, d, V, dt,
+               tmax=TMAX_ROWS, pitched=True)
+    stats_case(dev, f"{name} pitched, poisoned pad", B, T, d, V, dt,
+               pitched=True, pad=1e4)
+    stats_case(dev, f"{name} pitched, negative logits", B, T, d, V, dt,
+               pitched=True, negative=True)
 
 
 def path_inputs(dev, nu, H, D, src_dt, quantized=False, ps=0,
@@ -2519,6 +2588,8 @@ def server_counted(argv, weights):
     label = " ".join(argv)
     if counts != want:
         fail(f"server {label}: launches {counts}, expected {want}")
+    if served.cfg.verify_fusion:
+        check_routes(f"server {label}", counts, None, stats_route(served.cfg))
     caps = check_server_graphs(f"server {label}", served.server)
     if any(r["status"] != "done" or len(r["output"]) != r["max_new"]
            for r in served.results):
@@ -2537,7 +2608,7 @@ def phase_moe_vlm_serve(dev):
     granite-moe-1b-a400m (24 layers, full depth) through the launcher:
     at the no-drop capacity factor (``served_config(no_drop)``) with
     ``--static``, unfused and ``--verify-fusion`` on the same weights
-    (launches exact, K2 on ``stats_route``'s tile route, K3 on wgmma), and
+    (launches exact, K2 and K3 on wgmma, K2 over the pitched head), and
     through the server (16 requests), unfused and fused, every answer held
     to ``ar_generate`` under ``near_tie``; then at the config's own 1.25
     the same four runs reported, not held (a token dropped in the verify
@@ -3168,7 +3239,7 @@ def phase_whisper_serve(dev):
     launcher, each request with its own 1500 random frames
     (``serve.request_frames``).  ``--static`` unfused and
     ``--verify-fusion`` on the same weights (8 requests; launches exact,
-    K2 on ``stats_route``'s tile route, K3 never), each answer held to
+    K2 on wgmma over the pitched head, K3 never), each answer held to
     ``ar_generate`` on its frames under ``near_tie``; then the server (16
     requests, max_new 16..64) unfused and fused on the dense cache, and
     paged (page 64) with ``--preemption`` in a pool of two requests' worst
@@ -5362,9 +5433,17 @@ def time_verify_stats(dev, cfg, launches, max_err, T=64, suffix=""):
     chain's T 5 with ``suffix`` "@chain") against the full bf16 lm head
     (openPangu-7B: 153,376 columns, 1.26 GB; every launch reads it from
     HBM, as the live step does), or for a tied model (gemma-2b) against
-    its [V, d] embedding table read in place through ``embed.T``."""
+    its [V, d] embedding table read in place through ``embed.T``.  An
+    untied head is laid out as the model lays it out (``pitch_lm_head``);
+    where that is a pitch past V, the row also gives ``torch.matmul`` on
+    the contiguous head (``library_contig_ms``, the unfused step's
+    product before the pitch), on the whole [d, ceil8(V)] allocation
+    (``library_padded_ms``: the logits' rows 16-byte aligned too, which
+    cuBLAS needs for its Hopper kernels) and K2 over the contiguous head
+    on the ``tile`` route (``tile_ms``, the earlier design), timed in the
+    same call."""
     from repro_torch.kernels.tree_attention import (
-        unembed_verify_stats, unembed_verify_stats_plain)
+        pitch_lm_head, unembed_verify_stats, unembed_verify_stats_plain)
 
     B, d, V = 4, cfg.d_model, cfg.vocab_size
     N = B * T
@@ -5376,6 +5455,9 @@ def time_verify_stats(dev, cfg, launches, max_err, T=64, suffix=""):
     else:
         w = (torch.randn((d, V), generator=gen, device=dev)
              * d ** -0.5).to(torch.bfloat16)
+    contig = w
+    w = pitch_lm_head(w)
+    pitched = w.stride(0) != contig.stride(0)
     cand = torch.randint(0, V, (B, T), generator=gen, device=dev,
                          dtype=torch.int32)
     tmax = torch.ones((B,), device=dev)
@@ -5394,6 +5476,21 @@ def time_verify_stats(dev, cfg, launches, max_err, T=64, suffix=""):
         lambda: unembed_verify_stats_plain(h, w, cand, tmax), 5)
     lib_ms = queued_ms(lambda: torch.matmul(h2, w), 20)
     h_ms = host_ms(kernel, 20)
+    extra, old = {}, ""
+    if pitched:
+        _, old_route = routed(unembed_verify_stats, h, contig, cand, tmax)
+        padded = w.as_strided((d, w.stride(0)), (w.stride(0), 1))
+        extra = {"library_contig_ms": queued_ms(
+                     lambda: torch.matmul(h2, contig), 20),
+                 "library_padded_ms": queued_ms(
+                     lambda: torch.matmul(h2, padded), 20),
+                 "tile_ms": queued_ms(lambda: uncounted(
+                     unembed_verify_stats, h, contig, cand, tmax), 20)}
+        old = (f"; over the head at row pitch {w.stride(0)}: the contiguous "
+               f"head takes the {old_route} route, {extra['tile_ms']:.4f} "
+               f"ms, and torch.matmul on it {extra['library_contig_ms']:.4f} "
+               f"ms, on the whole padded allocation "
+               f"{extra['library_padded_ms']:.4f} ms")
     nbytes = d * V * 2 + N * d * 2 + N * 4 + B * 4 + N * 3 * 4 + N * T * 4
     flops = 2 * N * d * V
     b_ms, b_by = bound(nbytes, flops)
@@ -5405,7 +5502,7 @@ def time_verify_stats(dev, cfg, launches, max_err, T=64, suffix=""):
         f"{plain_ms:.4f} ms, torch.matmul of the product only {lib_ms:.4f} "
         f"ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes, {flops} flops); "
         f"the wrapper's host time {h_ms:.4f} ms per call; at per-row tmax "
-        f"{TMAX_ROWS} {tmax_ms:.4f} ms")
+        f"{TMAX_ROWS} {tmax_ms:.4f} ms{old}")
     return {"name": "unembed_verify_stats"
             + (f"[tied]@{cfg.name}" if cfg.tie_embeddings else "") + suffix,
             "route": "cuda",
@@ -5413,7 +5510,8 @@ def time_verify_stats(dev, cfg, launches, max_err, T=64, suffix=""):
             "replaces": "src/repro/kernels/tree_attention.py:298",
             "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "host_ms": h_ms, "tmax_ms": tmax_ms}
+            "library_ms": lib_ms, "host_ms": h_ms, "tmax_ms": tmax_ms,
+            **extra}
 
 
 def time_fused_qkv(dev, cfg, lens, launches, max_err, ps=0, Ts=(64, 1),
@@ -6076,7 +6174,7 @@ def main() -> int:
                             errs["K3 suffix128"], Ts=SUFFIX_T,
                             suffix="@suffix")]
     # the MoE and VLM families' shapes: K1 at their folds, K2 over their
-    # heads (the tile route at granite-moe's and internvl2's unaligned V),
+    # heads (granite-moe's and internvl2's pitched),
     # K3 at their widths, the commit over their units
     for shape in MOE_VLM_K1:
         rows.append(time_flash_decode(dev, prompt_lens, MAX_NEW,
@@ -6112,7 +6210,7 @@ def main() -> int:
                          D=128, T=CHAIN_T, suffix=f"@{jamba}")]
     # the encoder-decoder's tree step (phase 16's fused static runs): K1 at
     # R 64 (the AR step's R 8 beside it) over 6 kv heads of 64, K2 over
-    # its [384, 51865] head on the tile route, the commit over its 4
+    # its [384, 51865] head, pitched, the commit over its 4
     # decoder units of [6, 64]
     wname, wH, wD, wrows = WHISPER_K1[0]
     rows += [time_flash_decode(dev, prompt_lens, MAX_NEW, whisper["K1"],

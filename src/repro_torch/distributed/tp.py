@@ -45,6 +45,7 @@ from repro_torch.core.engine import build_engine
 from repro_torch.core.tree import TreeBuffers
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import param_axes, shard_leaf, spec_for
+from repro_torch.kernels.tree_attention import pitch_lm_head
 
 _TP_PROPOSERS = ("medusa", "ngram")
 
@@ -192,7 +193,9 @@ class TPSpecEngine:
         """This rank's slices of the global ``params`` under the TP plan
         (``axes``: the logical axes tree, default ``param_axes(cfg)``);
         the spec tree is kept in ``pspecs``.  Sharded leaves are
-        contiguous copies, replicated ones the caller's tensors."""
+        contiguous copies, replicated ones the caller's tensors; the
+        ``lm_head``'s vocabulary slice, a copy of its own, is pitched again
+        (``pitch_lm_head``: its start and row pitch 16-byte aligned)."""
         rules = {"heads": self.axis, "kv_heads": self.axis,
                  "ff": self.axis, "vocab": self.axis}
         axes = param_axes(self.cfg) if axes is None else axes
@@ -204,8 +207,11 @@ class TPSpecEngine:
             # take by global token id, replicated on purpose
             specs["embed"] = ()
         self.pspecs = specs
-        return _map_axes(lambda spec, t: shard_leaf(t, spec, self.rank,
-                                                    self.tp), specs, params)
+        local = _map_axes(lambda spec, t: shard_leaf(t, spec, self.rank,
+                                                     self.tp), specs, params)
+        if "lm_head" in local:
+            local["lm_head"] = pitch_lm_head(local["lm_head"])
+        return local
 
     def init_cache(self, batch: int, max_len: int, n_blocks=None):
         """This rank's shard of the global-shape cache (its kv-head axis cut

@@ -42,7 +42,7 @@
 // the one thread holding each value writes it (one writer per entry, no
 // atomics on the outputs).
 //
-// tile route (f32, or rows TMA cannot take): `verify_stats_tile`, block
+// tile route (f32, or row pitches TMA cannot take): `verify_stats_tile`, block
 // (row tile of 128 rows, vocab tile of 128 columns) computes its logits
 // tile through tile_gemm.cuh (mma.sync for bf16, CUDA-core FMAs for f32),
 // rounds and warps it in shared memory, and writes per-row partials for
@@ -59,6 +59,16 @@
 // hidden tile's) and a K-major descriptor, the tile route through
 // ldmatrix without the transpose.  The sums run in the same order either
 // way.
+//
+// The row pitch (`ldw`, in elements): row k of a [d, V] head starts ldw
+// elements after row k - 1 (a [V, d] table's rows ldw = d apart).  TMA
+// needs every row stride a multiple of 16 bytes, which a contiguous head
+// at a vocabulary such as 49155 or 92553 does not meet, so such a head is
+// laid out once at load at a pitch of ceil8(V) (the pad columns zero, never
+// part of the [d, V] view: `tree_attention.pitch_lm_head`), and both
+// routes read it through ldw.  Neither route reads a column at or past V
+// into the statistics: the wgmma route's map has extent V, and the
+// epilogues mask every column past it.
 #include "hopper_gemm.cuh"
 #include "tile_gemm.cuh"
 
@@ -84,13 +94,13 @@ __global__ void __launch_bounds__(NT, 2) verify_stats_tile(
     const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ cand,
     const float* __restrict__ tmax, float* __restrict__ cand_w, float* __restrict__ pm,
     int* __restrict__ pi, float* __restrict__ pl, int N, int T_nodes, int d, int V,
-    int n_vt, int a_vec, int b_vec) {
+    int ldw, int n_vt, int a_vec, int b_vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* C = reinterpret_cast<float*>(smem);
   const int row0 = blockIdx.x * BM;
   const int vt = blockIdx.y;
   const int col0 = vt * BN;
-  gemm_tile<BM, BN, KM>(h, d, N, row0, w, KM ? d : V, V, col0, d, a_vec, b_vec, smem, C);
+  gemm_tile<BM, BN, KM>(h, d, N, row0, w, ldw, V, col0, d, a_vec, b_vec, smem, C);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BM && row0 + r < N; r += NT / 32) {
@@ -192,18 +202,18 @@ __global__ void __launch_bounds__(MT) verify_stats_merge(
 template <typename T, bool KM>
 int launch(const void* h, const void* w, const void* cand, const void* tmax, void* argm,
            void* m, void* l, void* cand_w, void* pm, void* pi, void* pl, int N,
-           int T_nodes, int d, int V, void* stream) {
+           int T_nodes, int d, int V, int ldw, void* stream) {
   const int n_vt = (V + BN - 1) / BN;
   const int smem = Tile<BM, BN, KM>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       verify_stats_tile<T, KM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int a_vec = vec16(h, d, d), b_vec = KM ? vec16(w, d, d) : vec16(w, V, V);
+  const int a_vec = vec16(h, d, d), b_vec = KM ? vec16(w, ldw, d) : vec16(w, ldw, V);
   const dim3 grid((N + BM - 1) / BM, n_vt);
   cudaStream_t s = (cudaStream_t)stream;
   verify_stats_tile<T, KM><<<grid, NT, smem, s>>>(
       (const T*)h, (const T*)w, (const int*)cand, (const float*)tmax, (float*)cand_w,
-      (float*)pm, (int*)pi, (float*)pl, N, T_nodes, d, V, n_vt, a_vec, b_vec);
+      (float*)pm, (int*)pi, (float*)pl, N, T_nodes, d, V, ldw, n_vt, a_vec, b_vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   verify_stats_merge<<<N, MT, 0, s>>>((const float*)pm, (const int*)pi, (const float*)pl,
@@ -415,15 +425,17 @@ __global__ void __launch_bounds__(StatsCfg::THREADS, 1) verify_stats_wgmma(
 template <bool KM>
 int launch_wgmma(const void* h, const void* w, const void* cand, const void* tmax, void* argm,
                  void* m, void* l, void* cand_w, void* pm, void* pi, void* pl, int N,
-                 int T_nodes, int d, int V, int n_parts, void* stream) {
+                 int T_nodes, int d, int V, int ldw, int n_parts, void* stream) {
   CUtensorMap hm, wm;
   int e = hopper_host::encode_map(&hm, h, d, N, (uint64_t)d * 2, 64,
                                  StatsCfg::BM / StatsCfg::CL);
   // [V, d] (KM): boxes of 64 deep by 64 vocabulary rows; [d, V]: 64
-  // vocabulary columns by 64 deep
+  // vocabulary columns by 64 deep.  Rows lie ldw elements apart; the map's
+  // extent stays V (or d), so TMA zero-fills a box past it and never
+  // reads a pitched head's pad columns
   if (!e)
-    e = KM ? hopper_host::weight_map(&wm, w, d, V, (uint64_t)d * 2, 64, 64)
-           : hopper_host::weight_map(&wm, w, V, d, (uint64_t)V * 2, 64, 64);
+    e = KM ? hopper_host::weight_map(&wm, w, d, V, (uint64_t)ldw * 2, 64, 64)
+           : hopper_host::weight_map(&wm, w, V, d, (uint64_t)ldw * 2, 64, 64);
   if (e) return e;
   auto kernel = verify_stats_wgmma<KM>;
   static bool smem_done[hopper_host::kMaxDevices] = {};
@@ -457,16 +469,18 @@ int launch_wgmma(const void* h, const void* w, const void* cand, const void* tma
 }  // namespace
 
 // The tile route.  hidden [N, d] row-major and w in the same dtype: [d, V]
-// row-major, or with w_kmajor the [V, d] table row-major; candidates
+// with rows ldw >= V elements apart, or with w_kmajor the [V, d] table
+// with rows ldw >= d apart; candidates
 // [N / T, T] int32; tmax [N / T] f32; argm [N] int32; m, l [N] f32; cand_w
 // [N, T] f32; partials pm, pl [N, n_vt] f32 and pi [N, n_vt] int32
 // (scratch), n_vt = ceil(V / 128).  Two launches on `stream`; returns
 // cudaGetLastError() (0 on success).
-#define STATS_ARGS h, w, cand, tmax, argm, m, l, cand_w, pm, pi, pl, N, T_nodes, d, V
+#define STATS_ARGS h, w, cand, tmax, argm, m, l, cand_w, pm, pi, pl, N, T_nodes, d, V, ldw
 extern "C" int verify_stats_f32(const void* h, const void* w, const void* cand,
                                 const void* tmax, void* argm, void* m, void* l,
                                 void* cand_w, void* pm, void* pi, void* pl, int N,
-                                int T_nodes, int d, int V, int w_kmajor, void* stream) {
+                                int T_nodes, int d, int V, int ldw, int w_kmajor,
+                                void* stream) {
   return w_kmajor ? launch<float, true>(STATS_ARGS, stream)
                   : launch<float, false>(STATS_ARGS, stream);
 }
@@ -474,7 +488,8 @@ extern "C" int verify_stats_f32(const void* h, const void* w, const void* cand,
 extern "C" int verify_stats_bf16(const void* h, const void* w, const void* cand,
                                  const void* tmax, void* argm, void* m, void* l,
                                  void* cand_w, void* pm, void* pi, void* pl, int N,
-                                 int T_nodes, int d, int V, int w_kmajor, void* stream) {
+                                 int T_nodes, int d, int V, int ldw, int w_kmajor,
+                                 void* stream) {
   return w_kmajor ? launch<__nv_bfloat16, true>(STATS_ARGS, stream)
                   : launch<__nv_bfloat16, false>(STATS_ARGS, stream);
 }
@@ -482,13 +497,13 @@ extern "C" int verify_stats_bf16(const void* h, const void* w, const void* cand,
 // The wgmma route, bf16 only: arguments as above with partials
 // [N, n_parts]: n_parts blocks in clusters of 2 that share each hidden
 // tile, n_parts even and at most 2 ceil(V / 128); h, w and their row
-// strides 16-byte aligned.  The head's map is cached across calls.  Two
+// strides (d and ldw) 16-byte aligned.  The head's map is cached across calls.  Two
 // launches on `stream`.
 extern "C" int verify_stats_bf16_wgmma(const void* h, const void* w, const void* cand,
                                        const void* tmax, void* argm, void* m, void* l,
                                        void* cand_w, void* pm, void* pi, void* pl, int N,
-                                       int T_nodes, int d, int V, int w_kmajor, int n_parts,
-                                       void* stream) {
+                                       int T_nodes, int d, int V, int ldw, int w_kmajor,
+                                       int n_parts, void* stream) {
   const int n_vt = (V + StatsCfg::BN - 1) / StatsCfg::BN;
   if (n_parts < StatsCfg::CL || n_parts % StatsCfg::CL || n_parts / StatsCfg::CL > n_vt)
     return (int)cudaErrorInvalidValue;

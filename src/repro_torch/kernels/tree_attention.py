@@ -19,15 +19,15 @@ tile arrives by 16-byte ``cp.async`` copies (the design is in the source).
 
 ``unembed_verify_stats`` replaces ``unembed_verify_stats`` of the same
 reference file (body ``_verify_stats_kernel``) with ``csrc/verify_stats.cu``,
-over an lm head stored [d, V] or a tied model's [V, d] embedding table read
-in place (``weight_layout``):
+over an lm head stored [d, V] (at a row pitch of its own, ``pitch_lm_head``)
+or a tied model's [V, d] embedding table read in place (``weight_layout``):
 a first launch leaves per-row partial statistics in vocabulary order and a
 second merges them in that order.  Two routes make the partials, chosen
 per launch by ``stats_plan``: the ``"wgmma"`` route (bf16, 16-byte aligned
-rows: the main path) is a persistent grid of one block per SM, in
+row pitch: the main path) is a persistent grid of one block per SM, in
 clusters of 2 that share each hidden tile, walking their vocabulary tiles
 on ``csrc/hopper_gemm.cuh``'s TMA + ``wgmma`` mainloop with 256 rows a
-tile; the ``"tile"`` route (f32, or rows TMA cannot take) keeps one block
+tile; the ``"tile"`` route (f32, or a pitch TMA cannot take) keeps one block
 per (128 rows, 128 columns) tile on ``csrc/tile_gemm.cuh`` (the design of
 both is in the source).
 
@@ -380,39 +380,73 @@ _STATS_TILE_V = 128   # vocabulary columns per tile, both routes of the kernel
 _STATS_CLUSTER = 2    # wgmma route: blocks of a cluster share each hidden tile
 
 
-def stats_plan(N, d, V, dtype, aligned=True, n_sm=132, layout="dv"):
+def stats_plan(N, d, V, dtype, aligned=True, n_sm=132, layout="dv",
+               ldw=None):
     """(route, n_parts) of one ``unembed_verify_stats`` launch on the card,
     for N rows, depth d and V vocabulary columns of a head in ``layout``
-    (``weight_layout``); the partials are [N, n_parts] each (max, argmax,
-    sum-exp).
+    (``weight_layout``) whose rows lie ``ldw`` elements apart (its
+    ``stride(0)`` as the kernel reads it: V for a contiguous [d, V] head,
+    d for a [V, d] table, by default); the partials are [N, n_parts] each
+    (max, argmax, sum-exp).
 
     ``"wgmma"`` (bf16, ``aligned`` and every row TMA reads a multiple of
-    16 bytes: d, and for a [d, V] head V, multiples of 8): a persistent
+    16 bytes: d, and for a [d, V] head its pitch ``ldw``, multiples of 8;
+    an unaligned V takes it at a pitched head, ``pitch_lm_head``): a persistent
     grid of at most one block per SM, in clusters of 2 blocks that share
     each hidden tile, each cluster owning a run of at least one 128-column
     vocabulary tile; one partial per row and block.  ``"tile"`` otherwise:
     one partial per row and vocabulary tile."""
     n_tiles = -(-V // _STATS_TILE_V)
+    if ldw is None:
+        ldw = V if layout == "dv" else d
     if dtype != torch.bfloat16 or not aligned or d % 8 \
-            or (layout == "dv" and V % 8):
+            or (layout == "dv" and ldw % 8):
         return "tile", n_tiles
     return "wgmma", _STATS_CLUSTER * min(n_sm // _STATS_CLUSTER, n_tiles)
 
 
 def weight_layout(w) -> str:
     """How the [d, V] unembedding weight ``w`` lies in memory: ``"dv"``
-    (row-major, V contiguous: an untied lm head) or ``"vd"`` (the
+    (V contiguous, rows ``w.stride(0) >= V`` elements apart: an untied lm
+    head, contiguous or pitched by ``pitch_lm_head``) or ``"vd"`` (the
     transposed view of a row-major [V, d] table, d contiguous: a tied
     model's ``embed.T``).  Any other strides raise: the kernel reads the
     weight where it lies and never copies it."""
     d, V = w.shape
-    if w.stride(1) == 1 and (w.stride(0) == V or d == 1):
+    if w.stride(1) == 1 and (w.stride(0) >= V or d == 1):
         return "dv"
     if w.stride(0) == 1 and (w.stride(1) == d or V == 1):
         return "vd"
     raise ValueError(f"unembed_verify_stats: w {tuple(w.shape)} with strides "
                      f"{w.stride()} is neither [d, V] row-major nor the "
                      f"transpose of a row-major [V, d] table")
+
+
+def pitch_lm_head(w):
+    """An untied [d, V] lm head laid out at a row pitch TMA can read: for
+    a head whose rows are not 16-byte aligned (a contiguous head with V
+    not a multiple of 8, such as granite-moe's 49155, internvl2's 92553 or
+    whisper-tiny's 51865), the ``[:, :V]`` view of a zero-filled
+    [d, ceil8(V)] allocation on the head's device and in its dtype, the
+    values copied in once; any other tensor (an aligned head, a tied
+    model's ``embed.T``, a head already pitched) comes back unchanged.
+    The view keeps the head's shape and values: only its ``stride(0)``
+    changes, which ``unembed_verify_stats`` passes to the kernel as the
+    row pitch.  Extra memory: d (ceil8(V) - V) elements."""
+    if w.dim() != 2 or w.stride(1) != 1 \
+            or (w.stride(0) % 8 == 0 and w.storage_offset() % 8 == 0):
+        return w
+    d, V = w.shape
+    out = torch.zeros((d, -(-V // 8) * 8), dtype=w.dtype,
+                      device=w.device)[:, :V]
+    out.copy_(w)
+    return out
+
+
+def is_pitched(w) -> bool:
+    """Whether ``w`` is a [d, V] head whose rows lie further apart than V
+    elements (a view of a wider allocation, as ``pitch_lm_head`` gives)."""
+    return w.dim() == 2 and w.stride(1) == 1 and w.stride(0) > w.shape[1]
 
 
 def stats_operand(w, layout=None):
@@ -439,7 +473,7 @@ def _stats_fn(dtype, route="tile"):
         name += "_wgmma"
     fn = getattr(library("verify_stats"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + \
             [ctypes.c_int] * (1 if route == "wgmma" else 0) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -477,8 +511,10 @@ def unembed_verify_stats(hidden, w, candidates, tmax, layout=None):
     """Fused unembed + verification statistics.
 
     hidden [B, T, d] f32/bf16; w [d, V] unembedding weight (cast to
-    hidden's dtype, as ``unembed`` casts it): an lm head stored [d, V], or
-    a tied model's ``embed.T``, the transposed view of its [V, d] table,
+    hidden's dtype, as ``unembed`` casts it): an lm head stored [d, V]
+    with its rows ``w.stride(0) >= V`` elements apart (the kernel's row
+    pitch; ``pitch_lm_head`` lays out a head whose rows TMA cannot read),
+    or a tied model's ``embed.T``, the transposed view of its [V, d] table,
     which the kernel reads in place (``layout``: ``"dv"`` or ``"vd"``, as
     ``weight_layout`` finds it when None; other strides raise);
     candidates [B, T] int32 in [0, V); tmax [B] f32 warp temperatures
@@ -505,16 +541,21 @@ def unembed_verify_stats(hidden, w, candidates, tmax, layout=None):
     refuse_fake("unembed_verify_stats", hidden, w, candidates, tmax)
     _check_stats_args(hidden, w, candidates, tmax)
     hidden = hidden.contiguous()
-    table, layout = stats_operand(w.to(hidden.dtype), layout)
+    if w.dtype != hidden.dtype:
+        # the cast is a copy that keeps the strides (a pitched head's pitch)
+        w = torch.empty_strided(w.shape, w.stride(), dtype=hidden.dtype,
+                                device=w.device).copy_(w)
+    table, layout = stats_operand(w, layout)
     candidates, tmax = candidates.contiguous(), tmax.contiguous()
     B, T, d = hidden.shape
     V = w.shape[1]
+    ldw = table.stride(0)
     dev = hidden.device
     route, n_parts = stats_plan(
-        B * T, d, V, hidden.dtype, aligned16((hidden.data_ptr(),
-                                              table.data_ptr())),
+        B * T, d, V, hidden.dtype,
+        aligned16((hidden.data_ptr(), table.data_ptr()), (ldw,)),
         _n_sm(dev.index if dev.index is not None
-              else torch.cuda.current_device()), layout)
+              else torch.cuda.current_device()), layout, ldw)
     f32 = torch.float32
     argm = torch.empty((B, T), dtype=torch.int32, device=dev)
     m = torch.empty((B, T), dtype=f32, device=dev)
@@ -528,7 +569,7 @@ def unembed_verify_stats(hidden, w, candidates, tmax, layout=None):
         hidden.data_ptr(), table.data_ptr(), candidates.data_ptr(),
         tmax.data_ptr(), argm.data_ptr(), m.data_ptr(), l.data_ptr(),
         cand_w.data_ptr(), pm.data_ptr(), pi.data_ptr(), pl.data_ptr(),
-        B * T, T, d, V, 1 if layout == "vd" else 0, *extra,
+        B * T, T, d, V, ldw, 1 if layout == "vd" else 0, *extra,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"unembed_verify_stats: CUDA launch ({route} "

@@ -92,6 +92,7 @@ from repro_torch.configs.registry import ALL_ARCHS, get_config
 from repro_torch.core import medusa as M
 from repro_torch.core.engine import SpecEngine, build_engine
 from repro_torch.core.proposers import DraftModelProposer
+from repro_torch.kernels.tree_attention import pitch_lm_head
 from repro_torch.models.api import get_model
 from repro_torch.models.frontends import frontend_embeds
 from repro_torch.runtime import resolve_device
@@ -609,6 +610,9 @@ def main(argv=None, weights=None) -> Served:
     pps = {}
     if weights is not None:
         params, pps[args.proposer] = weights
+        if "lm_head" in params:
+            # weights made elsewhere: the head at the verify kernel's pitch
+            params = dict(params, lm_head=pitch_lm_head(params["lm_head"]))
     elif "medusa" in engines:
         params, pps["medusa"] = build_model(cfg, args.seed,
                                             engines["medusa"].dtree.K, dev)

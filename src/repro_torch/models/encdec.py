@@ -38,6 +38,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paging as P
 from repro_torch.kernels import quant as Q
+from repro_torch.kernels.tree_attention import pitch_lm_head
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (CROSS_KEY, PAGES_KEY,
                                             _commit_attn_entry, _write_prefix,
@@ -79,7 +80,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=None):
     token table ``embed`` [V, d], ``pos_enc`` [frontend_len, d],
     ``pos_dec`` [max_position, d], ``frontend_proj`` [frontend_dim, d],
     the stacked ``enc_units`` / ``dec_units``, ``enc_final``,
-    ``final_norm`` and the untied ``lm_head`` [d, V]."""
+    ``final_norm`` and the untied ``lm_head`` [d, V] (at a 16-byte row
+    pitch, ``pitch_lm_head``: whisper-tiny's V 51865 is odd)."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
     dt = torch_dtype(cfg.param_dtype)
@@ -95,7 +97,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=None):
         "enc_final": L.init_norm(cfg, dev),
         "dec_units": _init_dec_units(gen, cfg, cfg.num_layers),
         "final_norm": L.init_norm(cfg, dev),
-        "lm_head": L.dense_init(gen, (d, cfg.vocab_size), dt),
+        "lm_head": pitch_lm_head(L.dense_init(gen, (d, cfg.vocab_size), dt)),
     }
 
 
@@ -126,7 +128,8 @@ def _check_positions(cfg: ModelConfig, rows: int):
 
 
 def unembed_weight(params):
-    """(w, layout): the untied ``lm_head`` [d, V], V contiguous ("dv")."""
+    """(w, layout): the untied ``lm_head`` [d, V], V contiguous ("dv",
+    pitched)."""
     return params["lm_head"], "dv"
 
 

@@ -52,6 +52,7 @@ from repro_torch.kernels.cache_update import (commit_path_stacked,
 # the decode step's in-place tree-row write (the reference's _update_rows)
 from repro_torch.kernels.cache_update import commit_rows_plain as _update_rows
 from repro_torch.kernels.ops import tree_attention
+from repro_torch.kernels.tree_attention import pitch_lm_head
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.runtime import resolve_device, torch_dtype
@@ -152,7 +153,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=None):
     """Full model params on ``gen.device``, drawn from ``gen``.  Shapes and
     init scales follow the reference; the random bits do not (tests carry
     the reference's weights across with ``bridge.to_torch`` instead).  A
-    config with a frontend adds ``frontend_proj`` [frontend_dim, d]."""
+    config with a frontend adds ``frontend_proj`` [frontend_dim, d].  An
+    untied ``lm_head`` whose V is not a multiple of 8 is laid out at a
+    16-byte row pitch (``pitch_lm_head``: same shape and values, rows
+    ceil8(V) apart) so that the verify kernel's TMA route can read it."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
     nu = n_units(cfg)
@@ -165,8 +169,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=None):
         "final_norm": L.init_norm(cfg, gen.device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
-                                         dt)
+        params["lm_head"] = pitch_lm_head(L.dense_init(
+            gen, (cfg.d_model, cfg.vocab_size), dt))
     if cfg.frontend:
         fd = cfg.frontend_dim or cfg.d_model
         params["frontend_proj"] = L.dense_init(gen, (fd, cfg.d_model), dt)
@@ -197,7 +201,8 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
 
 def unembed_weight(params):
     """(w, layout): the unembedding weight as a [d, V] tensor and how its
-    storage lies.  ``"dv"``: the untied ``lm_head`` [d, V], V contiguous.
+    storage lies.  ``"dv"``: the untied ``lm_head`` [d, V], V contiguous
+    (its rows at a 16-byte pitch past V where V is not a multiple of 8).
     ``"vd"``: a tied model's ``embed.T``, a view of the [V, d] table with
     d contiguous (no copy is made: the verify kernel reads the table in
     place).  Every reader of the unembedding weight takes it from here."""

@@ -25,6 +25,8 @@ import msgpack
 import numpy as np
 import torch
 
+from repro_torch.kernels.tree_attention import is_pitched, pitch_lm_head
+
 
 def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
@@ -72,7 +74,9 @@ def _to_numpy(v) -> tuple:
 
 def _to_tensor(a: np.ndarray, dtype: str, like=None) -> torch.Tensor:
     """The stored array as a tensor (sharing the loaded array's memory), on
-    ``like``'s device when given."""
+    ``like``'s device when given, and at a row pitch of its own where
+    ``like`` is a pitched lm head (a [d, V] view of a wider allocation,
+    ``pitch_lm_head``)."""
     if not a.flags.writeable:
         a = a.copy()
     if dtype == "bfloat16":
@@ -81,6 +85,8 @@ def _to_tensor(a: np.ndarray, dtype: str, like=None) -> torch.Tensor:
         t = torch.from_numpy(a)
     if isinstance(like, torch.Tensor):
         t = t.to(like.device)
+        if is_pitched(like):
+            t = pitch_lm_head(t)
     return t
 
 

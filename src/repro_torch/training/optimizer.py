@@ -48,6 +48,11 @@ def tree_leaves(tree) -> list:
 
 
 def adamw_init(params) -> AdamWState:
+    """Zero moments like ``params``.  ``zeros_like`` of a pitched lm head
+    (a [d, V] view of a wider allocation, ``pitch_lm_head``) is a
+    contiguous [d, V]: the moments need no pitch, since only the head
+    itself reaches the verify kernel; ``adamw_update`` writes every leaf
+    in place, so the head keeps its pitch across steps."""
     dev = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=tree_map(torch.zeros_like, params),

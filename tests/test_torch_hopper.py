@@ -11,6 +11,11 @@ held on the CPU.
 * The K2 partials' sizing: one per row and block on the wgmma route, one
   per row and 128-column tile on the tile route.
 * On CPU tensors neither wrapper counts a launch on any route.
+* An lm head laid out at a 16-byte row pitch (``pitch_lm_head``, for V
+  not a multiple of 8): its layout, its route by the pitch, the plain
+  statistics over it bitwise those over the contiguous head with the pad
+  poisoned; on the card K2 over it on both routes at V 4099 and at
+  granite-moe's, internvl2's and whisper-tiny's heads.
 * K1's grid plan (``decode_plan``): rows a block, splits of whole 64-column
   tiles, the partials' size, at the main path's shapes and at
   ``tests/test_kernels.py::CASES``, from host-known ints only (never
@@ -33,6 +38,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import cache_update as CU
 from repro_torch.kernels import tree_attention as TA
+from repro_torch.runtime import resolve_device
 
 CSRC = pathlib.Path(build.__file__).resolve().parent / "csrc"
 BF16, F32 = torch.bfloat16, torch.float32
@@ -248,7 +254,9 @@ def test_no_k1_route_counted_on_the_cpu():
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
+    # the plain versions' bf16 products reduce in f32, as every entry
+    # point pins them (cuBLAS may otherwise sum split-K partials in bf16)
+    return resolve_device("cuda")
 
 
 @pytest.mark.cuda
@@ -454,3 +462,206 @@ def test_cuda_stats_and_qkv_launch_on_a_second_device():
                 err = ((g.float() - r.float()).abs()
                        / r.float().abs().clamp(min=1.0)).max().item()
                 assert err < 2e-2
+
+
+# ------------------------------------------- an lm head at a 16-byte pitch
+
+# (d, V) of the heads whose V is not a multiple of 8: an edge case and
+# granite-moe-1b-a400m's, internvl2-26b's and whisper-tiny's
+PITCHED = [(512, 4099), (1024, 49155), (6144, 92553), (384, 51865)]
+PITCHED_IDS = ["V4099", "granite-moe", "internvl2", "whisper-tiny"]
+
+
+def _full(w):
+    """The whole [d, pitch] allocation under a pitched [d, V] view."""
+    return w.as_strided((w.shape[0], w.stride(0)), (w.stride(0), 1))
+
+
+@pytest.mark.parametrize("v", [259, 4099, 49155, 92553, 51865, 256, 4096])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_pitch_lm_head(v, dtype):
+    """``pitch_lm_head`` puts a [d, V] head whose V is not a multiple of 8
+    at a row pitch of ceil8(V): the same shape and values, the pad columns
+    zero and outside the view; an aligned head, a pitched one and a tied
+    model's ``embed.T`` come back as they are."""
+    d = 6
+    w = torch.randn((d, v)).to(dtype)
+    p = TA.pitch_lm_head(w)
+    if v % 8 == 0:
+        assert p is w
+        return
+    pitch = -(-v // 8) * 8
+    assert p.shape == w.shape and p.stride() == (pitch, 1)
+    assert p.dtype == dtype and p.storage_offset() == 0
+    assert torch.equal(p, w)
+    assert p.untyped_storage().nbytes() == d * pitch * p.element_size()
+    assert torch.equal(_full(p)[:, v:], torch.zeros((d, pitch - v),
+                                                    dtype=dtype))
+    assert TA.pitch_lm_head(p) is p
+    assert TA.weight_layout(p) == "dv"
+    tied = torch.randn((v, d)).to(dtype).T
+    assert TA.pitch_lm_head(tied) is tied
+    # a column slice of a wider head whose pitch is odd is laid out anew
+    odd = torch.randn((d, v + 2)).to(dtype)[:, :v]
+    q = TA.pitch_lm_head(odd)
+    assert q.stride(0) == pitch and torch.equal(q, odd)
+
+
+@pytest.mark.parametrize("N, d, v, dtype, ldw, aligned, want", [
+    (256, 1024, 49155, BF16, 49160, True, ("wgmma", 132)),  # granite-moe
+    (256, 6144, 92553, BF16, 92560, True, ("wgmma", 132)),  # internvl2
+    (256, 384, 51865, BF16, 51872, True, ("wgmma", 132)),   # whisper-tiny
+    (128, 512, 4099, BF16, 4104, True, ("wgmma", 66)),      # 33 tiles
+    (256, 1024, 49155, F32, 49160, True, ("tile", 385)),    # f32: tile
+    (256, 1024, 49155, BF16, 49155, True, ("tile", 385)),   # contiguous
+    (256, 1024, 49155, BF16, 49157, True, ("tile", 385)),   # odd pitch
+    (256, 1024, 49155, BF16, 49156, True, ("tile", 385)),   # 8-byte pitch
+    (256, 1024, 49155, BF16, 49160, False, ("tile", 385)),  # pointer off
+])
+def test_stats_plan_over_a_pitched_head(N, d, v, dtype, ldw, aligned, want):
+    """The route follows the head's row pitch, not V: a [d, V] head whose
+    rows lie a multiple of 8 elements apart takes the wgmma route in bf16
+    whatever V is; the wrapper's alignment check holds the pitch among
+    its strides (``aligned16``)."""
+    assert TA.stats_plan(N, d, v, dtype, aligned, 132, "dv", ldw) == want
+    assert CU.aligned16((0, 512), (ldw,)) == (ldw % 8 == 0)
+
+
+def test_weight_layout_takes_a_pitch_and_refuses_other_strides(monkeypatch):
+    """A pitched head is ``"dv"``, and the kernel's operand is its own
+    storage (no copy: ``contiguous`` / ``clone`` are not called), read at
+    its pitch; a row stride below V, or columns not contiguous, raise."""
+    w = TA.pitch_lm_head(torch.randn((48, 259)).to(BF16))
+
+    def refuse(*a, **k):
+        raise AssertionError("the lm head was copied")
+
+    monkeypatch.setattr(torch.Tensor, "contiguous", refuse)
+    monkeypatch.setattr(torch.Tensor, "clone", refuse)
+    table, found = TA.stats_operand(w.to(BF16), "dv")
+    assert found == "dv" and table.data_ptr() == w.data_ptr()
+    assert table.stride() == (264, 1)
+    monkeypatch.undo()
+    base = torch.randn(48 * 259)
+    with pytest.raises(ValueError, match="neither"):
+        TA.weight_layout(base.as_strided((48, 259), (258, 1)))
+    with pytest.raises(ValueError, match="neither"):
+        TA.weight_layout(torch.randn((48, 518))[:, ::2])
+    with pytest.raises(ValueError, match="laid out"):
+        TA.stats_operand(w, "vd")
+
+
+@pytest.mark.parametrize("negative", [False, True],
+                         ids=["random", "negative"])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_plain_stats_over_a_pitched_head_are_bitwise(dtype, negative):
+    """The plain statistics (and the wrapper on the CPU) over a pitched
+    head equal those over the contiguous head bit for bit, with 1e4 in
+    every pad column (a pad column read as a logit would win every row);
+    ``negative``: every real logit is below -20, where a pad column read
+    as 0 would win."""
+    rng = np.random.default_rng(3)
+    B, T, d, v = 2, 8, 32, 259
+    h = torch.from_numpy(rng.standard_normal((B, T, d))).to(dtype)
+    w = torch.from_numpy(rng.standard_normal((d, v)) * d ** -0.5).to(dtype)
+    if negative:
+        h[..., 0] = 8.0
+        w[0, :] = -4.0
+    p = TA.pitch_lm_head(w)
+    _full(p)[:, v:] = 1e4
+    cand = torch.from_numpy(rng.integers(0, v, (B, T))).int()
+    cand[:, -1] = v - 1
+    tmax = torch.tensor([1.0, 0.7])
+    for fn in (TA.unembed_verify_stats_plain, TA.unembed_verify_stats):
+        for kw in ({}, {"block_v": 128}):
+            if kw and fn is TA.unembed_verify_stats:
+                continue
+            got = fn(h, p, cand, tmax, **kw)
+            want = TA.unembed_verify_stats_plain(h, w, cand, tmax, **kw)
+            for g, r in zip(got, want):
+                assert torch.equal(g, r)
+            assert (got[0] < v).all()
+    if negative:
+        assert (want[1] < 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["greedy", "tmax", "poison", "negative"])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("d, v", PITCHED, ids=PITCHED_IDS)
+def test_cuda_stats_over_a_pitched_head(d, v, dtype, case):
+    """K2 over a [d, V] head laid out by ``pitch_lm_head`` (V not a
+    multiple of 8): bf16 on the wgmma route, f32 on the tile route, each
+    reading the rows at their pitch, against the plain version: greedy,
+    at per-row temperatures, with 1e4 in the pad columns, and with every
+    real logit negative (a pad column read as 0 would win).  f32 argm
+    exactly; bf16 argm up to a near-tie of one bf16 step, m and cand_w
+    within 2e-2 of their magnitude (3e-5 in f32), l within the same."""
+    dev = _cuda()
+    B, T = 4, 64
+    gen = torch.Generator(device=dev).manual_seed(v)
+    h = torch.randn((B, T, d), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((d, v), generator=gen, device=dev) * d ** -0.5).to(dtype)
+    if case == "negative":
+        h[..., 0] = 8.0
+        w[0, :] = -4.0
+    w = TA.pitch_lm_head(w)
+    assert w.stride(0) == -(-v // 8) * 8
+    if case == "poison":
+        _full(w)[:, v:] = 1e4
+    cand = torch.randint(0, v, (B, T), generator=gen, device=dev,
+                         dtype=torch.int32)
+    cand[:, -1] = v - 1
+    tmax = (torch.tensor([0.7, 1.0, 1e-6, 2.0], device=dev) if case == "tmax"
+            else torch.ones((B,), device=dev))
+    route = "wgmma" if dtype == BF16 else "tile"
+    before = dict(TA.unembed_verify_stats.launches_by_route)
+    argm, m, l, cw = TA.unembed_verify_stats(h, w, cand, tmax)
+    assert TA.unembed_verify_stats.launches_by_route[route] \
+        == before[route] + 1
+    rargm, rm, rl, rcw = TA.unembed_verify_stats_plain(h, w, cand, tmax)
+    torch.cuda.synchronize()
+    assert ((argm >= 0) & (argm < v)).all()
+    if case == "negative":
+        assert (rm < 0).all() and (m < 0).all()
+    t2, t3 = tmax[:, None], tmax[:, None, None]
+    tol = 2e-2 if dtype == BF16 else 3e-5
+    assert ((m - rm).abs() * t2 / (rm * t2).abs().clamp(min=1.0)
+            ).max().item() < tol
+    assert ((cw - rcw).abs() * t3 / (rcw * t3).abs().clamp(min=1.0)
+            ).max().item() < tol
+    logits = torch.matmul(h, w).float() / t3
+    l_own = torch.exp(logits - m[..., None]).sum(-1)
+    assert torch.minimum((l / rl - 1).abs(), (l / l_own - 1).abs()
+                         ).max().item() < tol
+    if dtype == F32:
+        assert torch.equal(argm, rargm)
+        return
+    differ = argm != rargm
+    if differ.any():
+        gap = rm[differ] - logits[differ, argm[differ].long()]
+        assert (gap <= 2.0 ** (torch.floor(torch.log2(rm[differ].abs())) - 7)
+                ).all()
+
+
+@pytest.mark.cuda
+def test_cuda_stats_keep_a_pitch_through_the_cast():
+    """A pitched f32 head under bf16 hidden states: the wrapper's cast to
+    bf16 is a copy at the same pitch, so the launch takes the wgmma route
+    (a contiguous copy would take the tile route)."""
+    dev = _cuda()
+    d, v = 1024, 49155
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h = torch.randn((4, 64, d), generator=gen, device=dev).to(BF16)
+    w = TA.pitch_lm_head(torch.randn((d, v), generator=gen, device=dev)
+                         * d ** -0.5)
+    cand = torch.randint(0, v, (4, 64), generator=gen, device=dev,
+                         dtype=torch.int32)
+    tmax = torch.ones((4,), device=dev)
+    before = dict(TA.unembed_verify_stats.launches_by_route)
+    got = TA.unembed_verify_stats(h, w, cand, tmax)
+    assert TA.unembed_verify_stats.launches_by_route["wgmma"] \
+        == before["wgmma"] + 1
+    ref = TA.unembed_verify_stats_plain(h, w, cand, tmax)
+    for g, r in zip(got[1:], ref[1:]):
+        assert ((g - r).abs() / r.abs().clamp(min=1.0)).max() < 2e-2
